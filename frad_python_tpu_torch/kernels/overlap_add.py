@@ -1,0 +1,82 @@
+"""`overlap_add`: the decoder's overlap-add crossfade and PCM emit.
+
+The port of the Pallas kernel `crossfade_frames` (frad_python_tpu/
+research/pallas_kernels.py), widened to all of the JAX package's
+`overlap_add_core` plus the s16 emit and the fragment slice of its fused
+P1 decode. `overlap_add` launches the CUDA kernel (csrc/overlap_add.cu)
+for CUDA tensors and runs `overlap_add_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import build
+
+
+@functools.lru_cache(maxsize=32)
+def crossfade_window(olap: int, device: torch.device) -> torch.Tensor:
+    """The [olap] float32 fade-in window, computed in float32 in the same
+    operation order as the JAX overlap-add (its f32 cos may differ from
+    numpy's by an ulp)."""
+    a = np.arange(1, olap + 1, dtype=np.float32)
+    w = np.float32(0.5) * (np.float32(1.0) - np.cos(np.float32(np.pi) * a / np.float32(olap + 1)))
+    return torch.from_numpy(w.astype(np.float32)).to(device)
+
+
+def overlap_add_plain(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
+    """pcm [B, C, N] float32 frames, w [olap] window ->
+    (out [B, cut, C] int16 (x32768, clamped) or float32, frag [olap, C] float32).
+
+    Frame 0's head passes through; frame b >= 1's first olap samples are
+    head*w + prev[cut:cut+olap]*reverse(w); samples [olap:cut] are copied;
+    frag is the last frame's raw [cut:cut+olap] tail."""
+    olap = w.shape[0]
+    frames = pcm.transpose(1, 2)                               # [B, N, C]
+    out = frames[:, :cut, :].clone()
+    if olap:
+        out[1:, :olap, :] = (frames[1:, :olap, :] * w[:, None]
+                             + frames[:-1, cut:cut + olap, :] * w.flip(0)[:, None])
+    frag = frames[-1, cut:cut + olap, :].clone()
+    if i16:
+        out = torch.clamp(torch.round(out * 32768.0), -32768, 32767).to(torch.int16)
+    return out, frag
+
+
+def overlap_add(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
+    """See `overlap_add_plain`; one kernel launch for CUDA tensors."""
+    if pcm.device.type == "cpu" and w.device.type == "cpu":
+        return overlap_add_plain(pcm, w, cut, i16)
+    if pcm.device.type != "cuda" or w.device != pcm.device:
+        raise ValueError(f"overlap_add: tensors on {pcm.device} and {w.device}")
+    if pcm.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError(f"overlap_add: float32 inputs required, got {pcm.dtype}, {w.dtype}")
+    if pcm.dim() != 3 or w.dim() != 1:
+        raise ValueError(f"overlap_add: pcm [B, C, N] and w [olap] required, got "
+                         f"{tuple(pcm.shape)}, {tuple(w.shape)}")
+    b, c, n = pcm.shape
+    olap = w.shape[0]
+    if b < 1 or cut < 0 or cut + olap > n or olap > cut:
+        raise ValueError(f"overlap_add: bad geometry B={b} N={n} olap={olap} cut={cut}")
+    if not (pcm.is_contiguous() and w.is_contiguous()):
+        raise ValueError("overlap_add: contiguous inputs required")
+    out = torch.empty((b, cut, c), dtype=torch.int16 if i16 else torch.float32,
+                      device=pcm.device)
+    frag = torch.empty((olap, c), dtype=torch.float32, device=pcm.device)
+    lib = build.library()
+    err = lib.frad_overlap_add(
+        ctypes.c_void_p(pcm.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(frag.data_ptr()),
+        b, c, n, olap, cut, int(bool(i16)),
+        ctypes.c_void_p(torch.cuda.current_stream(pcm.device).cuda_stream))
+    build.check("frad_overlap_add", err)
+    overlap_add.launches += 1
+    return out, frag
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+overlap_add.launches = 0

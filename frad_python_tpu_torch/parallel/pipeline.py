@@ -1,0 +1,397 @@
+"""Whole-file batch codec pipeline, Profile 1.
+
+`batch_encode` plans every frame of a stream up front, runs the tensor
+domain on one device as one call over the uniform frames (PCM upload ->
+DCT/mask/quant core -> EGR bit-pack -> compaction of each frame's used
+words), and finishes the byte domain on the host (EGR thresholds,
+DEFLATE, ASFH framing). `batch_decode` parses the frames on the host,
+decodes each uniform run with one device call (dequant -> IDCT ->
+overlap-add), and carries the overlap fragment across runs and
+terminators.
+
+Streams are format-identical to the JAX package's `parallel.pipeline`:
+fed the same quantised symbols, the packer and framer give the same
+bytes.
+
+Not ported yet, and raising NotImplementedError: profiles 0, 2 and 4,
+ECC, float64 compute, and the cases the JAX package hands to its
+streaming Decoder (a stream with no payload frame, an unparsable tail, a
+fragment longer than the next run's emit window).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from ..common import FRM_SIGN
+from ..container.asfh import ASFH, COMPLETE, FORCE_FLUSH
+from ..models import batch, profile1
+from ..models.profiles import compact
+from ..ops import bitpack, golomb, policy, psycho
+from ..ops.window import hanning_in_overlap
+
+def plan_frames(total: int, fsize: int, overlap_ratio: int, is_compact: bool
+                ) -> tuple[list[tuple[int, int]], int]:
+    """The streaming engine's read plan.
+
+    Returns ([(start, length), ...], n_terminators). Frame i covers
+    samples [start, start+length); overlapping regions are re-read,
+    mirroring the fragment carry. n_terminators is how many force-flush
+    headers a process()+flush() sequence would emit (compact only).
+    """
+    n = compact.get_samples_min_ge(fsize) if is_compact else fsize
+    olap_active = is_compact and overlap_ratio > 1
+
+    frames: list[tuple[int, int]] = []
+    pos = 0
+    frag = 0
+    while True:
+        new = n - frag
+        if pos + new > total:
+            break
+        frames.append((pos - frag, n))
+        frag = (n - n * (overlap_ratio - 1) // overlap_ratio) if olap_active else 0
+        pos += new
+
+    remaining = total - pos
+    has_tail = remaining > 0 or frag > 0
+    if has_tail:
+        frames.append((pos - frag, frag + remaining))
+
+    if not is_compact:
+        terms = 0
+    else:
+        terms = 2 if has_tail else 1
+    return frames, terms
+
+
+def _asfh_for(bit_depth_index: int, channels: int, srate: int, fsize: int, *,
+              little_endian: bool, overlap_ratio: int) -> ASFH:
+    """A Profile 1 frame header without ECC."""
+    a = ASFH()
+    a.profile = 1
+    a.bit_depth_index = bit_depth_index
+    a.channels = channels
+    a.srate = srate
+    a.fsize = fsize
+    a.endian = little_endian
+    a.overlap_ratio = overlap_ratio
+    return a
+
+
+def _to_i16(a: np.ndarray) -> np.ndarray:
+    """PCM -> int16 at x32768 (2 bytes/sample upload, -96 dB floor, far
+    below the lossy profile's masking noise)."""
+    return np.clip(np.rint(a * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def _gather(pcm: np.ndarray, frs: list[tuple[int, int]], length: int) -> np.ndarray:
+    """[len(frs), length, C] frames (zero past the end of the PCM)."""
+    out = np.zeros((len(frs), length, pcm.shape[1]), dtype=np.float64)
+    for i, (s, ln) in enumerate(frs):
+        sa = max(s, 0)
+        out[i, sa - s: ln] = pcm[sa: s + ln]
+    return out
+
+
+def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], srate: int,
+                   bit_depth: int, loss_level: float, i16_upload: bool,
+                   device: torch.device) -> list[tuple[bytes, int, int]]:
+    """Profile 1 payloads of equal-length frames: [(payload, bdi, flen)]."""
+    if not frs:
+        return []
+    channels = pcm.shape[1]
+    flen = frs[0][1]
+    arr = _gather(pcm, frs, flen)
+    arr_p, srate_v, ll = profile1.prepare_frame(arr[0], srate, loss_level)
+    dlen = arr_p.shape[0]
+    if dlen != flen:
+        pad = np.zeros((len(frs), dlen, channels))
+        pad[:, :flen] = arr
+        arr = pad
+    bits = bit_depth if bit_depth in profile1.DEPTHS else 16
+    factor = profile1._scale_factor(bits)
+    bdi = profile1.DEPTHS.index(bits)
+
+    if i16_upload:
+        fq, tq = batch.p1_encode_core_i16(
+            policy.to_device(_to_i16(arr), device), srate_v, ll, factor)
+    else:
+        fq, tq = batch.p1_encode_core(
+            policy.to_device(arr.astype(np.float32), device), srate_v, ll, factor)
+    b = len(frs)
+    m = dlen * channels
+    fq = fq.reshape(b, m)                   # [B, N, C] -> interleaved rows
+    tq = tq.reshape(b, psycho.SUBBANDS * channels)
+
+    # single frames and depths over 24 bits (symbols may pass 2^23) take
+    # the host EGR coder; the rest bit-pack on the device, so the fetch
+    # carries the stream's own bytes instead of int32 symbols
+    if bits > 24 or b == 1:
+        fqh, tqh = policy.to_host(fq, tq)
+        return [(profile1.pack_streams(fqh[i], tqh[i]), bdi, frs[i][1])
+                for i in range(b)]
+
+    max_words = max(m * 12 // 32, 16)
+    words, nbits, ks, ovf = bitpack.egr_pack_frames(fq, max_words)
+    flat, used = bitpack.compact_words(words, nbits, ovf)
+    flat_h, used_h, nbits_h, ks_h, ovf_h, tqh = policy.to_host(
+        flat, used, nbits, ks, ovf, tq)
+    flat_h = flat_h.astype(np.uint32)
+    offs = np.cumsum(used_h) - used_h
+    ovf_rows = np.flatnonzero(ovf_h)
+    fq_ovf: dict[int, np.ndarray] = {}
+    if ovf_rows.size:
+        # (rare) frames whose stream overflowed max_words: host EGR
+        (rows,) = policy.to_host(fq[torch.as_tensor(ovf_rows, device=fq.device)])
+        fq_ovf = dict(zip(ovf_rows.tolist(), rows))
+
+    results = []
+    for i in range(b):
+        if i in fq_ovf:
+            freqs_gol = golomb.encode(fq_ovf[i])
+        else:
+            o = int(offs[i])
+            freqs_gol = bitpack.words_to_stream(flat_h[o:o + int(used_h[i])],
+                                                nbits_h[i], ks_h[i])
+        thres_gol = golomb.encode(tqh[i])
+        frad = struct.pack(">I", len(thres_gol)) + thres_gol + freqs_gol
+        results.append((zlib.compress(frad, wbits=-15), bdi, frs[i][1]))
+    return results
+
+
+def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
+                 frame_size: int, *, loss_level: float = 0.5,
+                 enable_ecc: bool = False, little_endian: bool = False,
+                 overlap_ratio: int = 16, compute_dtype: str | None = None, i16_upload: bool = False,
+                 device: str | torch.device | None = None) -> bytes:
+    """Encode a whole [T, C] float PCM array into a Profile 1 FrAD stream.
+
+    `device` defaults to CUDA and raises when none is present. The tensor
+    domain computes in float32; `i16_upload` sends the PCM to the device
+    as int16 (x32768). Only Profile 1 without ECC is ported.
+    """
+    if profile != 1:
+        raise NotImplementedError(f"profile {profile}: only Profile 1 is ported")
+    if enable_ecc:
+        raise NotImplementedError("ECC is not ported yet")
+    policy.check_compute_dtype(compute_dtype)
+    dev = policy.resolve_device(device)
+    pcm = np.asarray(pcm, dtype=np.float64)
+    total, channels = pcm.shape
+    srate = compact.get_valid_srate(srate)
+    loss_level = max(abs(loss_level), 0.125)
+    overlap_ratio = overlap_ratio if overlap_ratio == 0 else max(2, min(256, overlap_ratio))
+
+    frames, terms = plan_frames(total, frame_size, overlap_ratio, True)
+    if not frames:
+        a = _asfh_for(0, max(channels, 1), srate, compact.get_samples_min_ge(frame_size),
+                      little_endian=little_endian, overlap_ratio=overlap_ratio)
+        return a.force_flush() * max(terms, 1)
+
+    n = frames[0][1]
+    uniform = [f for f in frames if f[1] == n]
+    tail = frames[len(uniform):]            # 0 or 1 non-uniform tail frame
+    groups = [g for g in (
+        _encode_frames(pcm, uniform, srate, bit_depth, loss_level, i16_upload, dev),
+        _encode_frames(pcm, tail, srate, bit_depth, loss_level, i16_upload, dev)) if g]
+
+    framed: list[bytes] = []
+    for g in groups:
+        for payload, bdi, flen in g:
+            a = _asfh_for(bdi, channels, srate, flen, little_endian=little_endian,
+                          overlap_ratio=overlap_ratio)
+            framed.append(a.write(payload))
+    if terms:
+        _, last_bdi, last_flen = groups[-1][-1]
+        a = _asfh_for(last_bdi, channels, srate, last_flen, little_endian=little_endian,
+                      overlap_ratio=overlap_ratio)
+        framed.append(a.force_flush() * terms)
+    return b"".join(framed)
+
+
+def _parse_frames(stream: bytes) -> tuple[list[ASFH], list[bytes | None], bytes]:
+    """O(n) frame scan. Force-flush terminators are recorded as
+    (header, None) pairs. Returns (headers, payloads, unparsed tail)."""
+    headers: list[ASFH] = []
+    payloads: list[bytes | None] = []
+    pos = 0
+    n = len(stream)
+    while True:
+        idx = stream.find(FRM_SIGN, pos)
+        if idx < 0:
+            return headers, payloads, b""
+        a = ASFH()
+        status, _ = a.read(stream[idx: idx + 48])
+        if status == FORCE_FLUSH:
+            headers.append(a)
+            payloads.append(None)
+            pos = idx + a.header_bytes
+            continue
+        if status != COMPLETE or idx + a.header_bytes + a.frmbytes > n:
+            return headers, payloads, stream[idx:]
+        headers.append(a)
+        payloads.append(stream[idx + a.header_bytes: idx + a.header_bytes + a.frmbytes])
+        pos = idx + a.header_bytes + a.frmbytes
+
+
+def _run_key(h: ASFH):
+    return (h.profile, h.bit_depth_index, h.channels, h.srate, h.fsize,
+            h.ecc, h.endian, h.overlap_ratio, h.ecc_dsize, h.ecc_codesize)
+
+
+def _frag_head(out: np.ndarray, frag: np.ndarray) -> np.ndarray:
+    """Crossfade an incoming overlap fragment into the head of a decoded
+    run (the batched overlap-add leaves frame 0's head fade-free). Returns
+    the blended head; the caller emits it followed by out[len(frag):]."""
+    take = len(frag)
+    w = hanning_in_overlap(take, str(out.dtype)) if out.dtype.kind == "f" \
+        else hanning_in_overlap(take)
+    return out[:take] * w[:, None] + frag * w[::-1, None]
+
+
+def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
+                device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+    """Decode one uniform Profile 1 run with one device call.
+
+    Returns (pcm [S, C] — overlap-added within the run, frame 0's head
+    left fade-free for the caller's fragment fixup —, trailing overlap
+    fragment [olap, C] f64)."""
+    h0 = hs[0]
+    run = len(hs)
+    ch = h0.channels
+    n = h0.fsize
+    if h0.ecc:
+        raise NotImplementedError("ECC is not ported yet")
+    cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
+    olap = n - cut
+    factor = profile1._scale_factor(profile1.DEPTHS[h0.bit_depth_index])
+
+    fq = np.zeros((run, n * ch), dtype=np.float32)
+    tq = np.zeros((run, psycho.SUBBANDS * ch), dtype=np.float32)
+    for i, p in enumerate(ps):
+        s = profile1.unpack_streams(p)
+        if s is None:
+            continue                 # corrupt payload decodes as a zero frame
+        fi, ti = s
+        fq[i] = profile1._untrim(fi.astype(np.float64), n, ch)[: n * ch]
+        tq[i] = profile1._untrim(ti.astype(np.float64), psycho.SUBBANDS, ch)[: psycho.SUBBANDS * ch]
+    fq = fq.reshape(run, n, ch)
+    tq = tq.reshape(run, psycho.SUBBANDS, ch)
+    if float(np.abs(fq).max(initial=0.0)) <= 32767.0:
+        # EGR symbols are small exact integers: int16 halves the upload,
+        # and the cast back on the device is exact
+        fq = fq.astype(np.int16)
+
+    out_d, frag_d = batch.p1_decode_oa_core(
+        policy.to_device(fq, device), policy.to_device(tq, device),
+        h0.srate, factor, olap, cut, i16_transfer)
+    out_h, frag = policy.to_host(out_d, frag_d)
+    if i16_transfer:
+        out_h = out_h.astype(np.float64) / 32768.0
+    return out_h.reshape(-1, ch), frag.astype(np.float64)
+
+
+def _reframe(a: ASFH, payload: bytes | None) -> bytes:
+    """Reserialise an already-parsed frame (header buffer is authoritative)."""
+    return a.buffer + (payload or b"")
+
+
+def batch_decode(stream: bytes, *, compute_dtype: str | None = None, i16_transfer: bool = False,
+                 return_remainder: bool = False,
+                 device: str | torch.device | None = None):
+    """Decode a Profile 1 FrAD byte stream in batched mode.
+
+    Every uniform run (same profile/depth/channels/srate/fsize/overlap) is
+    decoded as one device call; the overlap fragment carries across runs
+    and is emitted at force-flush terminators and at the end. Returns
+    (pcm [T, C], srate), or with `return_remainder` (pcm, srate,
+    remainder) where `remainder` holds the frames after a mid-stream
+    change of channel layout or sample rate, for another call.
+    `i16_transfer` brings the PCM back from the device as int16 (x32768).
+    `device` defaults to CUDA and raises when none is present.
+    """
+    policy.check_compute_dtype(compute_dtype)
+    dev = policy.resolve_device(device)
+    headers, payloads, tail_bytes = _parse_frames(stream)
+    if not any(p is not None for p in payloads):
+        raise NotImplementedError(
+            "stream holds no payload frame: the streaming Decoder that "
+            "handles it is not ported yet")
+
+    out_parts: list[np.ndarray] = []
+    first = next(h for h, p in zip(headers, payloads) if p is not None)
+    srate = first.srate
+    info = (first.channels, first.srate)
+    frag = np.empty((0, 0), dtype=np.float64)
+    idx = 0
+    remainder = b""
+
+    while idx < len(headers):
+        h0 = headers[idx]
+        if payloads[idx] is None:
+            # force-flush terminator: emit the overlap tail
+            if frag.size:
+                out_parts.append(frag)
+            frag = np.empty((0, 0), dtype=np.float64)
+            idx += 1
+            continue
+        if (h0.channels, h0.srate) != info:
+            # mid-stream format change: emit the old format's overlap tail
+            # and hand the rest back
+            if frag.size:
+                out_parts.append(frag)
+            frag = np.empty((0, 0), dtype=np.float64)
+            remainder = b"".join(
+                _reframe(headers[i], payloads[i]) for i in range(idx, len(headers))
+            ) + tail_bytes
+            tail_bytes = b""
+            break
+        if h0.profile != 1:
+            raise NotImplementedError(f"profile {h0.profile}: only Profile 1 is ported")
+        key0 = _run_key(h0)
+        run = 1
+        while (idx + run < len(headers) and payloads[idx + run] is not None
+               and _run_key(headers[idx + run]) == key0):
+            run += 1
+
+        n = h0.fsize
+        cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
+        if frag.size and (len(frag) > cut or frag.shape[1] != h0.channels):
+            raise NotImplementedError(
+                "overlap fragment spans several frames of the next run: the "
+                "streaming Decoder's progressive crossfade is not ported yet")
+
+        out, new_frag = _decode_run(headers[idx: idx + run], payloads[idx: idx + run],
+                                    i16_transfer=i16_transfer, device=dev)
+        if frag.size and len(out):
+            out_parts.append(_frag_head(out, frag))
+            out_parts.append(out[len(frag):])
+        else:
+            out_parts.append(out)
+        frag = new_frag
+        srate = h0.srate
+        idx += run
+
+    if not remainder:
+        if tail_bytes:
+            raise NotImplementedError(
+                "stream ends in an unparsable tail: the streaming Decoder "
+                "that handles it is not ported yet")
+        if frag.size:
+            out_parts.append(frag)
+
+    parts = [np.atleast_2d(p) for p in out_parts if p.size]
+    if not parts:
+        pcm_out = np.empty((0, first.channels))
+    elif len(parts) == 1:
+        pcm_out = parts[0]
+    else:
+        pcm_out = np.concatenate(parts, axis=0)
+    if return_remainder:
+        return pcm_out, srate, remainder
+    return pcm_out, srate
