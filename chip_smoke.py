@@ -2,15 +2,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `frad_python_tpu_torch/csrc/`, holds
-each against its plain PyTorch version at the main path's shapes, then
-drives the Profile 1 main path (44.1 kHz stereo, 16-bit, 2048-sample
-frames, overlap ratio 16) end to end on the card through `batch_encode`
-/ `batch_decode`, and decodes the card's stream again on the CPU for
-comparison. Every phase prints one line; any failure exits non-zero.
-The second-to-last line is a JSON object with one entry per kernel, the
-last line `{"ok": true, "device": {...}}`. Needs a CUDA device and nvcc;
-imports neither jax nor the JAX package.
+Builds the port's CUDA kernels from `frad_python_tpu_torch/csrc/` and its
+C++ host module from `frad_python_tpu_torch/native/`, holds each kernel
+against its plain PyTorch version at the main path's shapes, then drives
+the Profile 1 main path (44.1 kHz stereo, 16-bit, 2048-sample frames,
+overlap ratio 16) end to end on the card through `batch_encode` /
+`batch_decode`, decodes the card's stream again on the CPU for
+comparison, and drives the same track with ECC armor at (96, 24) through
+damage, `batch_repair` and an error-correcting `batch_decode`. Every
+phase prints one line; any failure exits non-zero. The second-to-last
+line is a JSON object with one entry per kernel, the last line
+`{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++, and
+refuses to run with FRAD_TORCH_NO_NATIVE set; imports neither jax nor
+the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ SECONDS, SRATE, CHANNELS, BITS, FSIZE = 30.0, 44100, 2, 16, 2048
 POWER_QUANT_SHAPE = (1376, 2048)         # R = uniform frames * channels, N bins
 OVERLAP_SHAPE = (689, 2, 2048)           # IDCT output [B, C, N]
 OLAP, CUT = 128, 1920
+ECC_RATIO = (96, 24)
 DEVICE = "cuda"
 
 
@@ -79,6 +84,33 @@ def cuda_ms(torch, fn, reps: int = 11, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def check_native_pack(native) -> None:
+    """p1_pack_batch against the Python payload layout on main-path-sized
+    frames: its DEFLATE must equal this machine's zlib.compress byte for
+    byte."""
+    import struct
+    import zlib
+
+    import torch
+
+    from frad_python_tpu_torch.ops import bitpack, golomb
+
+    rng = np.random.default_rng(7)
+    fq = np.rint(rng.laplace(0, 1, (16, FSIZE * CHANNELS))
+                 * np.linspace(0.5, 40, 16)[:, None]).astype(np.int32)
+    tq = rng.integers(0, 60, (16, 27 * CHANNELS))
+    words, nbits, ks, ovf = (t.numpy() for t in bitpack.egr_pack_frames(
+        torch.from_numpy(fq), FSIZE * CHANNELS * 12 // 32))
+    words = words.astype(np.uint32)
+    got = native.p1_pack_batch(words, nbits, ks, ovf, tq)
+    for i, p in enumerate(got):
+        thres = golomb.encode(tq[i])
+        frad = (struct.pack(">I", len(thres)) + thres
+                + bitpack.words_to_stream(words[i], nbits[i], ks[i]))
+        if ovf[i] or p != zlib.compress(frad, wbits=-15):
+            raise AssertionError(f"native p1_pack_batch differs from zlib.compress at frame {i}")
+
+
 def main() -> int:
     import torch
 
@@ -87,11 +119,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import frad_python_tpu_torch as ft
-    from frad_python_tpu_torch import kernels
+    from frad_python_tpu_torch import kernels, native
     from frad_python_tpu_torch.kernels import build
     from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
     from frad_python_tpu_torch.models.profiles import compact
+    from frad_python_tpu_torch.native import build as native_build
     from frad_python_tpu_torch.parallel.pipeline import _parse_frames, plan_frames
+    from frad_python_tpu_torch.utils.damage import damage_stream
 
     # 1. card
     smi = subprocess.run(
@@ -108,6 +142,18 @@ def main() -> int:
     build.library()
     print(f"build: {'compiled' if compiled else 'cached'} {path.name} in "
           f"{time.perf_counter() - t0:.2f} s")
+
+    # 2b. the C++ host module: every symbol binds, and its DEFLATE output
+    # equals this machine's zlib.compress
+    if not native.enabled():
+        raise RuntimeError("FRAD_TORCH_NO_NATIVE is set: the main path must run the native module")
+    t0 = time.perf_counter()
+    npath, ncompiled = native_build.build()
+    native.library()
+    t_native = time.perf_counter() - t0
+    check_native_pack(native)
+    print(f"native: {'compiled' if ncompiled else 'cached'} {npath.name} in {t_native:.2f} s, "
+          f"{len(native.SIGNATURES)} symbols bound, p1_pack_batch equals zlib.compress")
 
     # 3. kernels against their plain versions at the main path's shapes
     rng = np.random.default_rng(1234)
@@ -157,6 +203,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     kernels.reset_launches()
+    native.reset_calls()
     t0 = time.perf_counter()
     stream = ft.batch_encode(pcm, 1, SRATE, BITS, FSIZE, i16_upload=True, device=dev)
     torch.cuda.synchronize()
@@ -166,6 +213,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    calls = {w.__name__: w.calls for w in native.WRAPPERS}
 
     frames, terms = plan_frames(len(pcm), FSIZE, 16, True)
     headers, payloads, tail = _parse_frames(stream)
@@ -186,10 +234,14 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    for name in ("p1_pack_batch", "frame_pack_batch", "frame_parse_batch", "p1_unpack_batch"):
+        if calls[name] <= 0:
+            raise AssertionError(f"native {name} was not called by the main path")
     print(f"slice: {len(frames)} frames + {terms} terminators, {len(stream)} bytes, "
           f"{out.shape[0]} samples, SNR {snr:.4f} dB (floor {SNR_FLOOR_DB}), "
           f"enc {len(frames) / t_enc:.1f} frames/s ({t_enc:.3f} s), "
-          f"dec {len(frames) / t_dec:.1f} frames/s ({t_dec:.3f} s), launches {launches}")
+          f"dec {len(frames) / t_dec:.1f} frames/s ({t_dec:.3f} s), launches {launches}, "
+          f"native calls {calls}")
 
     # 5. the card's stream decoded on the CPU (plain versions)
     out_cpu, _ = ft.batch_decode(stream, i16_transfer=True, device="cpu")
@@ -198,6 +250,59 @@ def main() -> int:
         raise AssertionError(f"card vs CPU decode differ by {d} > {CARD_VS_CPU_MAX_ABS}")
     print(f"card vs cpu decode: max|d| {d} (tolerance {CARD_VS_CPU_MAX_ABS}), "
           f"cpu SNR {snr_db(pcm, out_cpu):.4f} dB")
+
+    # 6. the same track armored, damaged, repaired and decoded with repair
+    kernels.reset_launches()
+    native.reset_calls()
+    t0 = time.perf_counter()
+    armored = ft.batch_encode(pcm, 1, SRATE, BITS, FSIZE, i16_upload=True, enable_ecc=True,
+                              ecc_ratio=ECC_RATIO, device=dev)
+    torch.cuda.synchronize()
+    t_enc_e = time.perf_counter() - t0
+    damaged = damage_stream(armored)
+    t0 = time.perf_counter()
+    repaired = ft.batch_repair(damaged, ECC_RATIO)
+    t_rep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_fixed, _ = ft.batch_decode(damaged, fix_error=True, i16_transfer=True, device=dev)
+    torch.cuda.synchronize()
+    t_dec_e = time.perf_counter() - t0
+    out_clean, _ = ft.batch_decode(armored, i16_transfer=True, device=dev)
+    torch.cuda.synchronize()
+    launches_e = {k.__name__: k.launches for k in kernels.KERNELS}
+    calls_e = {w.__name__: w.calls for w in native.WRAPPERS}
+
+    headers, payloads, tail = _parse_frames(armored)
+    n_payload = sum(p is not None for p in payloads)
+    n_term = sum(p is None for p in payloads)
+    if (n_payload, n_term, tail) != (len(frames), terms, b""):
+        raise AssertionError(f"armored stream holds {n_payload} frames + {n_term} "
+                             f"terminators, plan says {len(frames)} + {terms}")
+    if not all(h.ecc for h in headers) or {(h.ecc_dsize, h.ecc_codesize) for h, p in
+                                           zip(headers, payloads) if p is not None} != {ECC_RATIO}:
+        raise AssertionError(f"armored stream headers do not all carry ECC at {ECC_RATIO}")
+    if damaged == armored or len(damaged) != len(armored):
+        raise AssertionError("damage_stream must change bytes and keep the length")
+    if repaired != armored:
+        raise AssertionError("batch_repair of the damaged stream differs from the armored stream")
+    if out_fixed.shape != out_clean.shape or not np.array_equal(out_fixed, out_clean):
+        raise AssertionError("fix_error decode of the damaged stream differs from the clean decode")
+    snr_e = snr_db(pcm, out_fixed)
+    if snr_e < SNR_FLOOR_DB:
+        raise AssertionError(f"ECC SNR {snr_e:.4f} dB below the floor {SNR_FLOOR_DB} dB")
+    for name, n in launches_e.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the ECC path")
+    for name in ("unarmor_batch", "frame_pack_batch"):
+        if calls_e[name] <= 0:
+            raise AssertionError(f"native {name} was not called by the ECC path")
+    print(f"ecc {ECC_RATIO}: {len(armored)} bytes ({len(armored) / len(stream):.4f}x), "
+          f"damaged {sum(a != b for a, b in zip(armored, damaged))} bytes, repaired equal, "
+          f"fix_error decode equal to clean, SNR {snr_e:.4f} dB, "
+          f"enc {len(frames) / t_enc_e:.1f} frames/s ({t_enc_e:.3f} s), "
+          f"repair {len(frames) / t_rep:.1f} frames/s ({t_rep:.3f} s), "
+          f"dec fix_error {len(frames) / t_dec_e:.1f} frames/s ({t_dec_e:.3f} s), "
+          f"launches {launches_e}, native calls {calls_e}")
 
     print(json.dumps({"kernels": [
         {"name": "power_quant", "route": "cuda",

@@ -1,4 +1,4 @@
-"""FrAD stream constants and CRC primitives (numpy only).
+"""FrAD stream constants and CRC primitives.
 
 Format parity with `frad_python_tpu.common`: the frame sync word, the
 CRC-16/ANSI of compact frame headers (poly 0xA001 reflected, init 0) and
@@ -29,12 +29,17 @@ _CRC16_TABLE = _build_crc16_table()
 
 
 def crc16_ansi(data: bytes | bytearray | memoryview | np.ndarray) -> int:
-    """CRC-16/ANSI (CRC-16/ARC): poly 0xA001 reflected, init 0, xorout 0."""
+    """CRC-16/ANSI (CRC-16/ARC): poly 0xA001 reflected, init 0, xorout 0.
+    Runs in the C++ host module unless FRAD_TORCH_NO_NATIVE is set."""
     if isinstance(data, np.ndarray):
         data = data.tobytes()
+    data = bytes(data)
+    from . import native
+    if native.enabled():
+        return native.crc16_ansi(data)
     tbl = _CRC16_TABLE
     crc = 0
-    for b in bytes(data):
+    for b in data:
         crc = (crc >> 8) ^ tbl[(crc ^ b) & 0xFF]
     return crc
 

@@ -182,3 +182,10 @@ class ASFH:
 
         self.all_set = True
         return COMPLETE, buffer
+
+    def payload_crc_matches(self, frad: bytes) -> bool:
+        """The payload against the header's CRC (CRC-16 compact, CRC-32
+        lossless)."""
+        if self.profile in COMPACT:
+            return crc16_ansi(frad) == self.crc
+        return crc32(frad) == self.crc

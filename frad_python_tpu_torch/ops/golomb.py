@@ -8,10 +8,10 @@ Stream format:
   the stream is zero-padded to a whole byte.
 * empty input encodes as the single byte 0x00.
 
-Encode is vectorised numpy. Decode walks codeword boundaries with a
-Python jump chase over the 1-bit positions, one step per codeword: on a
-whole track it dominates the host's decode time until a native host
-module is ported.
+Both directions run in the C++ host module (`native`) unless
+FRAD_TORCH_NO_NATIVE selects the numpy paths: encode is vectorised
+numpy; decode walks codeword boundaries with a Python jump chase over
+the 1-bit positions, one step per codeword.
 """
 
 from __future__ import annotations
@@ -31,6 +31,9 @@ def encode(data: np.ndarray) -> bytes:
     if data.size == 0:
         return b"\x00"
     data = np.asarray(data, dtype=np.int64)
+    from .. import native
+    if native.enabled():
+        return native.egr_encode(data)
     k = _rice_k(data)
 
     mapped = np.where(data > 0, (data << 1) - 1, -data << 1).astype(np.uint64)
@@ -56,6 +59,9 @@ def decode(dbytes: bytes) -> np.ndarray:
     """Decode an EGR byte stream -> flat int64 array."""
     if len(dbytes) < 1:
         return np.array([], dtype=np.int64)
+    from .. import native
+    if native.enabled():
+        return native.egr_decode(dbytes)
     k = dbytes[0]
     bits = np.unpackbits(np.frombuffer(dbytes, dtype=np.uint8, offset=1))
     nbits = len(bits)

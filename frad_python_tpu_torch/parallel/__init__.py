@@ -1,5 +1,5 @@
 """Whole-file batch pipeline."""
 
-from .pipeline import batch_decode, batch_encode, plan_frames
+from .pipeline import batch_decode, batch_encode, batch_repair, plan_frames
 
-__all__ = ["batch_decode", "batch_encode", "plan_frames"]
+__all__ = ["batch_decode", "batch_encode", "batch_repair", "plan_frames"]

@@ -1,0 +1,393 @@
+"""The port's C++ host module against the JAX package's native module and
+against the port's own numpy paths (FRAD_TORCH_NO_NATIVE=1), on the same
+inputs. This is the host byte domain: every comparison is exact. Also
+the build and load contract: cached builds, concurrent builds, and a
+failed build or a missing symbol raising instead of falling back.
+
+The tests need g++ and skip only where there is none.
+"""
+
+import ctypes
+import shutil
+import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from frad_python_tpu import native as jnative
+from frad_python_tpu_torch import common as tcommon
+from frad_python_tpu_torch import native as tnative
+from frad_python_tpu_torch.container import asfh as tasfh
+from frad_python_tpu_torch.container import ecc as tecc
+from frad_python_tpu_torch.models import profile1 as tprofile1
+from frad_python_tpu_torch.native import build as tbuild
+from frad_python_tpu_torch.ops import bitpack as tbitpack
+from frad_python_tpu_torch.ops import golomb as tgolomb
+from frad_python_tpu_torch.ops import rs as trs
+from frad_python_tpu_torch.parallel import pipeline as tpipeline
+
+
+@pytest.fixture(autouse=True)
+def _gxx():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the native host module cannot be built")
+    if not jnative.available():
+        jnative.reload()     # another test process may have been building it at start-up
+    assert jnative.available(), "the JAX package's native module is not built"
+
+
+@pytest.fixture
+def numpy_path(monkeypatch):
+    """Select the port's numpy host paths for the body of a `with`."""
+    class _Path:
+        def __enter__(self):
+            monkeypatch.setenv("FRAD_TORCH_NO_NATIVE", "1")
+
+        def __exit__(self, *exc):
+            monkeypatch.delenv("FRAD_TORCH_NO_NATIVE")
+    return _Path()
+
+
+def _bytes(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 255, 4096])
+def test_crc16(numpy_path, n):
+    data = _bytes(n, n)
+    got = tcommon.crc16_ansi(data)
+    with numpy_path:
+        assert tcommon.crc16_ansi(data) == got
+    assert tnative.crc16_ansi(data) == jnative.crc16_ansi(data) == got
+
+
+def _symbols(kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "zeros":
+        return np.zeros(500, dtype=np.int64)
+    if kind == "small":
+        return rng.integers(-3, 4, 4096)
+    if kind == "laplace":
+        return np.rint(rng.laplace(0, 20, 4096)).astype(np.int64)
+    if kind == "pow2":
+        return np.array([0, 8, -8, 1, -1, 1024], dtype=np.int64)
+    return rng.integers(-(1 << 20), 1 << 20, 777)           # wide
+
+
+@pytest.mark.parametrize("kind", ["zeros", "small", "laplace", "pow2", "wide"])
+def test_egr_encode_decode(numpy_path, kind):
+    data = _symbols(kind, 3)
+    enc = tnative.egr_encode(data)
+    assert enc == jnative.egr_encode(data) == tgolomb.encode(data)
+    with numpy_path:
+        assert tgolomb.encode(data) == enc
+        np.testing.assert_array_equal(tgolomb.decode(enc), data)
+    np.testing.assert_array_equal(tnative.egr_decode(enc), jnative.egr_decode(enc))
+    np.testing.assert_array_equal(tnative.egr_decode(enc), data)
+    # a truncated stream decodes as far as it goes, the same on all paths
+    cut = enc[: len(enc) // 2]
+    want = jnative.egr_decode(cut)
+    np.testing.assert_array_equal(tgolomb.decode(cut), want)
+    with numpy_path:
+        np.testing.assert_array_equal(tgolomb.decode(cut), want)
+
+
+@pytest.mark.parametrize("dsize,nsym", [
+    (96, 1), (96, 5), (96, 7), (96, 8), (96, 15), (96, 32), (48, 12), (96, 24),
+    (200, 55),                      # the longest GF(256) codeword (255)
+])
+def test_rs_blocks(numpy_path, dsize, nsym):
+    rng = np.random.default_rng(dsize * 256 + nsym)
+    data = rng.integers(0, 256, size=(8, dsize), dtype=np.uint8)
+    par = tnative.rs_encode_blocks(data, nsym)
+    np.testing.assert_array_equal(par, jnative.rs_encode_blocks(data, nsym))
+    np.testing.assert_array_equal(trs.encode_blocks(data, nsym), par)
+    with numpy_path:
+        np.testing.assert_array_equal(trs.encode_blocks(data, nsym), par)
+
+    cw = np.concatenate([data, par], axis=1)
+    cw[3, dsize // 2] ^= 0xC3                   # one error: correctable
+    cw[5, : nsym + 1] ^= 0x5A                   # nsym + 1 errors: not
+    fixed, ok = tnative.rs_decode_blocks(cw, nsym)
+    jfixed, jok = jnative.rs_decode_blocks(cw, nsym)
+    np.testing.assert_array_equal(fixed, jfixed)
+    np.testing.assert_array_equal(ok, jok)
+    with numpy_path:
+        nfixed, nok = trs.decode_blocks(cw, nsym)
+    np.testing.assert_array_equal(nfixed, fixed)
+    np.testing.assert_array_equal(nok, ok)
+    if nsym >= 2:
+        np.testing.assert_array_equal(fixed[3], data[3])
+        assert ok[3] and not ok[5] and not fixed[5].any()
+
+
+def test_rs_rejects_codewords_beyond_gf256(numpy_path):
+    data = np.zeros((2, 300), dtype=np.uint8)
+    for fn in (tnative.rs_encode_blocks, trs.encode_blocks):
+        with pytest.raises(ValueError, match="GF\\(256\\)"):
+            fn(data, 24)
+    with pytest.raises(ValueError, match="GF\\(256\\)"):
+        tnative.frame_pack_batch([b"x"], np.zeros(1), np.ones(1), None, profile=1,
+                                 is_compact=True, channels=1, srate=44100,
+                                 ecc=True, ecc_dsize=240, ecc_codesize=24)
+    with numpy_path:
+        with pytest.raises(ValueError, match="GF\\(256\\)"):
+            trs.encode_blocks(data, 24)
+
+
+def test_i16_casts(numpy_path):
+    rng = np.random.default_rng(4)
+    pcm = np.concatenate([rng.standard_normal(5000) * 0.5,
+                          [1.0, -1.0, 2.0, -2.0, 0.5 / 32768, 1.5 / 32768, -2.5 / 32768, 0.0]])
+    pcm = pcm.reshape(-1, 2)
+    got = tnative.f64_to_i16(pcm)
+    assert got.shape == pcm.shape and got.dtype == np.int16
+    np.testing.assert_array_equal(got, jnative.f64_to_i16(pcm))
+    np.testing.assert_array_equal(got, tpipeline._to_i16(pcm))
+    with numpy_path:
+        np.testing.assert_array_equal(tpipeline._to_i16(pcm), got)
+    back = tnative.i16_to_f64(got)
+    np.testing.assert_array_equal(back, jnative.i16_to_f64(got).reshape(got.shape))
+    np.testing.assert_array_equal(back, got.astype(np.float64) / 32768.0)
+
+
+def _packed_batch(b=10, m=2048):
+    """Device-packed EGR words of `b` frames (the port's packer, on the
+    CPU), one row overflowing, and their threshold rows."""
+    rng = np.random.default_rng(b)
+    scale = np.linspace(0.5, 40.0, b)[:, None]
+    fq = np.rint(rng.laplace(0, 1, (b, m)) * scale).astype(np.int32)
+    fq[b // 2] = rng.integers(-(1 << 20), 1 << 20, m)       # overflows max_words
+    tq = rng.integers(0, 60, (b, 54)).astype(np.int32)
+    words, nbits, ks, ovf = tbitpack.egr_pack_frames(torch.from_numpy(fq), m * 12 // 32)
+    return (fq, tq, words.numpy().astype(np.uint32), nbits.numpy(), ks.numpy(),
+            ovf.numpy())
+
+
+def test_p1_pack_batch(numpy_path):
+    fq, tq, words, nbits, ks, ovf = _packed_batch()
+    assert ovf.sum() == 1
+    got = tnative.p1_pack_batch(words, nbits, ks, ovf, tq)
+    assert got == jnative.p1_pack_batch(words, nbits, ks, ovf, tq)
+    for i, p in enumerate(got):
+        if ovf[i]:
+            assert p is None
+            continue
+        with numpy_path:
+            thres = tgolomb.encode(tq[i])
+        frad = (struct.pack(">I", len(thres)) + thres
+                + tbitpack.words_to_stream(words[i], nbits[i], ks[i]))
+        assert p == zlib.compress(frad, wbits=-15)
+        np.testing.assert_array_equal(tprofile1.unpack_streams(p)[0], fq[i])
+
+
+def test_p1_unpack_batch_with_corrupt_payloads(numpy_path):
+    fq, tq, words, nbits, ks, ovf = _packed_batch()
+    payloads = [p for p in tnative.p1_pack_batch(words, nbits, ks, ovf, tq) if p]
+    good = payloads[0]
+    payloads += [b"", b"\x00garbage", good[: len(good) // 2], _bytes(300, 9),
+                 zlib.compress(b"\x00\x00", wbits=-15),               # too short
+                 zlib.compress(b"\xff\xff\xff\xff\x00", wbits=-15)]   # thres_len past end
+    n, ch = 1024, 2
+    got_fq, got_tq, ok = tnative.p1_unpack_batch(payloads, n * ch, 27 * ch)
+    jfq, jtq, _, jok = jnative.p1_unpack_batch(payloads, n * ch, 27 * ch)
+    np.testing.assert_array_equal(got_fq, jfq)
+    np.testing.assert_array_equal(got_tq, jtq)
+    np.testing.assert_array_equal(ok, jok)
+    assert ok[:9].all() and not ok[9:13].any()
+    assert not got_fq[~ok].any() and not got_tq[~ok].any()
+    with numpy_path:
+        nfq, ntq = tpipeline._unpack_run(payloads, n, ch)
+    np.testing.assert_array_equal(nfq, got_fq)
+    np.testing.assert_array_equal(ntq, got_tq)
+    np.testing.assert_array_equal(got_fq[0, :2048], fq[0])
+
+
+@pytest.mark.parametrize("profile,ecc_ratio", [
+    (1, None), (1, (96, 24)), (1, (48, 12)), (1, (200, 55)), (1, (10, 0)),
+    (4, None), (4, (96, 24)),
+])
+def test_frame_pack_batch(numpy_path, profile, ecc_ratio):
+    rng = np.random.default_rng(12)
+    lens = [0, 1, 95, 96, 97, 500, 960, 1234, 3000, 17]
+    payloads = [_bytes(n, i) for i, n in enumerate(lens)]
+    bdis = rng.integers(0, 7, len(lens)).astype(np.uint8)
+    compact = profile == 1
+    flens = np.array([2048, 1920, 2048, 128, 2048, 2048, 1536, 2048, 2048, 256]
+                     if compact else rng.integers(1, 70000, len(lens)), dtype=np.uint32)
+    ecc = ecc_ratio is not None
+    dsize, csize = ecc_ratio or (0, 0)
+    kw = dict(profile=profile, channels=3, srate=48000, overlap_ratio=16,
+              little_endian=True, ecc_ratio=ecc_ratio)
+    got = tpipeline._frame_batch(payloads, bdis, flens, **kw)
+    fidx = np.array([tpipeline.compact.get_samples_index(int(f)) for f in flens]) \
+        if compact else None
+    want = jnative.frame_pack_batch(
+        payloads, bdis, flens, fidx, profile=profile, is_compact=compact, channels=3,
+        srate=48000, srate_idx=tpipeline.compact.get_srate_index(48000) if compact else 0,
+        overlap_ratio=16, little_endian=True, ecc=ecc, ecc_dsize=dsize, ecc_codesize=csize)
+    assert got == want
+    with numpy_path:
+        frames = []
+        for p, bdi, fl in zip(payloads, bdis, flens):
+            a = tasfh.ASFH()
+            a.profile, a.bit_depth_index, a.channels, a.srate = profile, int(bdi), 3, 48000
+            a.fsize, a.overlap_ratio, a.endian = int(fl), 16, True
+            a.ecc, a.ecc_dsize, a.ecc_codesize = ecc, dsize, csize
+            frames.append(a.write(tecc.encode(p, dsize, csize) if ecc else p))
+    assert b"".join(frames) == got
+
+
+def _parse_stream():
+    """Frames of two configurations, junk before, between and inside a
+    false sign, terminators, and a truncated trailing frame."""
+    def frame(profile, ecc, payload, ch=2, fsize=2048):
+        a = tasfh.ASFH()
+        a.profile, a.channels, a.srate, a.fsize = profile, ch, 44100, fsize
+        a.bit_depth_index, a.overlap_ratio = 2, 16
+        a.ecc, a.ecc_dsize, a.ecc_codesize = ecc, (96 if ecc else 0), (24 if ecc else 0)
+        return a, a.write(payload)
+
+    parts = [b"junk\xff\xd0\xd2"]
+    a = None
+    for i in range(12):
+        a, f = frame(1, i % 3 == 0, _bytes(100 + 37 * i, i))
+        parts.append(f)
+        if i == 5:
+            parts.append(b"\x00" * 7)
+    parts.append(a.force_flush() * 2)
+    parts.append(frame(4, False, _bytes(64, 99), ch=1, fsize=777)[1])
+    _, last = frame(1, True, _bytes(300, 50))
+    parts.append(last[:-20])
+    return b"".join(parts)
+
+
+def test_frame_parse_batch(numpy_path):
+    stream = _parse_stream()
+    got = tnative.frame_parse_batch(stream)
+    want = jnative.frame_parse_batch(stream)
+    assert got[0] == want[0] == 15 and got[-1] == want[-1] > 0
+    for g, w in zip(got[1:-1], want[1:-1]):
+        np.testing.assert_array_equal(g[: got[0]], w[: want[0]])
+    nh, np_, ntail = tpipeline._parse_frames(stream)
+    with numpy_path:
+        ph, pp, ptail = tpipeline._parse_frames(stream)
+    assert np_ == pp and ntail == ptail == stream[got[-1]:]
+    for a, b in zip(nh, ph):
+        for name in set(tasfh.ASFH.__slots__) - {"all_set"}:   # False on a terminator
+            assert getattr(a, name) == getattr(b, name), name
+
+
+@pytest.mark.parametrize("crc_is16", [True, False])
+@pytest.mark.parametrize("fix_error", [True, False])
+def test_unarmor_batch(numpy_path, crc_is16, fix_error):
+    rng = np.random.default_rng(21)
+    raws = [_bytes(n, n) for n in (1, 95, 96, 500, 960, 1234, 3000, 97, 300)]
+    armored = [tecc.encode(r, 96, 24) for r in raws]
+    crcs = np.array([tcommon.crc16_ansi(p) if crc_is16 else tcommon.crc32(p) for p in armored])
+    damaged = []
+    for i, p in enumerate(armored):
+        b = bytearray(p)
+        if i % 2 == 0:
+            for off in rng.choice(len(b), min(3, len(b)), replace=False):
+                b[off] ^= 0xA5
+        if i == 7:
+            b[: 60] = bytes(60)                       # beyond correction
+        damaged.append(bytes(b))
+    got, ok = tnative.unarmor_batch(damaged, 96, 24, crcs, crc_is16, fix_error)
+    want, jok = jnative.unarmor_batch(damaged, 96, 24, crcs, crc_is16, fix_error)
+    assert got == want
+    np.testing.assert_array_equal(ok, jok)
+    with numpy_path:
+        h = tasfh.ASFH()
+        h.profile = 1 if crc_is16 else 4
+        nump = []
+        for p, crc in zip(damaged, crcs):
+            h.crc = int(crc)
+            nump.append(tecc.decode(p, 96, 24, fix_error and not h.payload_crc_matches(p)))
+    assert nump == got
+    if fix_error:
+        assert [g for i, g in enumerate(got) if i != 7] == [r for i, r in enumerate(raws)
+                                                              if i != 7]
+        assert not ok[7] and ok[[0, 1, 2, 3, 4, 5, 6, 8]].all()
+
+
+def test_counters_and_numpy_knob(numpy_path):
+    tnative.reset_calls()
+    assert all(w.calls == 0 for w in tnative.WRAPPERS)
+    tgolomb.encode(np.arange(5))
+    assert tnative.egr_encode.calls == 1 and tnative.enabled()
+    with numpy_path:
+        assert not tnative.enabled()
+        tgolomb.encode(np.arange(5))
+        tcommon.crc16_ansi(b"abc")
+    assert tnative.egr_encode.calls == 1 and tnative.crc16_ansi.calls == 0
+    assert len(tnative.WRAPPERS) == len(tnative.SIGNATURES)
+
+
+_TINY = 'extern "C" int frad_tiny(int x) { return x + 1; }\n'
+
+
+def test_build_is_cached_and_atomic(tmp_path, monkeypatch):
+    src = tmp_path / "tiny.cpp"
+    src.write_text(_TINY)
+    monkeypatch.setattr(tbuild, "SRC", src)
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "_build")
+    with ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(lambda _: tbuild.build(), range(4)))
+    path = outs[0][0]
+    assert {o[0] for o in outs} == {path} and path.parent.parent == tmp_path / "_build"
+    assert [p.name for p in path.parent.iterdir()] == [tbuild.LIB_NAME]   # no temp left
+    assert tbuild.build() == (path, False)
+    assert ctypes.CDLL(str(path)).frad_tiny(41) == 42
+    src.write_text(_TINY + "// edited\n")
+    new, compiled = tbuild.build()
+    assert compiled and new != path
+
+
+def test_failed_build_or_missing_symbol_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(tnative, "_lib", None)
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(tbuild, "SRC", bad)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        tcommon.crc16_ansi(b"abc")          # no fallback to the Python CRC
+    assert not list((tmp_path / "_build").rglob("*.so"))
+    tiny = tmp_path / "tiny.cpp"
+    tiny.write_text(_TINY)
+    monkeypatch.setattr(tbuild, "SRC", tiny)
+    with pytest.raises(RuntimeError, match="lacks frad_crc16_ansi"):
+        tnative.library()
+    assert tnative._lib is None
+
+
+def test_chip_smoke_refuses_the_numpy_host_path(monkeypatch):
+    """The card's smoke run must exercise the native module: with
+    FRAD_TORCH_NO_NATIVE set it stops before driving any path."""
+    import subprocess
+    import sys
+    import types
+
+    import chip_smoke
+    from frad_python_tpu_torch.kernels import build as kbuild
+
+    real_run = subprocess.run
+
+    def run(cmd, *args, **kwargs):
+        if cmd[0] == "nvidia-smi":
+            return types.SimpleNamespace(stdout="card, 700.00 W\n")
+        return real_run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
+    monkeypatch.setattr(kbuild, "build", lambda verbose=False: (kbuild.library_path(), False))
+    monkeypatch.setattr(kbuild, "library", lambda: None)
+    monkeypatch.setenv("FRAD_TORCH_NO_NATIVE", "1")
+    with pytest.raises(RuntimeError, match="FRAD_TORCH_NO_NATIVE"):
+        chip_smoke.main()
