@@ -9,9 +9,14 @@ the Profile 1 main path (44.1 kHz stereo, 16-bit, 2048-sample frames,
 overlap ratio 16) end to end on the card through `batch_encode` /
 `batch_decode`, decodes the card's stream again on the CPU for
 comparison, and drives the same track with ECC armor at (96, 24) through
-damage, `batch_repair` and an error-correcting `batch_decode`. Every
-phase prints one line; any failure exits non-zero. The second-to-last
-line is a JSON object with one entry per kernel, the last line
+damage, `batch_repair` and an error-correcting `batch_decode`. Then the
+streaming phase feeds the track as s16le bytes through the push engines:
+`Encoder` in 32 KiB pushes and in one deep push, `Decoder` in 32 KiB
+pushes and in `exact` mode, and the (96, 24) stream, damaged, through
+`Repairer` and an error-correcting `Decoder`, with the kernels held
+against their plain versions at the streaming shapes first. Every phase
+prints one line; any failure exits non-zero. The second-to-last line is
+a JSON object with one entry per kernel, the last line
 `{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++, and
 refuses to run with FRAD_TORCH_NO_NATIVE set; imports neither jax nor
 the JAX package.
@@ -49,6 +54,15 @@ OVERLAP_SHAPE = (689, 2, 2048)           # IDCT output [B, C, N]
 OLAP, CUT = 128, 1920
 ECC_RATIO = (96, 24)
 DEVICE = "cuda"
+# the streaming engines' shapes: one frame per call on the per-frame path,
+# 2..256 frames per micro-batch; the decoder's micro-batches emit float32
+STREAM_POWER_QUANT_SHAPES = ((2, 2048), (512, 2048))
+STREAM_OVERLAP_CASES = ((2, OLAP, CUT), (256, OLAP, CUT), (256, 0, 2048))   # (B, olap, cut)
+PUSH = 32768
+#: the streaming decode against batch_decode(..., i16_transfer=False) of
+#: the same stream: other batch sizes reach the IDCT GEMM, so float32
+#: sums differ by a few ulps of |pcm| < 2
+STREAM_VS_BATCH_MAX_ABS = 2e-6
 
 
 def make_audio(seconds: float, srate: int, ch: int) -> np.ndarray:
@@ -109,6 +123,126 @@ def check_native_pack(native) -> None:
                 + bitpack.words_to_stream(words[i], nbits[i], ks[i]))
         if ovf[i] or p != zlib.compress(frad, wbits=-15):
             raise AssertionError(f"native p1_pack_batch differs from zlib.compress at frame {i}")
+
+
+def check_stream_shapes(torch, kernels, crossfade_window, dev) -> tuple[float, float]:
+    """Each kernel against its plain version at the streaming engines'
+    shapes, exactly; returns (power_quant max |d|, overlap_add max |d|)."""
+    rng = np.random.default_rng(4321)
+    pq_err = oa_err = 0.0
+    for shape in STREAM_POWER_QUANT_SHAPES:
+        freqs = (rng.standard_normal(shape) * 1e-2).astype(np.float32)
+        div = (np.exp(rng.standard_normal(shape) * 2.0) * 0.1).astype(np.float32)
+        div[:, -128:] = 0.0
+        f_d, d_d = torch.from_numpy(freqs).to(dev), torch.from_numpy(div).to(dev)
+        got = kernels.power_quant(f_d, d_d, 2.0 ** 15)
+        want = kernels.power_quant_plain(f_d, d_d, 2.0 ** 15)
+        torch.cuda.synchronize()
+        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        pq_err = max(pq_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"power_quant {shape} differs from its plain version: "
+                                 f"max |d| {err}")
+        ms = cuda_ms(torch, lambda: kernels.power_quant(f_d, d_d, 2.0 ** 15))
+        plain = cuda_ms(torch, lambda: kernels.power_quant_plain(f_d, d_d, 2.0 ** 15))
+        print(f"kernel power_quant {shape}: equal, max|d| {err}, {ms:.4f} ms vs plain "
+              f"{plain:.4f} ms")
+    for b, olap, cut in STREAM_OVERLAP_CASES:
+        pcm_k = torch.from_numpy(
+            rng.standard_normal((b, CHANNELS, FSIZE)).astype(np.float32) * 0.3).to(dev)
+        w = crossfade_window(olap, dev)
+        out_k, frag_k = kernels.overlap_add(pcm_k, w, cut, False)
+        out_p, frag_p = kernels.overlap_add_plain(pcm_k, w, cut, False)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        if olap:
+            err = max(err, float((frag_k - frag_p).abs().max()))
+        oa_err = max(oa_err, err)
+        if not (torch.equal(out_k, out_p) and torch.equal(frag_k, frag_p)):
+            raise AssertionError(f"overlap_add B={b} olap={olap} differs from its plain "
+                                 f"version: max |d| {err}")
+        ms = cuda_ms(torch, lambda: kernels.overlap_add(pcm_k, w, cut, False))
+        plain = cuda_ms(torch, lambda: kernels.overlap_add_plain(pcm_k, w, cut, False))
+        print(f"kernel overlap_add ({b}, {CHANNELS}, {FSIZE}) olap={olap} cut={cut} f32 emit: "
+              f"equal, max|d| {err}, {ms:.4f} ms vs plain {plain:.4f} ms")
+    return pq_err, oa_err
+
+
+def to_s16le(pcm: np.ndarray) -> bytes:
+    """PCM as s16le bytes (the same rounding as batch_encode's i16 upload)."""
+    return np.clip(np.rint(pcm * 32768.0), -32768, 32767).astype("<i2").tobytes()
+
+
+class FrameTally:
+    """Frames per call of the engines' batch and per-frame routes, counted
+    by wrapping the module functions they call for the `with` block."""
+
+    def __init__(self, pipeline, profile1):
+        self.targets = [(pipeline, "batch_encode", "enc_batch"),
+                        (pipeline, "_decode_run", "dec_batch"),
+                        (profile1, "analogue", "enc_frame"),
+                        (profile1, "digital", "dec_frame")]
+        self.seen: dict[str, dict[int, int]] = {}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name, _ in self.targets]
+        self.seen = {key: {} for _, _, key in self.targets}
+
+        def wrap(fn, key):
+            def counted(arg, *args, **kwargs):
+                # frames: span length on the overlap grid, or header count
+                k = ((len(arg) - OLAP) // CUT if key == "enc_batch"
+                     else len(arg) if key == "dec_batch" else 1)
+                self.seen[key][k] = self.seen[key].get(k, 0) + 1
+                return fn(arg, *args, **kwargs)
+            return counted
+
+        for (mod, name, key), fn in zip(self.targets, self.saved):
+            setattr(mod, name, wrap(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+
+    def used(self) -> dict[str, dict[int, int]]:
+        """{route: {frames per call: calls}} of the routes that ran."""
+        return {key: dict(sorted(v.items())) for key, v in self.seen.items() if v}
+
+
+def stream_encode(ft, torch, raw: bytes, push: int, dev, ecc=None) -> bytes:
+    enc = ft.Encoder(1, SRATE, CHANNELS, BITS, FSIZE, "s16le", device=dev)
+    enc.set_overlap_ratio(16)
+    if ecc:
+        enc.set_ecc(True, ecc)
+    out = [enc.process(raw[i:i + push]).buf for i in range(0, len(raw), push)]
+    out.append(enc.flush().buf)
+    torch.cuda.synchronize()
+    return b"".join(out)
+
+
+def stream_decode(ft, torch, stream: bytes, push: int, dev, **kw) -> tuple[np.ndarray, float]:
+    """(decoded PCM, seconds to the first non-empty DecodeResult)."""
+    dec = ft.Decoder(device=dev, **kw)
+    parts = []
+    first = None
+    t0 = time.perf_counter()
+    for i in range(0, len(stream), push):
+        p = dec.process(stream[i:i + push]).pcm
+        if p.size:
+            if first is None:
+                first = time.perf_counter() - t0
+            parts.append(p)
+    parts.append(dec.flush().pcm)
+    torch.cuda.synchronize()
+    return np.concatenate([p for p in parts if p.size]), first
+
+
+def timed(torch, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def main() -> int:
@@ -304,18 +438,113 @@ def main() -> int:
           f"dec fix_error {len(frames) / t_dec_e:.1f} frames/s ({t_dec_e:.3f} s), "
           f"launches {launches_e}, native calls {calls_e}")
 
+    # 7. the streaming engines: kernels at their shapes, then the track as
+    # s16le bytes through Encoder, Decoder and Repairer
+    from frad_python_tpu_torch.models import profile1
+    from frad_python_tpu_torch.parallel import pipeline
+
+    pq_s_err, oa_s_err = check_stream_shapes(torch, kernels, crossfade_window, dev)
+    raw = to_s16le(pcm)
+    warm_raw = to_s16le(warm)                  # first-use set-up outside the timing
+    for push in (PUSH, len(warm_raw)):
+        warm_s = stream_encode(ft, torch, warm_raw, push, dev)
+    stream_decode(ft, torch, warm_s, PUSH, dev)
+    stream_decode(ft, torch, warm_s, PUSH, dev, exact=True)
+
+    kernels.reset_launches()
+    with FrameTally(pipeline, profile1) as enc_tally:
+        s32, t_s_enc = timed(torch, lambda: stream_encode(ft, torch, raw, PUSH, dev))
+    launches_s_enc = {k.__name__: k.launches for k in kernels.KERNELS}
+    sdeep, t_s_deep = timed(torch, lambda: stream_encode(ft, torch, raw, len(raw), dev))
+    h32, p32, tail32 = _parse_frames(s32)
+    hdeep, pdeep, taildeep = _parse_frames(sdeep)
+    if ([p is None for p in p32] != [p is None for p in pdeep] or tail32 or taildeep
+            or sum(p is not None for p in p32) != len(frames)
+            or sum(p is None for p in p32) != terms):
+        raise AssertionError("streaming encodes do not follow the frame plan")
+    differ = sum(a != b for a, b in zip(p32, pdeep) if a is not None)
+
+    kernels.reset_launches()
+    with FrameTally(pipeline, profile1) as dec_tally:
+        (out_s, ttfa), t_s_dec = timed(torch, lambda: stream_decode(ft, torch, s32, PUSH, dev))
+    launches_s_dec = {k.__name__: k.launches for k in kernels.KERNELS}
+    (out_x, ttfa_x), t_s_exact = timed(
+        torch, lambda: stream_decode(ft, torch, s32, PUSH, dev, exact=True))
+    out_b, _ = ft.batch_decode(s32, i16_transfer=False, device=dev)
+    if out_s.shape != out_b.shape or out_x.shape != out_b.shape:
+        raise AssertionError(f"streaming decodes {out_s.shape}, {out_x.shape} against "
+                             f"batch {out_b.shape}")
+    d_sb = float(np.abs(out_s - out_b).max())
+    if d_sb > STREAM_VS_BATCH_MAX_ABS:
+        raise AssertionError(f"streaming decode differs from batch_decode by {d_sb} > "
+                             f"{STREAM_VS_BATCH_MAX_ABS}")
+    snr_s, snr_x = snr_db(pcm, out_s), snr_db(pcm, out_x)
+    if not (np.isfinite(out_s).all() and np.isfinite(out_x).all()):
+        raise AssertionError("streaming decode is not finite")
+    if min(snr_s, snr_x) < SNR_FLOOR_DB:
+        raise AssertionError(f"streaming SNR {snr_s:.4f} / exact {snr_x:.4f} dB below the "
+                             f"floor {SNR_FLOOR_DB} dB")
+    if launches_s_enc["power_quant"] <= 0 or launches_s_dec["overlap_add"] <= 0:
+        raise AssertionError(f"streaming phase launches: encode {launches_s_enc}, "
+                             f"decode {launches_s_dec}")
+    n = len(frames)
+    print(f"stream: enc {PUSH}-byte pushes {t_s_enc:.3f} s ({n / t_s_enc:.1f} frames/s), "
+          f"enc one push {t_s_deep:.3f} s ({n / t_s_deep:.1f} frames/s), payloads differing "
+          f"{differ} of {n}; dec {PUSH}-byte pushes {t_s_dec:.3f} s ({n / t_s_dec:.1f} "
+          f"frames/s, first audio after {ttfa * 1e3:.2f} ms), dec exact {t_s_exact:.3f} s "
+          f"({n / t_s_exact:.1f} frames/s, first audio after {ttfa_x * 1e3:.2f} ms); "
+          f"max|stream - batch| {d_sb} (tolerance {STREAM_VS_BATCH_MAX_ABS}), SNR "
+          f"{snr_s:.4f} / exact {snr_x:.4f} dB; frames per call: enc {enc_tally.used()}, "
+          f"dec {dec_tally.used()}; launches enc {launches_s_enc}, dec {launches_s_dec}")
+
+    kernels.reset_launches()
+    armored_s, t_s_enc_e = timed(
+        torch, lambda: stream_encode(ft, torch, raw, PUSH, dev, ecc=ECC_RATIO))
+    damaged_s = damage_stream(armored_s)
+
+    def repair_pushes() -> bytes:
+        rep = ft.Repairer(ECC_RATIO)
+        parts = [rep.process(damaged_s[i:i + PUSH]) for i in range(0, len(damaged_s), PUSH)]
+        return b"".join(parts) + rep.flush()
+
+    repaired_s, t_s_rep = timed(torch, repair_pushes)
+    (fixed_s, _), t_s_fix = timed(
+        torch, lambda: stream_decode(ft, torch, damaged_s, PUSH, dev, fix_error=True))
+    clean_s, _ = stream_decode(ft, torch, armored_s, PUSH, dev, fix_error=True)
+    launches_s_ecc = {k.__name__: k.launches for k in kernels.KERNELS}
+    if damaged_s == armored_s or repaired_s != armored_s \
+            or repaired_s != ft.batch_repair(damaged_s, ECC_RATIO):
+        raise AssertionError("Repairer of the damaged stream differs from batch_repair or "
+                             "from the armored stream")
+    if fixed_s.shape != clean_s.shape or not np.array_equal(fixed_s, clean_s):
+        raise AssertionError("fix_error streaming decode of the damaged stream differs from "
+                             "the clean streaming decode")
+    if snr_db(pcm, fixed_s) < SNR_FLOOR_DB or min(launches_s_ecc.values()) <= 0:
+        raise AssertionError(f"ECC streaming: SNR {snr_db(pcm, fixed_s):.4f} dB, launches "
+                             f"{launches_s_ecc}")
+    stream_launches = {k: launches_s_enc[k] + launches_s_dec[k] + launches_s_ecc[k]
+                       for k in launches_s_enc}
+    print(f"stream ecc {ECC_RATIO}: enc {t_s_enc_e:.3f} s ({n / t_s_enc_e:.1f} frames/s), "
+          f"damaged {sum(a != b for a, b in zip(armored_s, damaged_s))} bytes, Repairer "
+          f"{t_s_rep:.3f} s ({n / t_s_rep:.1f} frames/s) equal to batch_repair and the "
+          f"armored stream, dec fix_error {t_s_fix:.3f} s ({n / t_s_fix:.1f} frames/s) equal "
+          f"to the clean streaming decode, SNR {snr_db(pcm, fixed_s):.4f} dB, launches "
+          f"{launches_s_ecc}")
+
     print(json.dumps({"kernels": [
         {"name": "power_quant", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/power_quant.cu",
          "replaces": "frad_python_tpu/research/pallas_kernels.py:58",
-         "launches": launches["power_quant"], "max_abs_err": pq_err,
-         "ms": pq_ms, "plain_ms": pq_plain_ms},
+         "launches": launches["power_quant"], "max_abs_err": max(pq_err, pq_s_err),
+         "ms": pq_ms, "plain_ms": pq_plain_ms,
+         "streaming_launches": stream_launches["power_quant"]},
         {"name": "overlap_add", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/overlap_add.cu",
          "replaces": "frad_python_tpu/research/pallas_kernels.py:90",
-         "launches": launches["overlap_add"], "max_abs_err": oa_err,
+         "launches": launches["overlap_add"], "max_abs_err": max(oa_err, oa_s_err),
          "ms": oa[True][0], "plain_ms": oa[True][1],
-         "ms_f32": oa[False][0], "plain_ms_f32": oa[False][1]},
+         "ms_f32": oa[False][0], "plain_ms_f32": oa[False][1],
+         "streaming_launches": stream_launches["overlap_add"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,14 @@ import numpy as np
 
 FRM_SIGN = b"\xff\xd0\xd2\x98"
 
+#: The streaming engines (Encoder._micro_batch, Decoder._drain_pending)
+#: hand buffered frames to the batch cores in power-of-two groups of at
+#: most this many. The port groups frames exactly as the JAX package does,
+#: so the two can be compared at equal symbols and equal bytes, and the
+#: GEMMs that reach cuBLAS come in a bounded set of shapes (M = 2k rows
+#: for stereo, k = 2, 4, ..., 256).
+MICRO_BATCH_MAX = 256
+
 
 def _build_crc16_table() -> list[int]:
     table = []

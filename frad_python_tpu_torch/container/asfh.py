@@ -79,6 +79,23 @@ class ASFH:
         self.overlap_ratio = 0
         self.crc = 0
 
+    def criteq(self, other: "ASFH | tuple[int, int]") -> bool:
+        """True when channel layout and sample rate match `other`."""
+        if isinstance(other, tuple):
+            return (self.channels, self.srate) == other
+        return self.channels == other.channels and self.srate == other.srate
+
+    def snapshot(self) -> tuple[int, int]:
+        """Value copy of the fields `criteq` compares: (channels, srate)."""
+        return (self.channels, self.srate)
+
+    def copy(self) -> "ASFH":
+        """Value copy of every field (the decoder keeps one per deferred frame)."""
+        c = ASFH()
+        for name in self.__slots__:
+            setattr(c, name, getattr(self, name))
+        return c
+
     def write(self, frad: bytes) -> bytes:
         """Serialise a full frame: header + payload bytes."""
         n = len(frad)
@@ -182,6 +199,11 @@ class ASFH:
 
         self.all_set = True
         return COMPLETE, buffer
+
+    def clear(self) -> None:
+        """Forget the parsed header, so the next parse starts afresh."""
+        self.all_set = False
+        self.buffer = b""
 
     def payload_crc_matches(self, frad: bytes) -> bool:
         """The payload against the header's CRC (CRC-16 compact, CRC-32

@@ -4,7 +4,8 @@ one device.
 Encode: PCM -> DCT-II GEMM -> masking thresholds (band-sum GEMM, RMS^0.8,
 AHT floor, x loss) -> interpolation GEMM -> `power_quant` kernel ->
 threshold log-compand. Decode: dequant + threshold expansion ->
-interpolation GEMM -> IDCT GEMM -> `overlap_add` kernel. The GEMMs are
+interpolation GEMM -> IDCT GEMM (`p1_decode_core`) -> `overlap_add`
+kernel (`p1_decode_oa_core`). The GEMMs are
 `torch.matmul` at full float32; the two elementwise stages that the JAX
 package wrote as Pallas kernels are the hand-written CUDA kernels of
 `kernels/`.
@@ -46,14 +47,13 @@ def p1_encode_core_i16(frames_i16: torch.Tensor, srate: int, loss_level: float, 
     return p1_encode_core(frames, srate, loss_level, factor)
 
 
-def p1_decode_oa_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
-                      srate: int, factor: float, olap: int, cut: int, i16: bool):
-    """Profile 1 decode + overlap-add of one uniform run.
+def p1_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
+                   srate: int, factor: float) -> torch.Tensor:
+    """Profile 1 decode without overlap-add.
 
     freqs_flat [B, N, C] symbols (int16 — exact for EGR symbols — or
-    float32), thres_flat [B, 27, C] float32 -> (pcm_out [B, cut, C], int16
-    x32768 when `i16` else float32; fragment [olap, C] float32, the raw
-    tail of the last frame that the next run crossfades in)."""
+    float32), thres_flat [B, 27, C] float32 -> [B, N, C] float32 PCM (a
+    transposed view of the IDCT's [B, C, N] output)."""
     if freqs_flat.dtype == torch.int16:
         freqs_flat = freqs_flat.to(torch.float32)
     n = freqs_flat.shape[1]
@@ -61,7 +61,16 @@ def p1_decode_oa_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
     e_half = torch.tensor(_E_HALF, dtype=torch.float32, device=freqs_flat.device)
     thres = torch.pow(e_half, psycho.quant(thres_flat.transpose(1, 2)))
     div = psycho.mapping_from_opus(thres, n, srate)
-    pcm = idct2(masked * div)                                    # [B, C, N]
+    return idct2(masked * div).transpose(1, 2)
+
+
+def p1_decode_oa_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
+                      srate: int, factor: float, olap: int, cut: int, i16: bool):
+    """`p1_decode_core` + overlap-add of one uniform run -> (pcm_out
+    [B, cut, C], int16 x32768 when `i16` else float32; fragment [olap, C]
+    float32, the raw tail of the last frame that the next run crossfades
+    in)."""
+    pcm = p1_decode_core(freqs_flat, thres_flat, srate, factor).transpose(1, 2)  # [B, C, N]
     return overlap_add(pcm.contiguous(), crossfade_window(olap, pcm.device), cut, i16)
 
 

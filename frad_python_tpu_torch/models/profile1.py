@@ -1,9 +1,10 @@
 """Profile 1 — lossy DCT codec with psychoacoustic quantisation: the host
-helpers of the batch pipeline.
+helpers of the batch pipeline and the streaming engines' per-frame
+encode (`analogue`) and decode (`digital`).
 
 Payload layout: raw DEFLATE (wbits=-15) of
 `[u32be thres_len][thres EGR][freqs EGR]`. The tensor chain lives in
-`models/batch.py`.
+`models/batch.py`; a single frame runs it as a batch of one.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
-from ..ops import golomb
+from ..ops import golomb, policy, psycho
+from . import batch
 from .profiles import compact
 
 DEPTHS = (8, 12, 16, 24, 32, 48, 64)
@@ -59,3 +62,44 @@ def prepare_frame(pcm: np.ndarray, srate: int, loss_level: float):
     if dlen > len(pcm):
         pcm = np.pad(pcm, ((0, dlen - len(pcm)), (0, 0)))
     return pcm, compact.get_valid_srate(srate), max(abs(loss_level), 0.125)
+
+
+def analogue(pcm: np.ndarray, bits: int, srate: int, loss_level: float,
+             device: torch.device) -> tuple[bytes, int, int, int]:
+    """Encode one frame: [fsize, channels] f64 PCM -> (payload, depth index,
+    channels, srate). The tensor chain runs on `device` in float32."""
+    if bits not in DEPTHS:
+        bits = 16
+    factor = _scale_factor(bits)
+    pcm, srate, loss_level = prepare_frame(pcm, srate, loss_level)
+    channels = pcm.shape[1]
+
+    fq, tq = batch.p1_encode_core(
+        policy.to_device(pcm[None].astype(np.float32), device), srate, loss_level, factor)
+    fqh, tqh = policy.to_host(fq, tq)
+    # [1, N, C] -> channel-interleaved symbols
+    return pack_streams(fqh[0].ravel(), tqh[0].ravel()), DEPTHS.index(bits), channels, srate
+
+
+def digital(frad: bytes, bit_depth_index: int, channels: int, srate: int, fsize: int,
+            device: torch.device) -> np.ndarray:
+    """Decode one frame payload -> [fsize, channels] f64 PCM; a corrupt
+    payload decodes to a zero frame."""
+    factor = _scale_factor(DEPTHS[bit_depth_index])
+
+    streams = unpack_streams(frad)
+    if streams is None:
+        return np.zeros((fsize, channels))
+    freqs_ints, thres_ints = streams
+
+    # pad up to / trim down to the frame grid (a corrupt payload may
+    # decode to a ragged length)
+    freqs = _untrim(freqs_ints.astype(np.float64), fsize, channels)[: fsize * channels]
+    thres = _untrim(thres_ints.astype(np.float64), psycho.SUBBANDS,
+                    channels)[: psycho.SUBBANDS * channels]
+    pcm = batch.p1_decode_core(
+        policy.to_device(freqs.reshape(1, fsize, channels).astype(np.float32), device),
+        policy.to_device(thres.reshape(1, psycho.SUBBANDS, channels).astype(np.float32),
+                         device), srate, factor)
+    (out,) = policy.to_host(pcm[0])
+    return out.astype(np.float64)

@@ -16,12 +16,13 @@ paths instead.
 
 Streams are format-identical to the JAX package's `parallel.pipeline`:
 fed the same quantised symbols, the packer and framer give the same
-bytes, and `batch_repair` gives the JAX function's bytes.
+bytes, and `batch_repair` gives the JAX function's bytes. What a batch
+cannot decode (a stream with no payload frame, an unparsable tail, a
+fragment longer than the next run's emit window) goes to the streaming
+`Decoder` with the carried overlap state, as in the JAX package.
 
 Not ported yet, and raising NotImplementedError: profiles 0, 2 and 4,
-float64 compute, and the cases the JAX package hands to its streaming
-Decoder (a stream with no payload frame, an unparsable tail, a fragment
-longer than the next run's emit window).
+and float64 compute.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import zlib
 import numpy as np
 import torch
 
-from .. import native
+from .. import models, native
 from ..common import FRM_SIGN
 from ..container import ecc as ecc_mod
 from ..container.asfh import ASFH, COMPLETE, FORCE_FLUSH
@@ -213,7 +214,7 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
                  ecc_ratio: tuple[int, int] = DEFAULT_ECC_RATIO,
                  little_endian: bool = False, overlap_ratio: int = 16,
                  compute_dtype: str | None = None, i16_upload: bool = False,
-                 device: str | torch.device | None = None) -> bytes:
+                 final: bool = True, device: str | torch.device | None = None) -> bytes:
     """Encode a whole [T, C] float PCM array into a Profile 1 FrAD stream.
 
     `device` defaults to CUDA and raises when none is present. The tensor
@@ -222,9 +223,13 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
     Reed-Solomon parity at `ecc_ratio` = (data bytes, parity bytes) per
     block; a ratio GF(256) cannot honor (data + parity > 255) raises
     ValueError. Only Profile 1 is ported.
+
+    `final=False` encodes a span that the stream continues after (the
+    streaming Encoder's micro-batches): the trailing partial frame and the
+    force-flush terminators are left out, so the next span, which re-reads
+    the overlap, follows on byte for byte.
     """
-    if profile != 1:
-        raise NotImplementedError(f"profile {profile}: only Profile 1 is ported")
+    models.check_ported(profile)
     policy.check_compute_dtype(compute_dtype)
     dev = policy.resolve_device(device)
     pcm = np.asarray(pcm, dtype=np.float64)
@@ -236,6 +241,12 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
                   overlap_ratio=overlap_ratio)
 
     frames, terms = plan_frames(total, frame_size, overlap_ratio, True)
+    if not final:
+        n_full = frames[0][1] if frames else 0
+        frames = [f for f in frames if f[1] == n_full]
+        terms = 0
+        if not frames:
+            return b""
     if not frames:
         a = _asfh_for(0, max(channels, 1), srate, compact.get_samples_min_ge(frame_size),
                       **header)
@@ -439,15 +450,23 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
     remainder) where `remainder` holds the frames after a mid-stream
     change of channel layout or sample rate, for another call.
     `i16_transfer` brings the PCM back from the device as int16 (x32768).
-    `device` defaults to CUDA and raises when none is present.
+    `device` defaults to CUDA and raises when none is present. A stream
+    with no payload frame, an unparsable tail, and a fragment longer than
+    the next run's emit window (which needs a crossfade over several
+    frames) are decoded by the streaming `Decoder` with the carried state.
     """
+    from ..decoder import Decoder
+
     policy.check_compute_dtype(compute_dtype)
     dev = policy.resolve_device(device)
     headers, payloads, tail_bytes = _parse_frames(stream)
     if not any(p is not None for p in payloads):
-        raise NotImplementedError(
-            "stream holds no payload frame: the streaming Decoder that "
-            "handles it is not ported yet")
+        dec = Decoder(fix_error=fix_error, device=dev)
+        parts = [p for p in (dec.process(stream).pcm, dec.flush().pcm) if p.size]
+        pcm_out = np.concatenate(parts) if parts else np.empty((0,))
+        if return_remainder:
+            return pcm_out, dec.asfh.srate, b""
+        return pcm_out, dec.asfh.srate
 
     out_parts: list[np.ndarray] = []
     first = next(h for h, p in zip(headers, payloads) if p is not None)
@@ -456,6 +475,7 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
     frag = np.empty((0, 0), dtype=np.float64)
     idx = 0
     remainder = b""
+    stream_rest = False
 
     while idx < len(headers):
         h0 = headers[idx]
@@ -477,8 +497,7 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
             ) + tail_bytes
             tail_bytes = b""
             break
-        if h0.profile != 1:
-            raise NotImplementedError(f"profile {h0.profile}: only Profile 1 is ported")
+        models.check_ported(h0.profile)
         key0 = _run_key(h0)
         run = 1
         while (idx + run < len(headers) and payloads[idx + run] is not None
@@ -488,9 +507,10 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
         n = h0.fsize
         cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
         if frag.size and (len(frag) > cut or frag.shape[1] != h0.channels):
-            raise NotImplementedError(
-                "overlap fragment spans several frames of the next run: the "
-                "streaming Decoder's progressive crossfade is not ported yet")
+            # the fragment spans several frames of the next run: the
+            # streaming Decoder's progressive crossfade takes the rest
+            stream_rest = True
+            break
 
         out, new_frag = _decode_run(headers[idx: idx + run], payloads[idx: idx + run],
                                     i16_transfer=i16_transfer, device=dev,
@@ -505,11 +525,25 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
         idx += run
 
     if not remainder:
-        if tail_bytes:
-            raise NotImplementedError(
-                "stream ends in an unparsable tail: the streaming Decoder "
-                "that handles it is not ported yet")
-        if frag.size:
+        # what the runs could not take streams through a Decoder that
+        # starts from the carried fragment and format
+        rest_stream = (b"".join(_reframe(headers[i], payloads[i])
+                                for i in range(idx, len(headers)))
+                       if stream_rest else b"") + tail_bytes
+        if rest_stream:
+            dec = Decoder(fix_error=fix_error, device=dev)
+            dec.overlap_fragment = np.asarray(frag, dtype=np.float64)
+            dec.info = info
+            r = dec.process(rest_stream)
+            out_parts.append(r.pcm)
+            srate = r.srate or srate
+            if r.crit:
+                # the next segment's header is already parsed inside `dec`:
+                # reserialise it with the unread bytes for the caller
+                remainder = dec.asfh.buffer + dec.buffer
+            else:
+                out_parts.append(dec.flush().pcm)
+        elif frag.size:
             out_parts.append(frag)
 
     parts = [np.atleast_2d(p) for p in out_parts if p.size]

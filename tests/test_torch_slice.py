@@ -168,14 +168,10 @@ def test_unported_paths_raise(audio):
         ft.batch_encode(small, 0, 44100, 16, 2048, device=CPU)
     with pytest.raises(NotImplementedError):
         ft.batch_encode(small, 1, 44100, 16, 2048, compute_dtype="float64", device=CPU)
-    with pytest.raises(NotImplementedError):
-        ft.batch_decode(ft.batch_encode(small[:0], 1, 44100, 16, 2048, device=CPU), device=CPU)
     ecc = jpipeline.batch_encode(small, 1, 44100, 16, 2048, enable_ecc=True)
     p0 = jpipeline.batch_encode(small, 0, 44100, 16, 2048)
     with pytest.raises(NotImplementedError):
         ft.batch_decode(p0, device=CPU)
-    with pytest.raises(NotImplementedError):
-        ft.batch_decode(jpipeline.batch_encode(small, 1, 44100, 16, 2048)[:-700], device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ft.batch_encode(small, 1, 44100, 16, 2048)

@@ -8,15 +8,16 @@ content, after a 1 s warm-up:
 
 * walls: five host-clock calls of each of clean encode, clean decode,
   ECC encode at (96, 24), `batch_repair` of the damaged armored stream
-  and its `fix_error` decode, each ending in `torch.cuda.synchronize()`;
-  median, min and max, and frames/s at the median;
-* host: one cProfile'd call each of clean encode, clean decode and ECC
-  decode, top functions by self time (full listings under `_profile/`,
-  with the device tables);
-* device: one `torch.profiler` call each of clean encode, clean decode
-  and ECC decode: device busy (self device time of all kernels and
-  copies), the wall of the traced call, and the device idle share
-  1 - busy / wall.
+  and its `fix_error` decode, and of the streaming engines on the track
+  as s16le bytes (`Encoder` and `Decoder` in 32 KiB pushes, `Decoder` in
+  `exact` mode), each ending in `torch.cuda.synchronize()`; median, min
+  and max, and frames/s at the median;
+* host: one cProfile'd call each of clean encode, clean decode, ECC
+  decode and the streaming encode and decode, top functions by self
+  time (full listings under `_profile/`, with the device tables);
+* device: one `torch.profiler` call of each of the same: device busy
+  (self device time of all kernels and copies), the wall of the traced
+  call, and the device idle share 1 - busy / wall.
 
 Prints the card's name and power limit first. Needs a CUDA device;
 imports neither jax nor the JAX package.
@@ -46,7 +47,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import frad_python_tpu_torch as ft
-    from chip_smoke import BITS, CHANNELS, ECC_RATIO, FSIZE, SRATE, make_audio
+    from chip_smoke import (BITS, CHANNELS, ECC_RATIO, FSIZE, PUSH, SRATE, make_audio,
+                            stream_decode, stream_encode, to_s16le)
     from frad_python_tpu_torch import native
     from frad_python_tpu_torch.kernels import build
     from frad_python_tpu_torch.native import build as native_build
@@ -74,6 +76,10 @@ def main() -> int:
     armored = ft.batch_encode(pcm, 1, SRATE, BITS, FSIZE, i16_upload=True, enable_ecc=True,
                               ecc_ratio=ECC_RATIO, device=dev)
     damaged = damage_stream(armored)
+    raw = to_s16le(pcm)
+    pushed = stream_encode(ft, torch, raw, PUSH, dev)
+    stream_decode(ft, torch, pushed, PUSH, dev)
+    stream_decode(ft, torch, pushed, PUSH, dev, exact=True)
 
     calls = {
         "enc": lambda: ft.batch_encode(pcm, 1, SRATE, BITS, FSIZE, i16_upload=True,
@@ -84,6 +90,9 @@ def main() -> int:
         "repair": lambda: ft.batch_repair(damaged, ECC_RATIO),
         "dec_fix": lambda: ft.batch_decode(damaged, fix_error=True, i16_transfer=True,
                                            device=dev),
+        "stream_enc": lambda: stream_encode(ft, torch, raw, PUSH, dev),
+        "stream_dec": lambda: stream_decode(ft, torch, pushed, PUSH, dev),
+        "stream_dec_exact": lambda: stream_decode(ft, torch, pushed, PUSH, dev, exact=True),
     }
 
     def timed(fn) -> float:
@@ -98,7 +107,8 @@ def main() -> int:
         print(f"wall {name}: median {med:.4f} s (min {min(walls):.4f}, max {max(walls):.4f}), "
               f"{nframes / med:.1f} frames/s, {REPS} calls")
 
-    for name in ("enc", "dec", "dec_fix"):
+    traced = ("enc", "dec", "dec_fix", "stream_enc", "stream_dec")
+    for name in traced:
         prof = cProfile.Profile()
         t0 = time.perf_counter()
         prof.runcall(calls[name])
@@ -117,7 +127,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     device_types = {torch.autograd.DeviceType.CUDA}
-    for name in ("enc", "dec", "dec_fix"):
+    for name in traced:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             calls[name]()
