@@ -14,12 +14,22 @@ streaming phase feeds the track as s16le bytes through the push engines:
 `Encoder` in 32 KiB pushes and in one deep push, `Decoder` in 32 KiB
 pushes and in `exact` mode, and the (96, 24) stream, damaged, through
 `Repairer` and an error-correcting `Decoder`, with the kernels held
-against their plain versions at the streaming shapes first. Every phase
-prints one line; any failure exits non-zero. The second-to-last line is
-a JSON object with one entry per kernel, the last line
-`{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++, and
-refuses to run with FRAD_TORCH_NO_NATIVE set; imports neither jax nor
-the JAX package.
+against their plain versions at the streaming shapes first. Last, the
+lossless phase: `trunc_pack` and `trunc_unpack` held byte for byte against
+their plain versions at its shapes and on the truncation edges, then
+`p0_stereo_44k1` (profile 0, 24-bit, the float32 fast path, and its int24
+transfer variant, the card's stream decoded again on the CPU),
+`p4_mono_44k1` (profile 4, 16-bit: the card's stream equals the CPU's),
+`p0_stereo_48b` and `p0_stereo_64b` (the float64 FFT form on the card
+against the CPU), `hires_96k_8ch` (96 kHz, 8 channels, 8192-sample frames,
+cut to 10 s), Profile 1 at 8192-sample frames (the DCT GEMM cut along its
+contraction) and at 16384 (the FFT form), and the `p0_stereo_44k1` track
+as s32le bytes through `Encoder` and `Decoder`.
+Every phase prints one line; any failure exits non-zero. The
+second-to-last line is a JSON object with one entry per kernel, the last
+line `{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++,
+and refuses to run with FRAD_TORCH_NO_NATIVE set; imports neither jax
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -47,6 +57,44 @@ SNR_FLOOR_DB = 17.124
 CARD_VS_CPU_MAX_ABS = 2.0 / 32768.0
 
 SECONDS, SRATE, CHANNELS, BITS, FSIZE = 30.0, 44100, 2, 16, 2048
+
+#: SNR floor of the lossless p0_stereo_44k1 run (24-bit, float32 fast
+#: path): the JAX package's float32 SNR on this content, 97.5471 dB on the
+#: CPU (its i24 transfer variant 97.5469 dB), minus 0.1 dB
+#: (tests/test_torch_lossless.py::test_chip_smoke_lossless_snr_floor)
+P0_BITS = 24
+P0_SNR_FLOOR_DB = 97.447
+#: Profile 1 at 16384-sample frames, through the FFT form: the JAX
+#: package's float32 SNR here, 2.4436 dB on the CPU, minus 0.1 dB
+#: (tests/test_torch_lossless.py::test_chip_smoke_profile1_16384_snr_floor)
+P1_LONG_FSIZE = 16384
+P1_LONG_SNR_FLOOR_DB = 2.344
+#: Profile 1 at 8192-sample frames, the DCT GEMM cut along K: the JAX
+#: package's float32 SNR here, 7.7632 dB on the CPU, minus 0.1 dB
+#: (tests/test_torch_lossless.py::test_chip_smoke_profile1_8192_snr_floor)
+P1_MID_FSIZE = 8192
+P1_MID_SNR_FLOOR_DB = 7.663
+#: the float32 lossless decode of one stream on the card and on the CPU:
+#: the IDCT GEMM sums in another order on each, a few float32 ulps of
+#: |pcm| < 2
+LOSSLESS_CARD_VS_CPU_MAX_ABS = 2e-6
+#: the float64 decode of one stream on the card and on the CPU: cuFFT and
+#: the CPU's FFT differ in the last bits of f64
+F64_CARD_VS_CPU_MAX_ABS = 1e-12
+#: the archival SNR bounds of the JAX package's tests
+#: (tests/test_deep_depth.py:49)
+DEEP_SNR_DB = {48: 195.0, 64: 250.0}
+HIRES = dict(seconds=10.0, srate=96000, channels=8, bits=24, fsize=8192)
+#: hires_96k_8ch's floor over its first HIRES_FLOOR_FRAMES frames (a
+#: profile 0 frame is coded on its own): the JAX package's float32 SNR
+#: there, 97.4934 dB on the CPU, minus 0.1 dB
+#: (tests/test_torch_lossless.py::test_chip_smoke_hires_snr_floor)
+HIRES_FLOOR_FRAMES = 16
+HIRES_SNR_FLOOR_DB = 97.393
+#: the lossless trunc kernels' shapes: the p0_stereo_44k1 run's uniform
+#: frames and its 2040-sample tail frame, the streaming run's
+#: micro-batches of 2, and the hires run's frames and 1536-sample tail
+TRUNC_SHAPES = ((645, 2, 2048), (1, 2, 2040), (2, 2, 2048), (117, 8, 8192), (1, 8, 1536))
 # the main path's shapes for 30 s: 688 uniform frames + a tail frame
 # padded to 2048, encoded as two batches and decoded as one run
 POWER_QUANT_SHAPE = (1376, 2048)         # R = uniform frames * channels, N bins
@@ -54,6 +102,8 @@ OVERLAP_SHAPE = (689, 2, 2048)           # IDCT output [B, C, N]
 OLAP, CUT = 128, 1920
 ECC_RATIO = (96, 24)
 DEVICE = "cuda"
+#: the kernels of the Profile 1 paths
+P1_KERNELS = ("power_quant", "overlap_add")
 # the streaming engines' shapes: one frame per call on the per-frame path,
 # 2..256 frames per micro-batch; the decoder's micro-batches emit float32
 STREAM_POWER_QUANT_SHAPES = ((2, 2048), (512, 2048))
@@ -175,13 +225,16 @@ def to_s16le(pcm: np.ndarray) -> bytes:
 
 class FrameTally:
     """Frames per call of the engines' batch and per-frame routes, counted
-    by wrapping the module functions they call for the `with` block."""
+    by wrapping the module functions they call for the `with` block.
+    `profile` is the per-frame codec module; a micro-batch span of `n`
+    samples holds (n - olap) // hop frames."""
 
-    def __init__(self, pipeline, profile1):
+    def __init__(self, pipeline, profile, hop: int = CUT, olap: int = OLAP):
         self.targets = [(pipeline, "batch_encode", "enc_batch"),
                         (pipeline, "_decode_run", "dec_batch"),
-                        (profile1, "analogue", "enc_frame"),
-                        (profile1, "digital", "dec_frame")]
+                        (profile, "analogue", "enc_frame"),
+                        (profile, "digital", "dec_frame")]
+        self.hop, self.olap = hop, olap
         self.seen: dict[str, dict[int, int]] = {}
 
     def __enter__(self):
@@ -190,8 +243,8 @@ class FrameTally:
 
         def wrap(fn, key):
             def counted(arg, *args, **kwargs):
-                # frames: span length on the overlap grid, or header count
-                k = ((len(arg) - OLAP) // CUT if key == "enc_batch"
+                # frames: span length on the frame grid, or header count
+                k = ((len(arg) - self.olap) // self.hop if key == "enc_batch"
                      else len(arg) if key == "dec_batch" else 1)
                 self.seen[key][k] = self.seen[key].get(k, 0) + 1
                 return fn(arg, *args, **kwargs)
@@ -221,6 +274,20 @@ def stream_encode(ft, torch, raw: bytes, push: int, dev, ecc=None) -> bytes:
     return b"".join(out)
 
 
+def to_s32le(pcm: np.ndarray) -> bytes:
+    """PCM as s32le bytes (x2^31, rounded and clamped)."""
+    return np.clip(np.rint(pcm * 2.0 ** 31), -2 ** 31, 2 ** 31 - 1).astype("<i4").tobytes()
+
+
+def stream_encode_p0(ft, torch, raw: bytes, push: int, dev) -> bytes:
+    """s32le bytes through a profile 0 `Encoder` (p0_stereo_44k1) in `push`-byte pushes."""
+    enc = ft.Encoder(0, SRATE, CHANNELS, P0_BITS, FSIZE, "s32le", device=dev)
+    out = [enc.process(raw[i:i + push]).buf for i in range(0, len(raw), push)]
+    out.append(enc.flush().buf)
+    torch.cuda.synchronize()
+    return b"".join(out)
+
+
 def stream_decode(ft, torch, stream: bytes, push: int, dev, **kw) -> tuple[np.ndarray, float]:
     """(decoded PCM, seconds to the first non-empty DecodeResult)."""
     dec = ft.Decoder(device=dev, **kw)
@@ -243,6 +310,301 @@ def timed(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def trunc_inputs(shape: tuple[int, int, int], seed: int) -> np.ndarray:
+    """[B, C, N] float32 DCT-like output with the truncation edges in frame
+    0 (the f16 range, rounding to inf from 65520, f16 and f32 subnormals,
+    signed zeros) and a NaN in the last frame when there are several."""
+    y = (np.random.default_rng(seed).standard_normal(shape) * 0.3).astype(np.float32)
+    edges = [65504.0, 65519.99, 65520.0, -65520.0, 6e-8, -3e-8, 6.1e-5, -0.0, 0.0, 1e-40]
+    y[0, 0, :len(edges)] = edges
+    if shape[0] > 1:
+        y[-1, -1, 5] = np.nan
+    return y
+
+
+def nan_words(torch, y, bits: int):
+    """The payload words of trunc_pack(y, bits) that hold a NaN of y
+    [B, C, N]: value t*C + c of frame b is word t*C + c at 16 and 32 bits,
+    and one of the three words of its group of four at 24."""
+    b = y.shape[0]
+    nan = torch.isnan(y.transpose(1, 2).reshape(b, -1))
+    if bits == 24:
+        return nan.reshape(b, -1, 4).any(-1).repeat_interleave(3, dim=1)
+    return nan
+
+
+def check_trunc_kernels(torch, kernels, dev) -> dict:
+    """trunc_pack and trunc_unpack against their plain versions on the card
+    at TRUNC_SHAPES, every depth and byte order: every payload word equal
+    but the one (16, 32 bits) or three (24 bits) that hold the NaN (its f16
+    bits are the converter's own, and its frame leaves the fast path on its
+    NaN max|x|), max|x| equal with the NaN in place, unpacked floats
+    equal. Returns the max |d| and the CUDA-event times of kernel and plain
+    at the p0_stereo_44k1 shape."""
+    out = {"pack_err": 0.0, "unpack_err": 0.0}
+    for si, shape in enumerate(TRUNC_SHAPES):
+        b, c, n = shape
+        y = torch.from_numpy(trunc_inputs(shape, 99 + si)).to(dev)
+        for bits in (16, 24, 32):
+            keep = ~nan_words(torch, y, bits)
+            if int((~keep).sum()) != (0 if b == 1 else 3 if bits == 24 else 1):
+                raise AssertionError(f"trunc check {shape}: NaN words {int((~keep).sum())}")
+            for little in (False, True):
+                w_k, m_k = kernels.trunc_pack(y, bits, little)
+                w_p, m_p = kernels.trunc_pack_plain(y, bits, little)
+                u_k = kernels.trunc_unpack(w_k, bits, little, n, c)
+                u_p = kernels.trunc_unpack_plain(w_k, bits, little, n, c)
+                torch.cuda.synchronize()
+                d_w = float((w_k[keep].to(torch.int64) - w_p[keep].to(torch.int64)).abs().max())
+                d_u = float((u_k - u_p).abs().max())
+                out["pack_err"] = max(out["pack_err"], d_w)
+                out["unpack_err"] = max(out["unpack_err"], d_u)
+                if not (torch.equal(w_k[keep], w_p[keep])
+                        and torch.equal(m_k.nan_to_num(-1.0), m_p.nan_to_num(-1.0))
+                        and (b == 1 or bool(torch.isnan(m_k[-1])))):
+                    raise AssertionError(f"trunc_pack {shape} bits={bits} little={little} "
+                                         f"differs from its plain version: max |d| {d_w}")
+                if not torch.equal(u_k, u_p):
+                    raise AssertionError(f"trunc_unpack {shape} bits={bits} little={little} "
+                                         f"differs from its plain version: max |d| {d_u}")
+        if si == 0:
+            w, _ = kernels.trunc_pack(y, P0_BITS, False)
+            out["pack_ms"] = cuda_ms(torch, lambda: kernels.trunc_pack(y, P0_BITS, False))
+            out["pack_plain_ms"] = cuda_ms(
+                torch, lambda: kernels.trunc_pack_plain(y, P0_BITS, False))
+            out["unpack_ms"] = cuda_ms(
+                torch, lambda: kernels.trunc_unpack(w, P0_BITS, False, n, c))
+            out["unpack_plain_ms"] = cuda_ms(
+                torch, lambda: kernels.trunc_unpack_plain(w, P0_BITS, False, n, c))
+    print(f"kernels trunc_pack / trunc_unpack at {list(TRUNC_SHAPES)}, bits 16/24/32, both "
+          f"byte orders: equal to plain (max|d| {out['pack_err']} / {out['unpack_err']}); "
+          f"at {TRUNC_SHAPES[0]} {P0_BITS}-bit: trunc_pack {out['pack_ms']:.4f} ms vs plain "
+          f"{out['pack_plain_ms']:.4f} ms, trunc_unpack {out['unpack_ms']:.4f} ms vs plain "
+          f"{out['unpack_plain_ms']:.4f} ms")
+    return out
+
+
+def run_batch(ft, torch, name: str, pcm: np.ndarray, profile: int, srate: int, bits: int,
+                 fsize: int, dev, **kw) -> tuple[bytes, np.ndarray, float, float]:
+    """Warm-up on a cut of the same track with the same tail frame, then
+    one timed batch_encode and batch_decode on the card. Returns (stream,
+    decoded PCM, encode wall, decode wall); the decode holds every sample
+    (Profile 1 pads the last frame)."""
+    enc_kw = {k: v for k, v in kw.items() if k != "i24_transfer"}
+    dec_kw = {k: v for k, v in kw.items() if k == "i24_transfer"}
+    warm = pcm[: 4 * fsize + len(pcm) % fsize]
+    ft.batch_decode(ft.batch_encode(warm, profile, srate, bits, fsize, device=dev, **enc_kw),
+                    device=dev, **dec_kw)
+    torch.cuda.synchronize()
+    stream, t_enc = timed(torch, lambda: ft.batch_encode(pcm, profile, srate, bits, fsize,
+                                                         device=dev, **enc_kw))
+    (out, sr), t_dec = timed(torch, lambda: ft.batch_decode(stream, device=dev, **dec_kw))
+    n_ok = len(out) == len(pcm) if profile in (0, 4) else len(out) >= len(pcm)
+    if sr != srate or out.shape[1] != pcm.shape[1] or not n_ok or not np.isfinite(out).all():
+        raise AssertionError(f"{name}: decoded {out.shape} at {sr} Hz, expected {pcm.shape} "
+                             f"at {srate}, or not finite")
+    return stream, np.asarray(out, dtype=np.float64), t_enc, t_dec
+
+
+def lossless_walls(name: str, frames: int, t_enc: float, t_dec: float) -> str:
+    return (f"{name}: {frames} frames, enc {frames / t_enc:.1f} frames/s ({t_enc:.4f} s), "
+            f"dec {frames / t_dec:.1f} frames/s ({t_dec:.4f} s)")
+
+
+def lossless_phase(ft, torch, kernels, native, dev) -> dict:
+    """The lossless configurations on the card (see the module docstring).
+    Returns the trunc kernels' checks and the launches of the
+    p0_stereo_44k1 main run."""
+    from frad_python_tpu_torch.models import profile0
+    from frad_python_tpu_torch.ops.packing import DEPTHS
+    from frad_python_tpu_torch.ops.pcm import to_f64
+    from frad_python_tpu_torch.parallel import pipeline
+    from frad_python_tpu_torch.parallel.pipeline import _parse_frames
+
+    res = check_trunc_kernels(torch, kernels, dev)
+    pcm = make_audio(SECONDS, SRATE, CHANNELS)
+    n_frames = -(-len(pcm) // FSIZE)
+
+    # p0_stereo_44k1: the float32 fast path, then its int24 transfer variant
+    warm = pcm[: 4 * FSIZE + len(pcm) % FSIZE]
+    ft.batch_decode(ft.batch_encode(warm, 0, SRATE, P0_BITS, FSIZE, device=dev), device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    native.reset_calls()
+    stream, t_enc = timed(torch, lambda: ft.batch_encode(pcm, 0, SRATE, P0_BITS, FSIZE,
+                                                         device=dev))
+    (out, sr), t_dec = timed(torch, lambda: ft.batch_decode(stream, device=dev))
+    res["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    calls = {w.__name__: w.calls for w in native.WRAPPERS}
+    headers, payloads, tail = _parse_frames(stream)
+    if (len(headers), tail, {h.profile for h in headers}) != (n_frames, b"", {0}) \
+            or {h.bit_depth_index for h in headers} != {DEPTHS.index(P0_BITS)}:
+        raise AssertionError(f"p0_stereo_44k1: {len(headers)} frames of profiles "
+                             f"{ {h.profile for h in headers} }, plan {n_frames}")
+    if out.shape != pcm.shape or sr != SRATE or not np.isfinite(out).all():
+        raise AssertionError(f"p0_stereo_44k1: decoded {out.shape} at {sr} Hz")
+    snr = snr_db(pcm, out)
+    if snr < P0_SNR_FLOOR_DB:
+        raise AssertionError(f"p0_stereo_44k1 SNR {snr:.4f} dB below {P0_SNR_FLOOR_DB} dB")
+    for k in ("trunc_pack", "trunc_unpack"):
+        if res["launches"][k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the p0_stereo_44k1 path")
+    for k in ("frame_pack_batch", "frame_parse_batch"):
+        if calls[k] <= 0:
+            raise AssertionError(f"native {k} was not called by the p0_stereo_44k1 path")
+    out_cpu, _ = ft.batch_decode(stream, device="cpu")
+    d_cpu = float(np.abs(out_cpu - out).max())
+    if d_cpu > LOSSLESS_CARD_VS_CPU_MAX_ABS:
+        raise AssertionError(f"p0_stereo_44k1 card vs CPU decode {d_cpu}")
+    s24, out24, t_enc24, t_dec24 = run_batch(ft, torch, "p0_stereo_44k1 i24", pcm, 0, SRATE,
+                                                P0_BITS, FSIZE, dev, i24_upload=True,
+                                                i24_transfer=True)
+    snr24 = snr_db(pcm, out24)
+    if snr24 < P0_SNR_FLOOR_DB:
+        raise AssertionError(f"p0_stereo_44k1 i24 SNR {snr24:.4f} dB below {P0_SNR_FLOOR_DB}")
+    print(f"{lossless_walls('p0_stereo_44k1', n_frames, t_enc, t_dec)}, {len(stream)} bytes, "
+          f"SNR {snr:.4f} dB (floor {P0_SNR_FLOOR_DB}), card vs cpu decode max|d| {d_cpu} "
+          f"(tolerance {LOSSLESS_CARD_VS_CPU_MAX_ABS}); i24 upload/transfer: enc "
+          f"{t_enc24:.4f} s, dec {t_dec24:.4f} s, SNR {snr24:.4f} dB; launches "
+          f"{res['launches']}, native calls {calls}")
+
+    # p4_mono_44k1: host work only, so the card's stream is the CPU's
+    mono = make_audio(SECONDS, SRATE, 1)
+    s4, out4, t_enc4, t_dec4 = run_batch(ft, torch, "p4_mono_44k1", mono, 4, SRATE, 16,
+                                            FSIZE, dev)
+    s4_cpu = ft.batch_encode(mono, 4, SRATE, 16, FSIZE, device="cpu")
+    out4_cpu, _ = ft.batch_decode(s4_cpu, device="cpu")
+    if s4 != s4_cpu or not np.array_equal(out4, out4_cpu) \
+            or not np.array_equal(out4, mono.astype(np.float16).astype(np.float64)):
+        raise AssertionError("p4_mono_44k1: the card's stream or decode differs from the CPU's "
+                             "or from the f16 values of the input")
+    print(f"{lossless_walls('p4_mono_44k1', n_frames, t_enc4, t_dec4)}, {len(s4)} bytes, "
+          f"stream equal to the CPU's, decode equal to the CPU's and to the f16 input")
+
+    # p0_stereo_48b / 64b: the float64 FFT form on the card
+    for bits in (48, 64):
+        s_d, out_d, t_e, t_d = run_batch(ft, torch, f"p0_stereo_{bits}b", pcm, 0, SRATE,
+                                            bits, FSIZE, dev)
+        s_cpu = ft.batch_encode(pcm, 0, SRATE, bits, FSIZE, device="cpu")
+        _, p_card, _ = _parse_frames(s_d)
+        _, p_cpu, _ = _parse_frames(s_cpu)
+        differ = sum(a != b for a, b in zip(p_card, p_cpu))
+        out_c, _ = ft.batch_decode(s_d, device="cpu")
+        d = float(np.abs(out_c - out_d).max())
+        snr_d = snr_db(pcm, out_d)
+        if len(p_card) != len(p_cpu) or d > F64_CARD_VS_CPU_MAX_ABS or snr_d <= DEEP_SNR_DB[bits]:
+            raise AssertionError(f"p0_stereo_{bits}b: {len(p_card)} vs {len(p_cpu)} frames, "
+                                 f"card vs cpu decode {d}, SNR {snr_d:.2f} dB")
+        print(f"{lossless_walls(f'p0_stereo_{bits}b', n_frames, t_e, t_d)}, SNR {snr_d:.2f} dB "
+              f"(bound {DEEP_SNR_DB[bits]}), payloads differing from the CPU stream {differ} "
+              f"of {len(p_card)}, card vs cpu decode max|d| {d} "
+              f"(tolerance {F64_CARD_VS_CPU_MAX_ABS})")
+
+    # hires_96k_8ch, cut to 10 s: N = 8192, the GEMM's largest matrix
+    h = HIRES
+    hi = make_audio(h["seconds"], h["srate"], h["channels"])
+    kernels.reset_launches()
+    s_h, out_h, t_eh, t_dh = run_batch(ft, torch, "hires_96k_8ch", hi, 0, h["srate"],
+                                          h["bits"], h["fsize"], dev)
+    l_h = {k.__name__: k.launches for k in kernels.KERNELS}
+    out_hc, _ = ft.batch_decode(s_h, device="cpu")
+    snr_h, snr_hc = snr_db(hi, out_h), snr_db(hi, out_hc)
+    m = HIRES_FLOOR_FRAMES * h["fsize"]
+    snr_hf = snr_db(hi[:m], out_h[:m])
+    if snr_hf < HIRES_SNR_FLOOR_DB or snr_h < snr_hc - 0.1 \
+            or min(l_h["trunc_pack"], l_h["trunc_unpack"]) <= 0:
+        raise AssertionError(f"hires_96k_8ch: SNR {snr_hf:.4f} dB over the first "
+                             f"{HIRES_FLOOR_FRAMES} frames (floor {HIRES_SNR_FLOOR_DB}), "
+                             f"{snr_h:.4f} dB against the CPU decode's {snr_hc:.4f}, "
+                             f"launches {l_h}")
+    print(f"{lossless_walls('hires_96k_8ch (cut to 10 s)', -(-len(hi) // h['fsize']), t_eh, t_dh)}"
+          f", SNR {snr_hf:.4f} dB over the first {HIRES_FLOOR_FRAMES} frames (floor "
+          f"{HIRES_SNR_FLOOR_DB}), {snr_h:.4f} dB over all (CPU decode of the same stream "
+          f"{snr_hc:.4f} dB), card vs cpu decode max|d| {float(np.abs(out_hc - out_h).max())}, "
+          f"launches {l_h}")
+
+    # Profile 1 above the main path's 2048 samples: at 8192 the DCT GEMM
+    # cut along K, at 16384 the float32 FFT form; both kernels
+    for fsize, floor in ((P1_MID_FSIZE, P1_MID_SNR_FLOOR_DB),
+                         (P1_LONG_FSIZE, P1_LONG_SNR_FLOOR_DB)):
+        frames_l, _ = pipeline.plan_frames(len(pcm), fsize, 16, True)
+        pq_shape = (2 * (len(frames_l) - 1), fsize)
+        res[f"p1_{fsize}"] = long_kernels(torch, kernels, dev, pq_shape,
+                                          (len(frames_l), CHANNELS, fsize), fsize // 16)
+        kernels.reset_launches()
+        s_l, out_l, t_el, t_dl = run_batch(ft, torch, f"p1_{fsize}", pcm, 1, SRATE, BITS,
+                                              fsize, dev, i16_upload=True)
+        l_l = {k.__name__: k.launches for k in kernels.KERNELS}
+        snr_l = snr_db(pcm, out_l)
+        if snr_l < floor or min(l_l["power_quant"], l_l["overlap_add"]) <= 0:
+            raise AssertionError(f"Profile 1 at {fsize}: SNR {snr_l:.4f} dB (floor {floor}), "
+                                 f"launches {l_l}")
+        print(f"{lossless_walls(f'p1 at {fsize} samples', len(frames_l), t_el, t_dl)}, "
+              f"SNR {snr_l:.4f} dB (floor {floor}), launches {l_l}")
+
+    # the p0_stereo_44k1 track as s32le bytes through the push engines
+    raw = to_s32le(pcm)
+    pcm32 = to_f64(np.frombuffer(raw, "<i4").reshape(-1, CHANNELS), np.dtype("<i4"))
+    batch32 = ft.batch_encode(pcm32, 0, SRATE, P0_BITS, FSIZE, device=dev)
+    warm_raw = raw[: (4 * FSIZE + 1000) * CHANNELS * 4]
+    stream_decode(ft, torch, stream_encode_p0(ft, torch, warm_raw, PUSH, dev), PUSH, dev)
+    kernels.reset_launches()
+    with FrameTally(pipeline, profile0, hop=FSIZE, olap=0) as enc_t:
+        s_s, t_se = timed(torch, lambda: stream_encode_p0(ft, torch, raw, PUSH, dev))
+    with FrameTally(pipeline, profile0, hop=FSIZE, olap=0) as dec_t:
+        (out_s, ttfa), t_sd = timed(torch, lambda: stream_decode(ft, torch, s_s, PUSH, dev))
+    l_s = {k.__name__: k.launches for k in kernels.KERNELS}
+    _, p_s, tail_s = _parse_frames(s_s)
+    _, p_b, _ = _parse_frames(batch32)
+    differ = sum(a != b for a, b in zip(p_s, p_b))
+    out_b, _ = ft.batch_decode(s_s, device=dev)
+    d_sb = float(np.abs(out_s - out_b).max()) if out_s.shape == out_b.shape else np.inf
+    snr_s = snr_db(pcm32, out_s)
+    if len(p_s) != len(p_b) or tail_s or d_sb > STREAM_VS_BATCH_MAX_ABS \
+            or snr_s < P0_SNR_FLOOR_DB or min(l_s["trunc_pack"], l_s["trunc_unpack"]) <= 0:
+        raise AssertionError(f"lossless streaming: {len(p_s)} vs {len(p_b)} frames, stream vs "
+                             f"batch decode {d_sb}, SNR {snr_s:.4f} dB, launches {l_s}")
+    print(f"stream p0_stereo_44k1 s32le: enc {PUSH}-byte pushes {t_se:.3f} s "
+          f"({n_frames / t_se:.1f} frames/s), dec {PUSH}-byte pushes {t_sd:.3f} s "
+          f"({n_frames / t_sd:.1f} frames/s, first audio after {ttfa * 1e3:.2f} ms); payloads "
+          f"differing from the batch stream {differ} of {len(p_s)}; max|stream - batch| {d_sb} "
+          f"(tolerance {STREAM_VS_BATCH_MAX_ABS}), SNR {snr_s:.4f} dB; frames per call: enc "
+          f"{enc_t.used()}, dec {dec_t.used()}; launches {l_s}")
+    return res
+
+
+def long_kernels(torch, kernels, dev, pq_shape, oa_shape, olap: int) -> dict:
+    """power_quant and overlap_add against their plain versions at the
+    shapes of Profile 1 with oa_shape[2]-sample frames; CUDA-event times."""
+    from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
+
+    rng = np.random.default_rng(777)
+    freqs = torch.from_numpy((rng.standard_normal(pq_shape) * 1e-2).astype(np.float32)).to(dev)
+    div = np.exp(rng.standard_normal(pq_shape) * 2.0) * 0.1
+    div[:, -pq_shape[1] // 16:] = 0.0
+    div = torch.from_numpy(div.astype(np.float32)).to(dev)
+    pcm = torch.from_numpy(rng.standard_normal(oa_shape).astype(np.float32) * 0.3).to(dev)
+    w = crossfade_window(olap, dev)
+    cut = oa_shape[2] - olap
+    got, want = kernels.power_quant(freqs, div, 2.0 ** 15), kernels.power_quant_plain(
+        freqs, div, 2.0 ** 15)
+    o_k, f_k = kernels.overlap_add(pcm, w, cut, True)
+    o_p, f_p = kernels.overlap_add_plain(pcm, w, cut, True)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(o_k, o_p) and torch.equal(f_k, f_p)):
+        raise AssertionError(f"power_quant {pq_shape} or overlap_add {oa_shape} differs from "
+                             "its plain version")
+    out = {"pq_shape": pq_shape, "oa_shape": oa_shape,
+           "pq_ms": cuda_ms(torch, lambda: kernels.power_quant(freqs, div, 2.0 ** 15)),
+           "pq_plain_ms": cuda_ms(torch, lambda: kernels.power_quant_plain(freqs, div, 2.0 ** 15)),
+           "oa_ms": cuda_ms(torch, lambda: kernels.overlap_add(pcm, w, cut, True)),
+           "oa_plain_ms": cuda_ms(torch, lambda: kernels.overlap_add_plain(pcm, w, cut, True))}
+    print(f"kernels at Profile 1 N={oa_shape[2]}: power_quant {pq_shape} equal, "
+          f"{out['pq_ms']:.4f} ms vs plain {out['pq_plain_ms']:.4f} ms; overlap_add {oa_shape} "
+          f"olap={olap} i16 equal, {out['oa_ms']:.4f} ms vs plain {out['oa_plain_ms']:.4f} ms")
+    return out
 
 
 def main() -> int:
@@ -365,8 +727,8 @@ def main() -> int:
     snr = snr_db(pcm, out)
     if snr < SNR_FLOOR_DB:
         raise AssertionError(f"SNR {snr:.4f} dB below the floor {SNR_FLOOR_DB} dB")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in P1_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
     for name in ("p1_pack_batch", "frame_pack_batch", "frame_parse_batch", "p1_unpack_batch"):
         if calls[name] <= 0:
@@ -424,8 +786,8 @@ def main() -> int:
     snr_e = snr_db(pcm, out_fixed)
     if snr_e < SNR_FLOOR_DB:
         raise AssertionError(f"ECC SNR {snr_e:.4f} dB below the floor {SNR_FLOOR_DB} dB")
-    for name, n in launches_e.items():
-        if n <= 0:
+    for name in P1_KERNELS:
+        if launches_e[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the ECC path")
     for name in ("unarmor_batch", "frame_pack_batch"):
         if calls_e[name] <= 0:
@@ -519,7 +881,7 @@ def main() -> int:
     if fixed_s.shape != clean_s.shape or not np.array_equal(fixed_s, clean_s):
         raise AssertionError("fix_error streaming decode of the damaged stream differs from "
                              "the clean streaming decode")
-    if snr_db(pcm, fixed_s) < SNR_FLOOR_DB or min(launches_s_ecc.values()) <= 0:
+    if snr_db(pcm, fixed_s) < SNR_FLOOR_DB or min(launches_s_ecc[k] for k in P1_KERNELS) <= 0:
         raise AssertionError(f"ECC streaming: SNR {snr_db(pcm, fixed_s):.4f} dB, launches "
                              f"{launches_s_ecc}")
     stream_launches = {k: launches_s_enc[k] + launches_s_dec[k] + launches_s_ecc[k]
@@ -531,20 +893,39 @@ def main() -> int:
           f"to the clean streaming decode, SNR {snr_db(pcm, fixed_s):.4f} dB, launches "
           f"{launches_s_ecc}")
 
+    # 8. the lossless profiles 0 and 4, and Profile 1 above the GEMM's cap
+    lossless = lossless_phase(ft, torch, kernels, native, dev)
+    mid, long = lossless[f"p1_{P1_MID_FSIZE}"], lossless[f"p1_{P1_LONG_FSIZE}"]
+
     print(json.dumps({"kernels": [
         {"name": "power_quant", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/power_quant.cu",
          "replaces": "frad_python_tpu/research/pallas_kernels.py:58",
          "launches": launches["power_quant"], "max_abs_err": max(pq_err, pq_s_err),
          "ms": pq_ms, "plain_ms": pq_plain_ms,
-         "streaming_launches": stream_launches["power_quant"]},
+         "streaming_launches": stream_launches["power_quant"],
+         "ms_8192": mid["pq_ms"], "plain_ms_8192": mid["pq_plain_ms"],
+         "ms_16384": long["pq_ms"], "plain_ms_16384": long["pq_plain_ms"]},
         {"name": "overlap_add", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/overlap_add.cu",
          "replaces": "frad_python_tpu/research/pallas_kernels.py:90",
          "launches": launches["overlap_add"], "max_abs_err": max(oa_err, oa_s_err),
          "ms": oa[True][0], "plain_ms": oa[True][1],
          "ms_f32": oa[False][0], "plain_ms_f32": oa[False][1],
-         "streaming_launches": stream_launches["overlap_add"]},
+         "streaming_launches": stream_launches["overlap_add"],
+         "ms_8192": mid["oa_ms"], "plain_ms_8192": mid["oa_plain_ms"],
+         "ms_16384": long["oa_ms"], "plain_ms_16384": long["oa_plain_ms"]},
+        {"name": "trunc_pack", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/trunc_pack.cu",
+         "replaces": "frad_python_tpu/ops/bitpack.py:184",
+         "launches": lossless["launches"]["trunc_pack"], "max_abs_err": lossless["pack_err"],
+         "ms": lossless["pack_ms"], "plain_ms": lossless["pack_plain_ms"]},
+        {"name": "trunc_unpack", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/trunc_unpack.cu",
+         "replaces": "frad_python_tpu/ops/bitpack.py:218",
+         "launches": lossless["launches"]["trunc_unpack"],
+         "max_abs_err": lossless["unpack_err"],
+         "ms": lossless["unpack_ms"], "plain_ms": lossless["unpack_plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

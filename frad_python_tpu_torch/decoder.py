@@ -1,4 +1,4 @@
-"""Streaming FrAD decoder engine (Profile 1).
+"""Streaming FrAD decoder engine (profiles 0, 1 and 4).
 
 The port of `frad_python_tpu.decoder`: push FrAD bytes in, get PCM out.
 FRM_SIGN resync, the incremental ASFH parse, CRC-gated Reed-Solomon
@@ -8,17 +8,19 @@ with `crit`, force-flush handling, and suspend / resume through
 
 `process` defers each whole frame and decodes the deferred frames at
 drain points. Runs of >= 2 frames with one header configuration go to
-`pipeline._decode_run` in power-of-two groups (the batch cores and the
-`overlap_add` kernel on `device`); a single frame, or a fragment that
-needs a crossfade over several frames, takes the per-frame path
-(`profile1.digital` on the device, crossfade on the host). `exact=True`
-takes the per-frame path for every frame, so the output is
+`pipeline._decode_run` in power-of-two groups (the batch cores and
+kernels on `device`, the lossless transform at `policy.compute_dtype()`);
+a single frame, a fragment that needs a crossfade over several frames, a
+frame of a reserved profile and a lossless run the batch cannot split
+take the per-frame path (`profile0/1/4.digital`, crossfade on the host).
+A reserved profile decodes as profile 0, as in the JAX package.
+`exact=True` takes the per-frame path for every frame, so the output is
 bit-identical across push sizes; FRAD_TORCH_EXACT_DECODE=1 makes that
 the default. The API boundary is numpy: `DecodeResult.pcm` is [T, C]
 float64.
 
-A frame of profile 0, 2 or 4, or of a reserved profile, raises
-NotImplementedError: only Profile 1 is ported.
+A frame of profile 2, or of Profile 1 at FRAD_TORCH_COMPUTE_DTYPE=float64,
+raises NotImplementedError: those are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from . import models
 from .common import FRM_SIGN, MICRO_BATCH_MAX
 from .container import ecc
 from .container.asfh import ASFH, COMPLETE, FORCE_FLUSH
+from .models import COMPACT
 from .ops import policy
 from .ops.window import crossfade
 from .parallel import pipeline
@@ -91,12 +94,24 @@ class Decoder:
         if olap_len <= self.overlap_prog:
             self.overlap_fragment = np.empty((0, 0), dtype=np.float64)
             self.overlap_prog = 0
-            if a.overlap_ratio != 0:
+            if a.profile in COMPACT and a.overlap_ratio != 0:
                 cut = len(frame) * (a.overlap_ratio - 1) // a.overlap_ratio
                 self.overlap_fragment, frame = frame[cut:], frame[:cut]
         return frame
 
     # ------------------------------------------------------------------
+    def _decode_frame_payload(self, frad: bytes, a: ASFH) -> np.ndarray:
+        if a.profile == 1:
+            policy.check_compute_dtype(None, 1)
+            return models.profile1.digital(frad, a.bit_depth_index, a.channels, a.srate,
+                                           a.fsize, self.device)
+        models.check_ported(a.profile)
+        if a.profile == 4:
+            return models.profile4.digital(frad, a.bit_depth_index, a.channels, a.endian,
+                                           a.fsize)
+        return models.profile0.digital(frad, a.bit_depth_index, a.channels, a.endian,
+                                       a.fsize, self.device)
+
     def _decode_one(self, a: ASFH, frad: bytes) -> np.ndarray:
         """Per-frame path: ECC strip/repair + decode + crossfade.
 
@@ -104,15 +119,14 @@ class Decoder:
         not raise (a payload that does not inflate unpacks to None and
         decodes to a zero frame; the EGR decoder reads any bytes; ECC
         with a ratio GF(256) cannot honor strips the parity without
-        repair), so an exception here is a device, kernel or port fault.
+        repair), and the lossless decoders check for the payloads the JAX
+        package's decoder fails on and give its zero frame, so an
+        exception here is a device, kernel or port fault.
         """
-        models.check_ported(a.profile)
         if a.ecc:
             repair = self.fix_error and not a.payload_crc_matches(frad)
             frad = ecc.decode(frad, a.ecc_dsize, a.ecc_codesize, repair)
-        pcm = models.profile1.digital(frad, a.bit_depth_index, a.channels, a.srate,
-                                      a.fsize, self.device)
-        return self._overlap(pcm, a)
+        return self._overlap(self._decode_frame_payload(frad, a), a)
 
     def _drain_pending(self, hs: list[ASFH], ps: list[bytes],
                        ret_pcm: list[np.ndarray]) -> None:
@@ -142,13 +156,12 @@ class Decoder:
                 run += 1
 
             h0 = hs[idx]
-            models.check_ported(h0.profile)
-            n = h0.fsize
-            cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
             frag = self.overlap_fragment
-            if (run < 2 or self.overlap_prog != 0
-                    or (frag.size and (len(frag) > cut or frag.shape[1] != h0.channels))):
-                # a single frame, or a crossfade over several frames
+            if (run < 2 or self.overlap_prog != 0 or h0.profile not in pipeline._BATCHABLE
+                    or (frag.size and (len(frag) > pipeline._emit_cut(h0)
+                                       or frag.shape[1] != h0.channels))):
+                # a single frame, a crossfade over several frames, or a
+                # reserved profile (decoded as profile 0) or profile 2
                 ret_pcm.append(self._decode_one(hs[idx], ps[idx]))
                 idx += 1
                 continue
@@ -162,9 +175,18 @@ class Decoder:
                     ret_pcm.append(self._decode_one(hs[idx], ps[idx]))
                     idx += 1
                     continue
-                out, new_frag = pipeline._decode_run(
+                res = pipeline._decode_run(
                     hs[idx: idx + k], ps[idx: idx + k], i16_transfer=False,
                     device=self.device, fix_error=self.fix_error)
+                if res is None:
+                    # a lossless payload the batch cannot split: frame by
+                    # frame, as the JAX Decoder falls back when its batch
+                    # raises
+                    for j in range(idx, idx + k):
+                        ret_pcm.append(self._decode_one(hs[j], ps[j]))
+                    idx += k
+                    continue
+                out, new_frag = res
                 frag = self.overlap_fragment
                 if frag.size and len(out):
                     ret_pcm.append(np.asarray(pipeline._frag_head(out, frag), dtype=np.float64))

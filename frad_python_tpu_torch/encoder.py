@@ -1,21 +1,25 @@
-"""Streaming FrAD encoder engine (Profile 1).
+"""Streaming FrAD encoder engine (profiles 0, 1 and 4).
 
 The port of `frad_python_tpu.encoder`: push PCM bytes in, get framed FrAD
-bytes out. Incremental buffering, compact read-size rounding, the overlap
-fragment carry, optional Reed-Solomon armor, ASFH framing, force-flush
-terminators, mid-stream reconfiguration with the validation gauntlet and
-a flush when the channel layout or sample rate changes, and suspend /
-resume through `state_dict`.
+bytes out. Incremental buffering, compact read-size rounding (Profile 1),
+the overlap fragment carry, per-frame profile dispatch, optional
+Reed-Solomon armor, ASFH framing, force-flush terminators (Profile 1),
+mid-stream reconfiguration with the validation gauntlet and a flush when
+the channel layout or sample rate changes, and suspend / resume through
+`state_dict`.
 
 Each frame's tensor chain runs on `device` (`None` means CUDA, and raises
 without one). When the buffer holds two or more whole frames on the
 steady overlap grid, `_micro_batch` hands them to
 `parallel.batch_encode(final=False)` in power-of-two groups, the same
-cores and packer as the batch path; otherwise a frame goes alone through
-`profile1.analogue`. The API boundary is numpy and bytes.
+cores and packers as the batch path; otherwise a frame goes alone through
+`profile0/1/4.analogue`. The lossless transform computes at
+`policy.transform_dtype` (FRAD_TORCH_COMPUTE_DTYPE). The API boundary is
+numpy and bytes.
 
-Only Profile 1 is ported: the gauntlet answers for every profile with the
-JAX package's messages, and a valid profile 0, 2 or 4 then raises
+The gauntlet answers for every profile with the JAX package's messages;
+profile 2 is not available there, and a JAX state dict of profile 2, or
+Profile 1 at FRAD_TORCH_COMPUTE_DTYPE=float64, raises
 NotImplementedError.
 """
 
@@ -130,6 +134,18 @@ class Encoder:
     # ------------------------------------------------------------------
     # frame loop
     # ------------------------------------------------------------------
+    def _encode_frame_payload(self, frame: np.ndarray) -> tuple[bytes, int, int, int]:
+        profile = self.asfh.profile
+        if profile == 1:
+            policy.check_compute_dtype(None, 1)
+            return models.profile1.analogue(frame, self.bit_depth, self.srate,
+                                            self.loss_level, self.device)
+        if profile == 4:
+            return models.profile4.analogue(frame, self.bit_depth, self.srate,
+                                            self.asfh.endian)
+        return models.profile0.analogue(frame, self.bit_depth, self.srate,
+                                        self.asfh.endian, self.device)
+
     def _micro_batch(self, rlen: int) -> tuple[bytes, int] | None:
         """Encode a run of whole frames with one `batch_encode` call.
 
@@ -138,18 +154,26 @@ class Encoder:
         power-of-two count of frames up to MICRO_BATCH_MAX. Returns
         (stream bytes, fresh samples consumed), or None when the
         per-frame path must run (an off-grid fragment after a mid-stream
-        reconfiguration, or a shallow buffer). Nothing is caught here:
+        reconfiguration, ECC ratio bytes in a lossless header with ECC
+        off, or a shallow buffer). Nothing is caught here:
         the Encoder's gauntlet admits no configuration that
         `batch_encode` rejects and the per-frame path accepts, so an
         error is real and propagates.
         """
+        profile = self.asfh.profile
+        is_compact = profile in COMPACT
         ratio = self.asfh.overlap_ratio
-        olap_active = ratio > 1
+        olap_active = is_compact and ratio > 1
         steady_frag = (rlen - rlen * (ratio - 1) // ratio) if olap_active else 0
         frag = self.overlap_fragment
         if len(frag) and (not olap_active or len(frag) != steady_frag
                           or frag.shape[1] != self.channels):
             return None        # off-grid fragment (mid-stream reconfiguration)
+        if not is_compact and not self.asfh.ecc and (self.asfh.ecc_dsize
+                                                     or self.asfh.ecc_codesize):
+            # a lossless header carries the ratio bytes even with ECC off,
+            # where the batch framer writes (0, 0): keep the per-frame path
+            return None
 
         bps = self.pcm_format.itemsize
         row = self.channels * bps
@@ -172,19 +196,24 @@ class Encoder:
 
         from .parallel.pipeline import batch_encode
         stream = batch_encode(
-            span, 1, self.srate, self.bit_depth, self.fsize,
+            span, profile, self.srate, self.bit_depth, self.fsize,
             loss_level=self.loss_level, enable_ecc=self.asfh.ecc,
             ecc_ratio=(self.asfh.ecc_dsize, self.asfh.ecc_codesize),
-            little_endian=self.asfh.endian, overlap_ratio=ratio, final=False,
-            device=self.device)
+            little_endian=self.asfh.endian, overlap_ratio=ratio if is_compact else 0,
+            final=False, device=self.device)
 
         self.overlap_fragment = (span[len(span) - steady_frag:] if olap_active
                                  else np.empty((0, 0), dtype=np.float64))
-        bits = self.bit_depth if self.bit_depth in models.profile1.DEPTHS else 16
-        self.asfh.bit_depth_index = models.profile1.DEPTHS.index(bits)
         self.asfh.channels = self.channels
         self.asfh.fsize = rlen
-        self.asfh.srate = compact.get_valid_srate(self.srate)
+        if is_compact:
+            bits = self.bit_depth if self.bit_depth in models.profile1.DEPTHS else 16
+            self.asfh.bit_depth_index = models.profile1.DEPTHS.index(bits)
+            self.asfh.srate = compact.get_valid_srate(self.srate)
+        else:
+            # a lossless depth index depends on the data (escalation); the
+            # next per-frame write sets it
+            self.asfh.srate = self.srate
         return stream, fresh_total
 
     def _inner(self, stream: bytes, flush: bool) -> EncodeResult:
@@ -195,7 +224,9 @@ class Encoder:
             return EncodeResult(b"", 0)
 
         while True:
-            rlen = compact.get_samples_min_ge(self.fsize)
+            rlen = self.fsize
+            if self.asfh.profile in COMPACT:
+                rlen = compact.get_samples_min_ge(rlen)
 
             if not flush:
                 mb = self._micro_batch(rlen)
@@ -224,8 +255,7 @@ class Encoder:
                 break
             samples += samples_in
 
-            frad, bdi, channels, srate = models.profile1.analogue(
-                frame, self.bit_depth, self.srate, self.loss_level, self.device)
+            frad, bdi, channels, srate = self._encode_frame_payload(frame)
             if self.asfh.ecc:
                 frad = ecc.encode(frad, self.asfh.ecc_dsize, self.asfh.ecc_codesize)
 
@@ -263,7 +293,6 @@ class Encoder:
                       lambda: self.verify_frame_size(profile, frame_size)):
             if (err := check()) is not None:
                 return err
-        check_ported(profile)
 
         res = EncodeResult(b"", 0)
         if ((self.channels and self.channels != channels)

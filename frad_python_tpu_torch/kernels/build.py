@@ -33,6 +33,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "frad_power_quant": (_P, _P, _P, _LL, _F, _P),
     "frad_overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "frad_trunc_pack": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "frad_trunc_unpack": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

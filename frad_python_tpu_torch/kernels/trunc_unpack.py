@@ -1,0 +1,57 @@
+"""`trunc_unpack`: the Profile 0 decoder's truncated-float unpacking into
+the inverse DCT's layout.
+
+The port of the JAX package's fused XLA program (frad_python_tpu/ops/
+bitpack.py:trunc_unpack before the IDCT in models/batch.py:
+_p0_unpack_decode_jit). `trunc_unpack` launches the CUDA kernel
+(csrc/trunc_unpack.cu) for CUDA tensors and runs `trunc_unpack_plain` for
+CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops import bitpack
+from . import build
+
+
+def trunc_unpack_plain(words: torch.Tensor, bits: int, little: bool, n: int,
+                       ch: int) -> torch.Tensor:
+    """Payload words [B, W] (int16 at 16 bits, int32 at 24 and 32) ->
+    float32 [B, ch, n] coefficients, NaN and Inf scrubbed to 0."""
+    b = words.shape[0]
+    flat = bitpack.trunc_unpack_plain(words, bits, little)
+    return flat.reshape(b, n, ch).transpose(1, 2).contiguous()
+
+
+def trunc_unpack(words: torch.Tensor, bits: int, little: bool, n: int,
+                 ch: int) -> torch.Tensor:
+    """See `trunc_unpack_plain`; one kernel launch for CUDA tensors."""
+    if words.device.type == "cpu":
+        return trunc_unpack_plain(words, bits, little, n, ch)
+    if words.device.type != "cuda":
+        raise ValueError(f"trunc_unpack: tensor on {words.device}")
+    want = torch.int16 if bits == 16 else torch.int32
+    if bits not in bitpack.TRUNC_DEVICE_BITS or words.dtype != want:
+        raise ValueError(f"trunc_unpack: bits {bits} with {words.dtype} words")
+    if words.dim() != 2 or not words.is_contiguous() \
+            or words.shape[1] * words.element_size() != n * ch * bits // 8:
+        raise ValueError(f"trunc_unpack: contiguous [B, {n * ch * bits // 8} bytes] "
+                         f"words required, got {tuple(words.shape)} {words.dtype}")
+    b = words.shape[0]
+    out = torch.empty((b, ch, n), dtype=torch.float32, device=words.device)
+    lib = build.library()
+    err = lib.frad_trunc_unpack(
+        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        b, ch, n, bits, int(bool(little)),
+        ctypes.c_void_p(torch.cuda.current_stream(words.device).cuda_stream))
+    build.check("frad_trunc_unpack", err)
+    trunc_unpack.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+trunc_unpack.launches = 0

@@ -1,5 +1,10 @@
-"""Batched Profile 1 cores over a frame batch [B, N, C], as torch ops on
-one device.
+"""Batched Profile 0 and Profile 1 cores over a frame batch [B, N, C], as
+torch ops on one device.
+
+Profile 0: the DCT-II / IDCT of `ops/dct.py` (the float32 GEMM, or the
+FFT form at float64 and above N = 8192), and the fast path's fused
+pairs: DCT GEMM -> `trunc_pack` kernel (payload words and each frame's
+max|x|), and `trunc_unpack` kernel -> IDCT GEMM.
 
 Encode: PCM -> DCT-II GEMM -> masking thresholds (band-sum GEMM, RMS^0.8,
 AHT floor, x loss) -> interpolation GEMM -> `power_quant` kernel ->
@@ -18,10 +23,52 @@ import torch
 
 from ..kernels.overlap_add import crossfade_window, overlap_add
 from ..kernels.power_quant import power_quant
-from ..ops import psycho
+from ..kernels.trunc_pack import trunc_pack
+from ..kernels.trunc_unpack import trunc_unpack
+from ..ops import bitpack, psycho
 from ..ops.dct import dct2, idct2
 
 _E_HALF = np.e / 2.0
+
+
+def p0_encode_core(frames: torch.Tensor) -> torch.Tensor:
+    """[B, N, C] PCM -> [B, N, C] DCT-II 'forward' coefficients, in the
+    dtype of `frames` (float32 or float64)."""
+    return dct2(frames.transpose(1, 2)).transpose(1, 2)
+
+
+def p0_decode_core(freqs: torch.Tensor) -> torch.Tensor:
+    """[B, N, C] coefficients -> [B, N, C] PCM."""
+    return idct2(freqs.transpose(1, 2)).transpose(1, 2)
+
+
+def p0_encode_pack_core(frames: torch.Tensor, bits: int, little: bool):
+    """[B, N, C] float32 PCM -> (payload words, maxabs [B] float32): the
+    DCT GEMM, then the `trunc_pack` kernel on its [B, C, N] output, so
+    the copy to the host carries the payload bytes. A frame whose maxabs
+    exceeds the container float (or is NaN) must leave this path."""
+    return trunc_pack(dct2(frames.transpose(1, 2)), bits, little)
+
+
+def p0_encode_pack_core_i24(words: torch.Tensor, bits: int, little: bool, n: int, ch: int):
+    """`p0_encode_pack_core` of int24 PCM words [B, n*ch*3//4]: the upload
+    carries 3 bytes a sample."""
+    frames = bitpack.i24_words_to_pcm_device(words).reshape(words.shape[0], n, ch)
+    return p0_encode_pack_core(frames, bits, little)
+
+
+def p0_unpack_decode_core(words: torch.Tensor, bits: int, little: bool, n: int,
+                          ch: int) -> torch.Tensor:
+    """Payload words [B, W] -> [B, n, ch] float32 PCM: the `trunc_unpack`
+    kernel, then the IDCT GEMM; the upload carries the payload bytes."""
+    return idct2(trunc_unpack(words, bits, little, n, ch)).transpose(1, 2)
+
+
+def p0_unpack_decode_i24_core(words: torch.Tensor, bits: int, little: bool, n: int,
+                              ch: int) -> torch.Tensor:
+    """`p0_unpack_decode_core` returning int24 PCM words [B, n*ch*3//4]:
+    the copy to the host carries 3 bytes a sample."""
+    return bitpack.pcm_to_i24_words(p0_unpack_decode_core(words, bits, little, n, ch))
 
 
 def p1_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: float):

@@ -2,9 +2,10 @@
 
 The port's host byte work runs through this library, as the JAX
 package's main path runs through its own copy: CRC-16, Exp-Golomb-Rice,
-Reed-Solomon blocks, PCM casts, and the batched passes of the Profile 1
-pipeline (payload pack and unpack, frame pack, frame parse, ECC unarmor),
-threaded in C++.
+Reed-Solomon blocks, PCM casts (int16 and int24), the truncated-float
+packings of the lossless profiles, and the batched passes of the
+pipeline (Profile 1 payload pack and unpack, frame pack, frame parse, ECC
+unarmor), threaded in C++.
 
 The library is built at first use (`build.py`) and every symbol must
 bind: a failed build or load raises, there is no silent fallback.
@@ -34,6 +35,12 @@ SIGNATURES = {
     "frad_rs_decode_blocks": (None, [_C.c_char_p, _SZ, _SZ, _SZ, _C.c_char_p]),
     "frad_i16_to_f64": (None, [_P, _SZ, _C.c_double, _P, _I]),
     "frad_f64_to_i16": (None, [_P, _SZ, _C.c_double, _P, _I]),
+    "frad_i24_to_f64": (None, [_C.c_char_p, _SZ, _P, _I]),
+    "frad_f64_to_i24": (None, [_P, _SZ, _P, _I]),
+    "frad_pack_floats": (None, [_P, _SZ, _I, _I, _P, _I]),
+    "frad_unpack_floats": (None, [_C.c_char_p, _SZ, _I, _I, _P, _I]),
+    "frad_maxabs_rows": (None, [_P, _SZ, _SZ, _P, _I]),
+    "frad_pack_floats_maxabs": (None, [_P, _SZ, _SZ, _I, _I, _P, _P, _I]),
     "frad_p1_unpack_batch": (None, [_C.c_char_p, _I64P, _I64, _I64, _I64, _I64,
                                     _P, _P, _P, _P, _I]),
     "frad_p1_pack_batch": (None, [_P, _I64P, _I64P, _P, _I64, _I64, _I64P, _I64,
@@ -106,6 +113,13 @@ def _offsets(parts: list[bytes]) -> np.ndarray:
     offsets = np.zeros(len(parts) + 1, dtype=np.int64)
     np.cumsum([len(p) for p in parts], out=offsets[1:])
     return offsets
+
+
+def _check_bits(bits: int) -> None:
+    """The C float packers take the byte-aligned depths only (the 12-bit
+    nibble packing stays in numpy)."""
+    if bits not in (16, 24, 32, 48, 64):
+        raise ValueError(f"native float packing takes 16/24/32/48/64 bits, not {bits}")
 
 
 def _i64p(a: np.ndarray):
@@ -182,6 +196,78 @@ def i16_to_f64(arr: np.ndarray, scale: float = 1.0 / 32768.0,
 
 
 @_counted
+def f64_to_i24(pcm: np.ndarray, nthreads: int = 2) -> np.ndarray:
+    """f64 PCM -> rint(x * 2^23) clamped to int24, as little-endian byte
+    triples: uint8 [n * 3]."""
+    pcm = np.ascontiguousarray(pcm, dtype=np.float64)
+    out = np.empty(pcm.size * 3, dtype=np.uint8)
+    library().frad_f64_to_i24(pcm.ctypes.data, pcm.size, out.ctypes.data, nthreads)
+    return out
+
+
+@_counted
+def i24_to_f64(raw: bytes, nthreads: int = 2) -> np.ndarray:
+    """Little-endian int24 triples -> f64 in [-1, 1); a length that is not
+    a whole number of triples raises ValueError, as the numpy path does."""
+    if len(raw) % 3:
+        raise ValueError(f"i24 byte stream length {len(raw)} not a multiple of 3")
+    out = np.empty(len(raw) // 3, dtype=np.float64)
+    library().frad_i24_to_f64(raw, out.size, out.ctypes.data, nthreads)
+    return out
+
+
+@_counted
+def pack_floats(values: np.ndarray, bits: int, little_endian: bool,
+                nthreads: int = 3) -> bytes:
+    """Truncated-float serialisation at 16/24/32/48/64 bits: the bytes of
+    `ops.packing.pack_floats`."""
+    _check_bits(bits)
+    flat = np.ascontiguousarray(values, dtype=np.float64).reshape(-1)
+    out = np.empty(flat.size * (bits // 8), dtype=np.uint8)
+    library().frad_pack_floats(flat.ctypes.data, flat.size, bits, int(little_endian),
+                               out.ctypes.data, nthreads)
+    return out.tobytes()
+
+
+@_counted
+def unpack_floats(frad: bytes, bits: int, little_endian: bool,
+                  nthreads: int = 3) -> np.ndarray:
+    """Inverse of `pack_floats` over the whole values of `frad` -> f64, with
+    NaN and Inf scrubbed to 0."""
+    _check_bits(bits)
+    out = np.empty(len(frad) // (bits // 8), dtype=np.float64)
+    library().frad_unpack_floats(frad, out.size, bits, int(little_endian),
+                                 out.ctypes.data, nthreads)
+    return out
+
+
+@_counted
+def pack_floats_maxabs(mat: np.ndarray, bits: int, little_endian: bool,
+                       nthreads: int = 2) -> tuple[bytes, np.ndarray]:
+    """`pack_floats` of an [rows, cols] f64 matrix fused with each row's
+    max|x| (a NaN is skipped). Returns (packed bytes, maxabs [rows]); the
+    caller re-packs when a row's max escalates past the container."""
+    _check_bits(bits)
+    mat = np.ascontiguousarray(mat, dtype=np.float64)
+    rows, cols = mat.shape
+    out = np.empty(rows * cols * (bits // 8), dtype=np.uint8)
+    maxabs = np.empty(rows, dtype=np.float64)
+    library().frad_pack_floats_maxabs(mat.ctypes.data, rows, cols, bits, int(little_endian),
+                                      out.ctypes.data, maxabs.ctypes.data, nthreads)
+    return out.tobytes(), maxabs
+
+
+@_counted
+def maxabs_rows(mat: np.ndarray, nthreads: int = 2) -> np.ndarray:
+    """Per-row max|x| of an [rows, cols] f64 matrix (a NaN is skipped)."""
+    mat = np.ascontiguousarray(mat, dtype=np.float64)
+    rows, cols = mat.shape
+    out = np.empty(rows, dtype=np.float64)
+    library().frad_maxabs_rows(mat.ctypes.data, rows, cols, out.ctypes.data, nthreads)
+    return out
+
+
+@_counted
 def p1_unpack_batch(payloads: list[bytes], fq_len: int, tq_len: int,
                     nthreads: int = 3) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Inflate + EGR-decode + untrim a batch of Profile 1 payloads into f32.
@@ -230,22 +316,30 @@ def p1_pack_batch(words: np.ndarray, nbits: np.ndarray, ks: np.ndarray,
 
 
 @_counted
-def frame_pack_batch(payloads: list[bytes], bdis: np.ndarray, fsizes: np.ndarray,
-                     fsize_idx: np.ndarray | None, *, profile: int, is_compact: bool,
-                     channels: int, srate: int, srate_idx: int = 0,
+def frame_pack_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.ndarray,
+                     fsizes: np.ndarray, fsize_idx: np.ndarray | None, *, profile: int,
+                     is_compact: bool, channels: int, srate: int, srate_idx: int = 0,
                      overlap_ratio: int = 0, little_endian: bool = False,
                      ecc: bool = False, ecc_dsize: int = 0, ecc_codesize: int = 0,
                      nthreads: int = 3) -> bytes:
     """RS armor + ASFH header + CRC for every frame of a batch, threaded,
     into one buffer: the bytes of the per-frame `ecc.encode` +
-    `ASFH.write` chain."""
+    `ASFH.write` chain. `payloads` is a list of per-frame payloads or an
+    already joined (blob, offsets [B + 1]) pair."""
     if ecc and ecc_codesize > 0:
         from ..ops.rs import check_code_params
 
         check_code_params(ecc_dsize, ecc_codesize)
-    b = len(payloads)
-    blob = b"".join(payloads)
-    offsets = _offsets(payloads)
+    if isinstance(payloads, tuple):
+        blob, offsets = payloads
+        offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+        if offsets[0] != 0 or offsets[-1] != len(blob) or (np.diff(offsets) < 0).any():
+            raise ValueError("frame_pack_batch: offsets do not cut the blob")
+        b = len(offsets) - 1
+    else:
+        b = len(payloads)
+        blob = b"".join(payloads)
+        offsets = _offsets(payloads)
     lens = np.diff(offsets)
     if ecc and ecc_codesize > 0:
         nfull = lens // ecc_dsize

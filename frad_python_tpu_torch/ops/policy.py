@@ -4,19 +4,46 @@
   CUDA device exists that raises instead of running on the CPU. The CPU
   is used only when a caller asks for it (the tests do, with the kernels'
   plain versions).
-* Compute dtype: float32 throughout, full IEEE float32. On a CUDA device
-  `resolve_device` pins `torch.backends.cuda.matmul.allow_tf32 = False`
-  and `torch.backends.cudnn.allow_tf32 = False`, so the DCT/IDCT and the
-  masking GEMMs never drop to TF32: the counterpart of the JAX package's
-  `Precision.HIGHEST`. The JAX package's reduced-precision lossy GEMMs
-  were a TPU trade-off and are not carried over. float64 compute is not
-  part of this port yet and raises.
+* Compute dtype: FRAD_TORCH_COMPUTE_DTYPE (the counterpart of the JAX
+  package's FRAD_TPU_COMPUTE_DTYPE), float32 by default, the JAX
+  package's accelerator default. float32 is full IEEE float32: on a CUDA
+  device `resolve_device` pins `torch.backends.cuda.matmul.allow_tf32 =
+  False` and `torch.backends.cudnn.allow_tf32 = False`, so the DCT/IDCT
+  and the masking GEMMs never drop to TF32, the counterpart of the JAX
+  package's `Precision.HIGHEST`. The JAX package's reduced-precision
+  lossy GEMMs were a TPU trade-off and are not carried over. float64 runs
+  on the device (the H100 has native FP64) for the lossless profiles 0
+  and 4, and always for their 48- and 64-bit containers; Profile 1 at
+  float64 is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+#: container depths from this one up exceed float32 transform precision
+#: (a truncated f64 keeps 36 or 52 mantissa bits): their transform is
+#: always float64
+DEEP_BITS = 48
+
+_DTYPES = ("float32", "float64")
+
+
+def compute_dtype() -> str:
+    """FRAD_TORCH_COMPUTE_DTYPE (float32 or float64), float32 when unset."""
+    env = os.environ.get("FRAD_TORCH_COMPUTE_DTYPE") or "float32"
+    if env not in _DTYPES:
+        raise ValueError(f"FRAD_TORCH_COMPUTE_DTYPE={env!r}: expected one of {_DTYPES}")
+    return env
+
+
+def transform_dtype(bits: int) -> str:
+    """Dtype of a lossless transform into a `bits`-deep container: float64
+    for the 48- and 64-bit containers, `compute_dtype()` below them."""
+    return "float64" if bits >= DEEP_BITS else compute_dtype()
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -34,22 +61,30 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
-def check_compute_dtype(compute_dtype: str | None) -> None:
-    """The port computes in float32 only."""
-    if compute_dtype not in (None, "float32"):
+def check_compute_dtype(dtype: str | None, profile: int) -> str:
+    """The compute dtype of a `profile` run: `dtype`, or `compute_dtype()`
+    when None. Raises ValueError for a dtype other than float32 and
+    float64, and NotImplementedError for a lossy profile at float64."""
+    dt = dtype or compute_dtype()
+    if dt not in _DTYPES:
+        raise ValueError(f"compute_dtype={dt!r}: expected one of {_DTYPES}")
+    if dt == "float64" and profile in (1, 2):
         raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the port computes in float32 "
-            "only; float64 compute is not ported yet")
+            f"compute_dtype='float64' for profile {profile}: the port computes "
+            "the lossy profiles in float32 only")
+    return dt
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on `device`. CUDA uploads go through a pinned
-    staging buffer with a non-blocking copy."""
-    src = torch.from_numpy(np.ascontiguousarray(arr))
+    staging buffer with a non-blocking copy; a read-only array (a payload
+    viewed with np.frombuffer) is copied, never aliased."""
+    arr = np.ascontiguousarray(arr)
     if device.type != "cuda":
-        return src
-    staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-    staged.copy_(src)
+        return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    staged = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0].copy()).dtype,
+                         pin_memory=True)
+    staged.numpy()[...] = arr
     return staged.to(device, non_blocking=True)
 
 

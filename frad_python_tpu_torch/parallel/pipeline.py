@@ -1,14 +1,21 @@
-"""Whole-file batch codec pipeline, Profile 1, with ECC armor and repair.
+"""Whole-file batch codec pipeline of profiles 0, 1 and 4, with ECC armor
+and repair.
 
 `batch_encode` plans every frame of a stream up front, runs the tensor
-domain on one device as one call over the uniform frames (PCM upload ->
-DCT/mask/quant core -> EGR bit-pack -> compaction of each frame's used
-words), and finishes the byte domain on the host (EGR thresholds,
-DEFLATE, Reed-Solomon armor, ASFH framing). `batch_decode` parses the
-frames on the host, strips (and with `fix_error` repairs) the armor,
-decodes each uniform run with one device call (dequant -> IDCT ->
-overlap-add), and carries the overlap fragment across runs and
-terminators. `batch_repair` re-armors a stream on the host alone.
+domain on one device as one call over the uniform frames, and finishes
+the byte domain on the host. Profile 1: PCM upload -> DCT/mask/quant core
+-> EGR bit-pack -> compaction of each frame's used words, then EGR
+thresholds and DEFLATE. Profile 0: the DCT, then the truncated-float
+pack, fused on the device (`trunc_pack` kernel) at float32 for 16/24/32
+bits, or on the host (`packing`) after a float32 GEMM or float64 FFT
+DCT; a frame whose coefficients leave the container float escalates to a
+deeper depth. Profile 4 packs the PCM on the host. Then Reed-Solomon
+armor and ASFH framing. `batch_decode` parses the frames on the host,
+strips (and with `fix_error` repairs) the armor, decodes each uniform run
+with one device call (Profile 1: dequant -> IDCT -> overlap-add; Profile
+0: `trunc_unpack` kernel -> IDCT, or the host unpack and the IDCT), and
+carries the overlap fragment across runs and terminators. `batch_repair`
+re-armors a stream on the host alone.
 
 The host byte domain runs in the C++ host module (`native`), threaded,
 in a few batched calls per run; FRAD_TORCH_NO_NATIVE=1 selects the numpy
@@ -19,10 +26,16 @@ fed the same quantised symbols, the packer and framer give the same
 bytes, and `batch_repair` gives the JAX function's bytes. What a batch
 cannot decode (a stream with no payload frame, an unparsable tail, a
 fragment longer than the next run's emit window) goes to the streaming
-`Decoder` with the carried overlap state, as in the JAX package.
+`Decoder` with the carried overlap state, as in the JAX package; so do
+frames of a reserved profile, which decode as profile 0, and a lossless
+run the batch cannot split into frames (a payload of a partial value),
+which the JAX package's `batch_decode` raises on.
 
-Not ported yet, and raising NotImplementedError: profiles 0, 2 and 4,
-and float64 compute.
+Not ported yet, and raising NotImplementedError: profile 2, and Profile 1
+at float64. The JAX package's TPU transfer machinery (`_spans`,
+`_put_concurrent`, `_fetch`, the upload thread pool) and its emulated-f64
+routing (`_deep_transform_batch`) are not ported: each run is one device
+call with pinned, non-blocking copies, and float64 runs on the device.
 """
 
 from __future__ import annotations
@@ -37,9 +50,9 @@ from .. import models, native
 from ..common import FRM_SIGN
 from ..container import ecc as ecc_mod
 from ..container.asfh import ASFH, COMPLETE, FORCE_FLUSH
-from ..models import batch, profile1
+from ..models import batch, profile0, profile1
 from ..models.profiles import COMPACT, compact
-from ..ops import bitpack, golomb, policy, psycho
+from ..ops import bitpack, golomb, packing, policy, psycho
 from ..ops.window import hanning_in_overlap
 from ..repairer import DEFAULT_ECC_RATIO, sanitize_ecc_ratio
 
@@ -78,12 +91,27 @@ def plan_frames(total: int, fsize: int, overlap_ratio: int, is_compact: bool
     return frames, terms
 
 
-def _asfh_for(bit_depth_index: int, channels: int, srate: int, fsize: int, *,
-              ecc: bool, ecc_ratio: tuple[int, int], little_endian: bool,
+class _BlobParts:
+    """A batch of equal-length payloads kept as ONE joined blob: the
+    lossless packers emit a single-depth batch as one byte string, and the
+    native framer slices it by offset instead of taking B bytes objects."""
+
+    __slots__ = ("blob", "per", "bdi", "flen", "n")
+
+    def __init__(self, blob: bytes, per: int, bdi: int, flen: int, n: int):
+        self.blob, self.per, self.bdi, self.flen, self.n = blob, per, bdi, flen, n
+
+    def as_parts(self) -> list[tuple[bytes, int, int]]:
+        return [(self.blob[i * self.per:(i + 1) * self.per], self.bdi, self.flen)
+                for i in range(self.n)]
+
+
+def _asfh_for(profile: int, bit_depth_index: int, channels: int, srate: int, fsize: int,
+              *, ecc: bool, ecc_ratio: tuple[int, int], little_endian: bool,
               overlap_ratio: int) -> ASFH:
-    """A Profile 1 frame header."""
+    """A frame header of `profile` (compact or lossless layout)."""
     a = ASFH()
-    a.profile = 1
+    a.profile = profile
     a.bit_depth_index = bit_depth_index
     a.channels = channels
     a.srate = srate
@@ -104,7 +132,13 @@ def _to_i16(a: np.ndarray) -> np.ndarray:
 
 
 def _gather(pcm: np.ndarray, frs: list[tuple[int, int]], length: int) -> np.ndarray:
-    """[len(frs), length, C] frames (zero past the end of the PCM)."""
+    """[len(frs), length, C] frames (zero past the end of the PCM): a view
+    of the PCM for contiguous non-overlapping frames (the lossless
+    profiles), a copy otherwise."""
+    s0 = frs[0][0]
+    if s0 >= 0 and all(s == s0 + i * length for i, (s, _) in enumerate(frs)) \
+            and s0 + len(frs) * length <= len(pcm):
+        return pcm[s0: s0 + len(frs) * length].reshape(len(frs), length, pcm.shape[1])
     out = np.zeros((len(frs), length, pcm.shape[1]), dtype=np.float64)
     for i, (s, ln) in enumerate(frs):
         sa = max(s, 0)
@@ -189,7 +223,90 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], srate: int,
     return results
 
 
-def _frame_batch(payloads: list[bytes], bdis: np.ndarray, flens: np.ndarray, *,
+def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
+                     bit_depth: int, little_endian: bool, dtype: str, i24_upload: bool,
+                     device: torch.device) -> _BlobParts | list[tuple[bytes, int, int]]:
+    """Profile 0 or 4 payloads of equal-length frames, as one joined blob
+    when every frame keeps the stream depth, else [(payload, bdi, flen)]."""
+    if not frs:
+        return []
+    channels = pcm.shape[1]
+    flen = frs[0][1]
+    b = len(frs)
+    arr = _gather(pcm, frs, flen)
+    base_bits = bit_depth if bit_depth in packing.DEPTHS else 16
+    limit = packing.FLOAT_MAX[packing.DEPTHS.index(base_bits)]
+
+    if profile == 0:
+        if (dtype == "float32" and base_bits in bitpack.TRUNC_DEVICE_BITS
+                and (flen * channels) % 4 == 0):
+            # fast path: the DCT and the truncated-float pack on the
+            # device, so both copies carry payload-sized bytes; a frame
+            # that escalates sends the batch down the general path
+            if i24_upload and base_bits == 24:
+                words_d, maxabs_d = batch.p0_encode_pack_core_i24(
+                    policy.to_device(bitpack.pcm_to_i24_words_host(arr).reshape(b, -1)
+                                     .view(np.int32), device),
+                    base_bits, little_endian, flen, channels)
+            else:
+                words_d, maxabs_d = batch.p0_encode_pack_core(
+                    policy.to_device(arr.astype(np.float32), device), base_bits,
+                    little_endian)
+            (maxabs,) = policy.to_host(maxabs_d)
+            if np.all(maxabs <= limit):
+                (words,) = policy.to_host(words_d)
+                return _BlobParts(words.tobytes(), words.shape[1] * words.itemsize,
+                                  packing.DEPTHS.index(base_bits), flen, b)
+        dt = "float64" if base_bits >= policy.DEEP_BITS else dtype
+        (coeffs,) = policy.to_host(batch.p0_encode_core(policy.to_device(arr.astype(dt),
+                                                                          device)))
+    else:
+        coeffs = arr
+    flat = coeffs.reshape(b, -1)
+    fused_blob = None
+    if not flat.size:
+        maxabs = np.zeros(b)
+    elif coeffs.dtype == np.float64 and base_bits != 12 and native.enabled():
+        # one pass packs at the stream depth and takes each row's max; the
+        # blob is used unless a row escalates
+        fused_blob, maxabs = native.pack_floats_maxabs(flat, base_bits, little_endian)
+    elif coeffs.dtype == np.float64 and native.enabled():
+        maxabs = native.maxabs_rows(flat)
+    else:
+        maxabs = np.maximum(flat.max(axis=1), -flat.min(axis=1))
+    if profile == 0 and coeffs.dtype != np.float64 and any(
+            profile0._escalates_deep(float(m), base_bits) for m in maxabs):
+        # escalation reaches a container deeper than float32 (perhaps
+        # through an f32 overflow to inf): the whole batch again at float64
+        (coeffs,) = policy.to_host(batch.p0_encode_core(policy.to_device(arr, device)))
+        maxabs = np.max(np.abs(coeffs.reshape(b, -1)), axis=1)
+    depths = [packing.needed_depth(float(m), base_bits) for m in maxabs]
+    if fused_blob is not None and all(d == base_bits for d in depths):
+        return _BlobParts(fused_blob, len(fused_blob) // b, packing.DEPTHS.index(base_bits),
+                          flen, b)
+    # frames grouped by depth, each group packed in one pass (byte-aligned
+    # depths concatenate); 12-bit frames carry their own nibble padding
+    results: list[tuple[bytes, int, int] | None] = [None] * b
+    for d in sorted(set(depths)):
+        idxs = [i for i, dd in enumerate(depths) if dd == d]
+        bdi = packing.DEPTHS.index(d)
+        if d == 12:
+            for i in idxs:
+                results[i] = (packing.pack_floats(coeffs[i].ravel(), d, little_endian), bdi,
+                              frs[i][1])
+            continue
+        group = coeffs if len(idxs) == b else coeffs[idxs]
+        blob = packing.pack_floats(group.reshape(-1), d, little_endian)
+        per = len(blob) // len(idxs)
+        if len(idxs) == b:
+            return _BlobParts(blob, per, bdi, flen, b)
+        for j, i in enumerate(idxs):
+            results[i] = (blob[j * per:(j + 1) * per], bdi, frs[i][1])
+    return results
+
+
+def _frame_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.ndarray,
+                 flens: np.ndarray, *,
                  profile: int, channels: int, srate: int, overlap_ratio: int,
                  little_endian: bool, ecc_ratio: tuple[int, int] | None) -> bytes:
     """Frames of one header configuration in one threaded C++ pass: RS
@@ -214,15 +331,22 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
                  ecc_ratio: tuple[int, int] = DEFAULT_ECC_RATIO,
                  little_endian: bool = False, overlap_ratio: int = 16,
                  compute_dtype: str | None = None, i16_upload: bool = False,
-                 final: bool = True, device: str | torch.device | None = None) -> bytes:
-    """Encode a whole [T, C] float PCM array into a Profile 1 FrAD stream.
+                 i24_upload: bool = False, final: bool = True,
+                 device: str | torch.device | None = None) -> bytes:
+    """Encode a whole [T, C] float PCM array into a FrAD stream of profile
+    0, 1 or 4.
 
-    `device` defaults to CUDA and raises when none is present. The tensor
-    domain computes in float32; `i16_upload` sends the PCM to the device
-    as int16 (x32768). `enable_ecc` armors every payload with
-    Reed-Solomon parity at `ecc_ratio` = (data bytes, parity bytes) per
-    block; a ratio GF(256) cannot honor (data + parity > 255) raises
-    ValueError. Only Profile 1 is ported.
+    `device` defaults to CUDA and raises when none is present.
+    `compute_dtype` (None: `policy.compute_dtype()`) is the transform's
+    dtype: float32, or float64 for the lossless profiles (the 48- and
+    64-bit containers always take float64). `i16_upload` sends Profile 1's
+    PCM to the device as int16 (x32768); `i24_upload` sends Profile 0's
+    PCM as int24 (x2^23) at 24 bits and float32. `enable_ecc` armors every
+    payload with Reed-Solomon parity at `ecc_ratio` = (data bytes, parity
+    bytes) per block; a ratio GF(256) cannot honor (data + parity > 255)
+    raises ValueError. The lossless profiles frame without overlap and
+    without terminators, and escalate a frame's depth when a value leaves
+    the container float's range.
 
     `final=False` encodes a span that the stream continues after (the
     streaming Encoder's micro-batches): the trailing partial frame and the
@@ -230,17 +354,21 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
     the overlap, follows on byte for byte.
     """
     models.check_ported(profile)
-    policy.check_compute_dtype(compute_dtype)
+    dtype = policy.check_compute_dtype(compute_dtype, profile)
     dev = policy.resolve_device(device)
     pcm = np.asarray(pcm, dtype=np.float64)
     total, channels = pcm.shape
-    srate = compact.get_valid_srate(srate)
-    loss_level = max(abs(loss_level), 0.125)
-    overlap_ratio = overlap_ratio if overlap_ratio == 0 else max(2, min(256, overlap_ratio))
+    is_compact = profile in COMPACT
+    if is_compact:
+        srate = compact.get_valid_srate(srate)
+        loss_level = max(abs(loss_level), 0.125)
+        overlap_ratio = overlap_ratio if overlap_ratio == 0 else max(2, min(256, overlap_ratio))
+    else:
+        overlap_ratio = 0
     header = dict(ecc=enable_ecc, ecc_ratio=ecc_ratio, little_endian=little_endian,
                   overlap_ratio=overlap_ratio)
 
-    frames, terms = plan_frames(total, frame_size, overlap_ratio, True)
+    frames, terms = plan_frames(total, frame_size, overlap_ratio, is_compact)
     if not final:
         n_full = frames[0][1] if frames else 0
         frames = [f for f in frames if f[1] == n_full]
@@ -248,37 +376,56 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
         if not frames:
             return b""
     if not frames:
-        a = _asfh_for(0, max(channels, 1), srate, compact.get_samples_min_ge(frame_size),
-                      **header)
+        if not is_compact:
+            return b""
+        a = _asfh_for(profile, 0, max(channels, 1), srate,
+                      compact.get_samples_min_ge(frame_size), **header)
         return a.force_flush() * max(terms, 1)
 
     n = frames[0][1]
     uniform = [f for f in frames if f[1] == n]
     tail = frames[len(uniform):]            # 0 or 1 non-uniform tail frame
-    groups = [g for g in (
-        _encode_frames(pcm, uniform, srate, bit_depth, loss_level, i16_upload, dev),
-        _encode_frames(pcm, tail, srate, bit_depth, loss_level, i16_upload, dev)) if g]
+    if is_compact:
+        groups = [g for g in (
+            _encode_frames(pcm, uniform, srate, bit_depth, loss_level, i16_upload, dev),
+            _encode_frames(pcm, tail, srate, bit_depth, loss_level, i16_upload, dev)) if g]
+    else:
+        groups = [g for g in (
+            _encode_lossless(pcm, uniform, profile, bit_depth, little_endian, dtype,
+                             i24_upload, dev),
+            _encode_lossless(pcm, tail, profile, bit_depth, little_endian, dtype,
+                             i24_upload, dev)) if g]
 
     # a data size of 0 cannot be cut into blocks: the per-frame path
     # carries it as the JAX package does
     use_native = native.enabled() and not (enable_ecc and ecc_ratio[0] <= 0)
     framed: list[bytes] = []
     for g in groups:
-        if use_native:
+        if isinstance(g, _BlobParts) and not use_native:
+            g = g.as_parts()
+        if isinstance(g, _BlobParts):
+            framed.append(_frame_batch(
+                (g.blob, np.arange(g.n + 1, dtype=np.int64) * g.per),
+                np.full(g.n, g.bdi, np.uint8), np.full(g.n, g.flen, np.uint32),
+                profile=profile, channels=channels, srate=srate,
+                overlap_ratio=overlap_ratio, little_endian=little_endian,
+                ecc_ratio=ecc_ratio if enable_ecc else None))
+        elif use_native:
             framed.append(_frame_batch(
                 [p for p, _, _ in g], np.array([b for _, b, _ in g], dtype=np.uint8),
-                np.array([f for _, _, f in g], dtype=np.uint32), profile=1,
+                np.array([f for _, _, f in g], dtype=np.uint32), profile=profile,
                 channels=channels, srate=srate, overlap_ratio=overlap_ratio,
                 little_endian=little_endian, ecc_ratio=ecc_ratio if enable_ecc else None))
-            continue
-        for payload, bdi, flen in g:
-            if enable_ecc:
-                payload = ecc_mod.encode(payload, *ecc_ratio)
-            framed.append(_asfh_for(bdi, channels, srate, flen, **header).write(payload))
+        else:
+            for payload, bdi, flen in g:
+                if enable_ecc:
+                    payload = ecc_mod.encode(payload, *ecc_ratio)
+                framed.append(_asfh_for(profile, bdi, channels, srate, flen,
+                                        **header).write(payload))
     if terms:
         _, last_bdi, last_flen = groups[-1][-1]
-        framed.append(_asfh_for(last_bdi, channels, srate, last_flen, **header).force_flush()
-                      * terms)
+        framed.append(_asfh_for(profile, last_bdi, channels, srate, last_flen,
+                                **header).force_flush() * terms)
     return b"".join(framed)
 
 
@@ -394,20 +541,83 @@ def _unpack_run(ps: list[bytes], n: int, ch: int) -> tuple[np.ndarray, np.ndarra
     return fq, tq
 
 
+def _batch_splits(ps: list[bytes], bits: int, ch: int) -> bool:
+    """True when the JAX package's batch unpack splits these lossless
+    payloads into frames without an error: every 16/32/64-bit payload is a
+    whole number of values, and a run of equal byte-aligned payloads
+    joins into a non-empty whole number of rows per frame. Where it
+    raises, its Decoder decodes the run frame by frame instead."""
+    if not all(packing.whole_values(len(p), bits) for p in ps):
+        return False
+    sizes = {len(p) for p in ps}
+    if bits == 12 or len(sizes) > 1:
+        return True
+    values = len(ps) * sizes.pop() // (bits // 8)
+    return values > 0 and values % (len(ps) * ch) == 0
+
+
+def _decode_lossless(hs: list[ASFH], ps: list[bytes], dtype: str, i24_transfer: bool,
+                     device: torch.device) -> np.ndarray:
+    """[B, n, C] PCM of one uniform, splittable profile 0 or 4 run."""
+    h0 = hs[0]
+    run, ch, n = len(hs), h0.channels, h0.fsize
+    bits = packing.DEPTHS[h0.bit_depth_index]
+    sizes = {len(p) for p in ps}
+    if (h0.profile == 0 and dtype == "float32" and bits in bitpack.TRUNC_DEVICE_BITS
+            and sizes == {n * ch * bits // 8} and (n * ch) % 4 == 0):
+        # fast path: the payload bytes go up as words; the trunc_unpack
+        # kernel and the IDCT GEMM run on the device
+        words = np.frombuffer(b"".join(ps), dtype="<i2" if bits == 16 else "<i4")
+        words_d = policy.to_device(words.reshape(run, -1), device)
+        if i24_transfer and bits == 24:
+            (w,) = policy.to_host(batch.p0_unpack_decode_i24_core(
+                words_d, bits, h0.endian, n, ch))
+            return bitpack.i24_words_to_pcm(w).reshape(run, n, ch)
+        (out,) = policy.to_host(batch.p0_unpack_decode_core(words_d, bits, h0.endian, n, ch))
+        return out
+    if bits != 12 and len(sizes) == 1:
+        # equal byte-aligned payloads: one vectorised unpack
+        flat = packing.unpack_floats(b"".join(ps), bits, h0.endian)
+        coeffs = flat.reshape(run, -1, ch)[:, :n, :]
+    else:
+        coeffs = np.zeros((run, n, ch))
+        for i, p in enumerate(ps):
+            flat = packing.unpack_floats(p, bits, h0.endian)
+            rows = flat[: (len(flat) // ch) * ch].reshape(-1, ch)[:n]
+            coeffs[i, :len(rows)] = rows
+    if h0.profile == 4:
+        return coeffs
+    dt = "float64" if bits >= policy.DEEP_BITS else dtype
+    (out,) = policy.to_host(batch.p0_decode_core(policy.to_device(coeffs.astype(dt), device)))
+    return out
+
+
 def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
-                device: torch.device, fix_error: bool = False
-                ) -> tuple[np.ndarray, np.ndarray]:
-    """Decode one uniform Profile 1 run with one device call.
+                device: torch.device, fix_error: bool = False,
+                compute_dtype: str | None = None, i24_transfer: bool = False
+                ) -> tuple[np.ndarray, np.ndarray] | None:
+    """Decode one uniform run of profile 0, 1 or 4 with one device call.
 
     Returns (pcm [S, C] — overlap-added within the run, frame 0's head
     left fade-free for the caller's fragment fixup —, trailing overlap
-    fragment [olap, C] f64)."""
+    fragment [olap, C] f64), or None for a lossless run the batch cannot
+    split into frames (see `_batch_splits`; its depth index may also lie
+    past the table): the caller decodes it frame by frame, as the JAX
+    package's Decoder does."""
     h0 = hs[0]
     run = len(hs)
     ch = h0.channels
     n = h0.fsize
+    dtype = policy.check_compute_dtype(compute_dtype, h0.profile)
     if h0.ecc:
         ps = _unarmor(hs, ps, fix_error)
+    if h0.profile in (0, 4):
+        if h0.bit_depth_index >= len(packing.DEPTHS) or not _batch_splits(
+                ps, packing.DEPTHS[h0.bit_depth_index], ch):
+            return None
+        out = _decode_lossless(hs, ps, dtype, i24_transfer, device)
+        return out.reshape(-1, ch), np.empty((0, 0), dtype=np.float64)
+
     cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
     olap = n - cut
     factor = profile1._scale_factor(profile1.DEPTHS[h0.bit_depth_index])
@@ -430,6 +640,20 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     return out_h.reshape(-1, ch), frag.astype(np.float64)
 
 
+def _emit_cut(h: ASFH) -> int:
+    """Samples a frame of `h` emits before its overlap tail: the frame size
+    less the overlap of a compact profile (a lossless header carries no
+    overlap byte, so its `overlap_ratio` may be a stale value)."""
+    if h.profile in COMPACT and h.overlap_ratio > 1:
+        return h.fsize * (h.overlap_ratio - 1) // h.overlap_ratio
+    return h.fsize
+
+
+#: profiles `_decode_run` takes; a reserved profile streams through the
+#: Decoder, which decodes it as profile 0
+_BATCHABLE = (0, 1, 4)
+
+
 def _reframe(a: ASFH, payload: bytes | None) -> bytes:
     """Reserialise an already-parsed frame (header buffer is authoritative)."""
     return a.buffer + (payload or b"")
@@ -437,9 +661,9 @@ def _reframe(a: ASFH, payload: bytes | None) -> bytes:
 
 def batch_decode(stream: bytes, *, fix_error: bool = False,
                  compute_dtype: str | None = None, i16_transfer: bool = False,
-                 return_remainder: bool = False,
+                 i24_transfer: bool = False, return_remainder: bool = False,
                  device: str | torch.device | None = None):
-    """Decode a Profile 1 FrAD byte stream in batched mode.
+    """Decode a FrAD byte stream of profiles 0, 1 and 4 in batched mode.
 
     Every uniform run (same profile/depth/channels/srate/fsize/overlap/
     ECC ratio) is decoded as one device call; the overlap fragment
@@ -449,15 +673,19 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
     (pcm [T, C], srate), or with `return_remainder` (pcm, srate,
     remainder) where `remainder` holds the frames after a mid-stream
     change of channel layout or sample rate, for another call.
-    `i16_transfer` brings the PCM back from the device as int16 (x32768).
-    `device` defaults to CUDA and raises when none is present. A stream
-    with no payload frame, an unparsable tail, and a fragment longer than
-    the next run's emit window (which needs a crossfade over several
-    frames) are decoded by the streaming `Decoder` with the carried state.
+    `compute_dtype` (None: `policy.compute_dtype()`) is the lossless
+    transform's dtype; `i16_transfer` brings Profile 1's PCM back from the
+    device as int16 (x32768), `i24_transfer` Profile 0's at 24 bits and
+    float32 as int24 (x2^23). `device` defaults to CUDA and raises when
+    none is present. A stream with no payload frame, an unparsable tail, a
+    fragment longer than the next run's emit window (which needs a
+    crossfade over several frames), a frame of a reserved profile and a
+    lossless run the batch cannot split are decoded by the streaming
+    `Decoder` with the carried state.
     """
     from ..decoder import Decoder
 
-    policy.check_compute_dtype(compute_dtype)
+    policy.check_compute_dtype(compute_dtype, 0)
     dev = policy.resolve_device(device)
     headers, payloads, tail_bytes = _parse_frames(stream)
     if not any(p is not None for p in payloads):
@@ -497,24 +725,31 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
             ) + tail_bytes
             tail_bytes = b""
             break
-        models.check_ported(h0.profile)
+        if h0.profile not in _BATCHABLE:
+            # a reserved profile, which the Decoder decodes as profile 0
+            # (or profile 2, which it refuses)
+            stream_rest = True
+            break
         key0 = _run_key(h0)
         run = 1
         while (idx + run < len(headers) and payloads[idx + run] is not None
                and _run_key(headers[idx + run]) == key0):
             run += 1
 
-        n = h0.fsize
-        cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
-        if frag.size and (len(frag) > cut or frag.shape[1] != h0.channels):
+        if frag.size and (len(frag) > _emit_cut(h0) or frag.shape[1] != h0.channels):
             # the fragment spans several frames of the next run: the
             # streaming Decoder's progressive crossfade takes the rest
             stream_rest = True
             break
 
-        out, new_frag = _decode_run(headers[idx: idx + run], payloads[idx: idx + run],
-                                    i16_transfer=i16_transfer, device=dev,
-                                    fix_error=fix_error)
+        res = _decode_run(headers[idx: idx + run], payloads[idx: idx + run],
+                          i16_transfer=i16_transfer, device=dev, fix_error=fix_error,
+                          compute_dtype=compute_dtype, i24_transfer=i24_transfer)
+        if res is None:
+            # a lossless payload the batch cannot split: frame by frame
+            stream_rest = True
+            break
+        out, new_frag = res
         if frag.size and len(out):
             out_parts.append(_frag_head(out, frag))
             out_parts.append(out[len(frag):])

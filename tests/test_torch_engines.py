@@ -406,11 +406,10 @@ def test_validation_strings_match_jax(profile):
                         with pytest.raises(ValueError) as e:
                             ft.Encoder(*args, device=CPU)
                         assert str(e.value) == want, args
-                    elif profile == 1:
-                        ft.Encoder(*args, device=CPU)
                     else:
-                        with pytest.raises(NotImplementedError, match=f"profile {profile}"):
-                            ft.Encoder(*args, device=CPU)
+                        # every profile the gauntlet admits (0, 1, 4) is ported
+                        assert profile in (0, 1, 4)
+                        ft.Encoder(*args, device=CPU)
     for name in ("verify_profile", "verify_srate", "verify_bit_depth", "verify_frame_size",
                  "verify_channels"):
         if name == "verify_profile":
@@ -422,7 +421,7 @@ def test_validation_strings_match_jax(profile):
             assert getattr(ft.Encoder, name)(profile, v) == getattr(jf.Encoder, name)(profile, v)
 
 
-def test_setters_and_ecc_messages_match_jax():
+def test_setters_and_ecc_messages_match_jax(monkeypatch, raw):
     j, t = jf.Encoder(1, 44100, 2, 16, 2048), ft.Encoder(1, 44100, 2, 16, 2048, device=CPU)
     for ratio in ((0, 10), (200, 100), (48, 12)):
         assert t.set_ecc(True, ratio) == j.set_ecc(True, ratio)
@@ -433,8 +432,14 @@ def test_setters_and_ecc_messages_match_jax():
         assert t.set_bit_depth(v) == j.set_bit_depth(v)
     assert t.set_srate(44101) == j.set_srate(44101)
     assert t.set_channels(0) == j.set_channels(0)
-    with pytest.raises(NotImplementedError, match="profile 0"):
-        t.set_profile(0, 44100, 2, 16, 2048)
+    assert t.set_profile(2, 44100, 2, 16, 2048) == j.set_profile(2, 44100, 2, 16, 2048)
+    res = t.set_profile(0, 44100, 2, 16, 2048)
+    assert isinstance(res, ft.EncodeResult) and t.get_profile() == 0
+    # Profile 1 at float64 is the one unported compute path of the Encoder
+    monkeypatch.setenv("FRAD_TORCH_COMPUTE_DTYPE", "float64")
+    for chunk in (FRAME_BYTES_S16 // 2, len(raw)):
+        with pytest.raises(NotImplementedError, match="profile 1"):
+            encode_all(encoder(ft), raw, chunk)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ft.Encoder(1, 44100, 2, 16, 2048)
@@ -479,8 +484,8 @@ def test_encoder_jax_state_hand_over(monkeypatch, raw):
     enc = encoder(ft)
     enc.load_state_dict(state)
     assert out + enc.process(raw[20000:]).buf + enc.flush().buf == ref
-    state["profile"] = 0
-    with pytest.raises(NotImplementedError):
+    state["profile"] = 2
+    with pytest.raises(NotImplementedError, match="profile 2"):
         encoder(ft).load_state_dict(state)
 
 
@@ -514,13 +519,13 @@ def test_decoder_jax_state_hand_over(jax_stream, exact):
 
 
 # ----------------------------------------------------------------------
-# Adversarial input: only NotImplementedError for an unported profile
+# Adversarial input: only NotImplementedError for the unported profile 2
 # ----------------------------------------------------------------------
 def _decode_or_unported(dec, stream: bytes, chunk: int):
     try:
         return decode_all(dec, stream, chunk)
     except NotImplementedError as e:
-        assert "only Profile 1 is ported" in str(e)
+        assert "profile 2" in str(e)
         return None
 
 
@@ -602,10 +607,16 @@ def test_corrupt_payloads_raise_nothing(monkeypatch, host):
 
 
 @pytest.mark.parametrize("exact", [False, True])
-def test_unported_profile_raises(exact):
-    p0 = jpipeline.batch_encode(make_audio(0.1, 44100, 2), 0, 44100, 16, 1024)
-    with pytest.raises(NotImplementedError, match="profile 0"):
-        decode_all(decoder(ft, exact=exact), p0)
+def test_unported_profile_raises(monkeypatch, exact):
+    """Profile 2 frames, and Profile 1 frames at float64, raise."""
+    audio = make_audio(0.1, 44100, 2)
+    p2 = jpipeline.batch_encode(audio, 2, 44100, 16, 1024)
+    with pytest.raises(NotImplementedError, match="profile 2"):
+        decode_all(decoder(ft, exact=exact), p2)
+    p1 = jpipeline.batch_encode(audio, 1, 44100, 16, 1024)
+    monkeypatch.setenv("FRAD_TORCH_COMPUTE_DTYPE", "float64")
+    with pytest.raises(NotImplementedError, match="profile 1"):
+        decode_all(decoder(ft, exact=exact), p1)
 
 
 # ----------------------------------------------------------------------

@@ -135,8 +135,10 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     path = build.library_path()
     assert path.parent.parent == build.BUILD_DIR and path.name == build.LIB_NAME
-    assert {p.name for p in build.sources()} == {"power_quant.cu", "overlap_add.cu"}
-    assert set(build.SIGNATURES) == {"frad_power_quant", "frad_overlap_add"}
+    assert {p.name for p in build.sources()} == {"power_quant.cu", "overlap_add.cu",
+                                                 "trunc_pack.cu", "trunc_unpack.cu"}
+    assert set(build.SIGNATURES) == {"frad_power_quant", "frad_overlap_add",
+                                     "frad_trunc_pack", "frad_trunc_unpack"}
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):

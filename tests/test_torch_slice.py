@@ -163,15 +163,24 @@ def test_return_remainder_on_format_change(audio):
 
 
 def test_unported_paths_raise(audio):
+    """Profile 2 and Profile 1 at float64 raise; profile 0 is ported (its
+    stream decodes to the JAX decode within 1e-12 at float64)."""
     small = audio[:6000]
-    with pytest.raises(NotImplementedError):
-        ft.batch_encode(small, 0, 44100, 16, 2048, device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="profile 2"):
+        ft.batch_encode(small, 2, 44100, 16, 2048, device=CPU)
+    with pytest.raises(NotImplementedError, match="profile 1"):
         ft.batch_encode(small, 1, 44100, 16, 2048, compute_dtype="float64", device=CPU)
     ecc = jpipeline.batch_encode(small, 1, 44100, 16, 2048, enable_ecc=True)
+    with pytest.raises(NotImplementedError, match="profile 1"):
+        ft.batch_decode(ecc, compute_dtype="float64", device=CPU)
+    p2 = jpipeline.batch_encode(small, 2, 44100, 16, 2048)
+    with pytest.raises(NotImplementedError, match="profile 2"):
+        ft.batch_decode(p2, device=CPU)
     p0 = jpipeline.batch_encode(small, 0, 44100, 16, 2048)
-    with pytest.raises(NotImplementedError):
-        ft.batch_decode(p0, device=CPU)
+    got, _ = ft.batch_decode(p0, compute_dtype="float64", device=CPU)
+    want, _ = jpipeline.batch_decode(p0)
+    assert got.shape == want.shape == small.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ft.batch_encode(small, 1, 44100, 16, 2048)
