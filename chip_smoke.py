@@ -24,7 +24,15 @@ transfer variant, the card's stream decoded again on the CPU),
 against the CPU), `hires_96k_8ch` (96 kHz, 8 channels, 8192-sample frames,
 cut to 10 s), Profile 1 at 8192-sample frames (the DCT GEMM cut along its
 contraction) and at 16384 (the FFT form), and the `p0_stereo_44k1` track
-as s32le bytes through `Encoder` and `Decoder`.
+as s32le bytes through `Encoder` and `Decoder`. Then the Profile 2 phase:
+`tns_iir` and `tns_levinson` held bit for bit against their plain versions
+at the batch and the streaming shapes, float32 and float64, with the
+float64 and no-divisor forms of `power_quant` and the float64 form of
+`overlap_add` (the phase fails if one of its runs launches a kernel at a
+shape, dtype or option that was not held so); the track as profile 2 through `batch_encode` /
+`batch_decode` (the card's stream decoded again on the CPU) and through
+`Decoder` in 32 KiB pushes; and 5 s of it as profiles 1 and 2 at
+`compute_dtype="float64"`.
 Every phase prints one line; any failure exits non-zero. The
 second-to-last line is a JSON object with one entry per kernel, the last
 line `{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++,
@@ -57,6 +65,51 @@ SNR_FLOOR_DB = 17.124
 CARD_VS_CPU_MAX_ABS = 2.0 / 32768.0
 
 SECONDS, SRATE, CHANNELS, BITS, FSIZE = 30.0, 44100, 2, 16, 2048
+#: Profile 2 on the main path's geometry. SNR floor: the JAX package's
+#: float32 Profile 2 SNR on the 30 s content on the CPU, P2_JAX_SNR_DB,
+#: minus 0.1 dB (tests/test_torch_p2.py::test_chip_smoke_p2_snr_floors
+#: measures it, and the float64 ones)
+P2_JAX_SNR_DB = 17.0244
+P2_SNR_FLOOR_DB = 16.924
+#: profiles 1 and 2 at compute_dtype="float64" over F64_SECONDS of the
+#: content: the JAX package's float64 SNR there minus 0.1 dB
+F64_SECONDS = 5.0
+F64_JAX_SNR_DB = {1: 17.1241, 2: 16.9243}
+F64_SNR_FLOOR_DB = {1: 17.024, 2: 16.824}
+#: float64 decodes of one stream on the card and on the CPU (cuFFT against
+#: the CPU's FFT, the last bits of f64 through the TNS filter's gain)
+F64_LOSSY_CARD_VS_CPU_MAX_ABS = 1e-9
+#: the float32 Profile 2 decode of one stream on the card and on the CPU:
+#: powf and the GEMMs differ in the last ulps on each, and the TNS
+#: synthesis filter amplifies that before the IDCT (1.5e-6 measured on an
+#: H100 on this content)
+P2_CARD_VS_CPU_MAX_ABS = 1e-5
+#: the TNS kernels' shapes [lanes = frames * channels, samples]. float32:
+#: the 30 s batch decode (689 frames), its encode's 688 uniform frames and
+#: its tail frame, and the engines' micro-batches of 8, 4, 2 and 1 frames.
+#: float64: the first and the micro-batch of 4 again, then the F64_SECONDS
+#: track's 114 uniform frames and its tail frame, padded to 1792 samples
+TNS_SHAPES = {"float32": ((1378, 2048), (1376, 2048), (16, 2048), (8, 2048), (4, 2048),
+                          (2, 2048)),
+              "float64": ((1378, 2048), (8, 2048), (228, 2048), (2, 1792))}
+#: power_quant's forms on the Profile 2 and float64 paths, (dtype, with a
+#: divisor, shapes): Profile 2 has no divisor, Profile 1 at float64 has one
+P2_POWER_QUANT_FORMS = (
+    ("float32", False, ((1376, 2048), (8, 2048), (4, 2048), (2, 2048))),
+    ("float64", False, ((1376, 2048), (228, 2048), (2, 1792))),
+    ("float64", True, ((1376, 2048), (228, 2048), (2, 1792))))
+#: overlap_add's forms there, (dtype, [B, C, N], olap, int16 emit): float64
+#: at the main path's shape and at the F64_SECONDS track's two decode runs,
+#: float32 at the Decoder's micro-batches of 4 and 8 frames (2 and 256 are
+#: held in the streaming phase)
+P2_OVERLAP_FORMS = (
+    ("float64", (689, 2, 2048), 128, False), ("float64", (689, 2, 2048), 128, True),
+    ("float64", (114, 2, 2048), 128, False), ("float64", (1, 2, 1792), 112, False),
+    ("float32", (4, 2, 2048), 128, False), ("float32", (8, 2, 2048), 128, False))
+#: the card's memory rate and float32 / float64 peak (NVIDIA H100 SXM data
+#: sheet), for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 #: SNR floor of the lossless p0_stereo_44k1 run (24-bit, float32 fast
 #: path): the JAX package's float32 SNR on this content, 97.5471 dB on the
@@ -104,6 +157,8 @@ ECC_RATIO = (96, 24)
 DEVICE = "cuda"
 #: the kernels of the Profile 1 paths
 P1_KERNELS = ("power_quant", "overlap_add")
+#: the kernels of the Profile 2 paths
+P2_KERNELS = P1_KERNELS + ("tns_iir", "tns_levinson")
 # the streaming engines' shapes: one frame per call on the per-frame path,
 # 2..256 frames per micro-batch; the decoder's micro-batches emit float32
 STREAM_POWER_QUANT_SHAPES = ((2, 2048), (512, 2048))
@@ -113,6 +168,71 @@ PUSH = 32768
 #: the same stream: other batch sizes reach the IDCT GEMM, so float32
 #: sums differ by a few ulps of |pcm| < 2
 STREAM_VS_BATCH_MAX_ABS = 2e-6
+
+
+#: every form (`kernel_form`) at which a kernel was held against its plain
+#: version in this run
+CHECKED: set[tuple] = set()
+
+
+def kernel_form(name: str, *args) -> tuple:
+    """What tells one launch of a kernel from another of another form: the
+    wrapper's name, its first tensor's shape and dtype, and for power_quant
+    whether it has a divisor, for overlap_add the overlap, cut and emit."""
+    x = args[0]
+    form = (name, tuple(x.shape), str(x.dtype).removeprefix("torch."))
+    if name == "power_quant":
+        return form + (args[1] is not None,)
+    if name == "overlap_add":
+        return form + (int(args[1].numel()), int(args[2]), bool(args[3]))
+    return form
+
+
+def held(kernels, name: str, *args):
+    """(kernel's result, plain version's result) of `name` on `args`, both
+    as tuples of tensors; the form goes into CHECKED (the caller raises
+    where the two differ)."""
+    got = getattr(kernels, name)(*args)
+    want = getattr(kernels, name + "_plain")(*args)
+    CHECKED.add(kernel_form(name, *args))
+    return tuple(r if isinstance(r, tuple) else (r,) for r in (got, want))
+
+
+class FormTally:
+    """The forms at which the port's modules call the kernels' wrappers,
+    counted over its `with` blocks by wrapping the names the modules hold
+    them under."""
+
+    def __init__(self):
+        from frad_python_tpu_torch.models import batch
+        from frad_python_tpu_torch.ops import tns
+
+        self.targets = [(batch, "power_quant"), (batch, "overlap_add"),
+                        (tns, "tns_iir"), (tns, "tns_levinson")]
+        self.seen: dict[tuple, int] = {}
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.targets]
+
+        def wrap(fn, name):
+            def counted(*args):
+                form = kernel_form(name, *args)
+                self.seen[form] = self.seen.get(form, 0) + 1
+                return fn(*args)
+            return counted
+
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, wrap(fn, name))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.targets, self.saved):
+            setattr(mod, name, fn)
+
+    def unchecked(self) -> list[tuple]:
+        """The forms launched in the block that no check of this run held
+        against a plain version."""
+        return sorted((f for f in self.seen if f not in CHECKED), key=str)
 
 
 def make_audio(seconds: float, srate: int, ch: int) -> np.ndarray:
@@ -146,6 +266,39 @@ def cuda_ms(torch, fn, reps: int = 11, inner: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float, dtype: str = "float32") -> tuple[float, str]:
+    """(least time in ms the card could take, what bounds it): the bytes
+    the function must move (each input read once, each output written
+    once) over the memory rate, or its operations over the peak rate of
+    their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def profiled_device_ms(torch, calls: dict) -> dict:
+    """Device time in ms of each hand kernel from ONE `torch.profiler`
+    call that launches every entry of `calls` ({kernel function name:
+    thunk}) once; None where the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in calls:
+        us = [max(getattr(e, a, 0.0) or 0.0 for a in (
+                  "self_device_time_total", "device_time_total",
+                  "self_cuda_time_total", "cuda_time_total"))
+              for e in prof.key_averages() if name in e.key]
+        out[name] = sum(us) / 1e3 if us and sum(us) > 0 else None
+    return out
 
 
 def check_native_pack(native) -> None:
@@ -185,8 +338,7 @@ def check_stream_shapes(torch, kernels, crossfade_window, dev) -> tuple[float, f
         div = (np.exp(rng.standard_normal(shape) * 2.0) * 0.1).astype(np.float32)
         div[:, -128:] = 0.0
         f_d, d_d = torch.from_numpy(freqs).to(dev), torch.from_numpy(div).to(dev)
-        got = kernels.power_quant(f_d, d_d, 2.0 ** 15)
-        want = kernels.power_quant_plain(f_d, d_d, 2.0 ** 15)
+        (got,), (want,) = held(kernels, "power_quant", f_d, d_d, 2.0 ** 15)
         torch.cuda.synchronize()
         err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         pq_err = max(pq_err, err)
@@ -201,8 +353,7 @@ def check_stream_shapes(torch, kernels, crossfade_window, dev) -> tuple[float, f
         pcm_k = torch.from_numpy(
             rng.standard_normal((b, CHANNELS, FSIZE)).astype(np.float32) * 0.3).to(dev)
         w = crossfade_window(olap, dev)
-        out_k, frag_k = kernels.overlap_add(pcm_k, w, cut, False)
-        out_p, frag_p = kernels.overlap_add_plain(pcm_k, w, cut, False)
+        (out_k, frag_k), (out_p, frag_p) = held(kernels, "overlap_add", pcm_k, w, cut, False)
         torch.cuda.synchronize()
         err = float((out_k - out_p).abs().max())
         if olap:
@@ -342,7 +493,7 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
     bits are the converter's own, and its frame leaves the fast path on its
     NaN max|x|), max|x| equal with the NaN in place, unpacked floats
     equal. Returns the max |d| and the CUDA-event times of kernel and plain
-    at the p0_stereo_44k1 shape."""
+    at the p0_stereo_44k1 shape, with a call of each there (`thunks`)."""
     out = {"pack_err": 0.0, "unpack_err": 0.0}
     for si, shape in enumerate(TRUNC_SHAPES):
         b, c, n = shape
@@ -378,6 +529,10 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
                 torch, lambda: kernels.trunc_unpack(w, P0_BITS, False, n, c))
             out["unpack_plain_ms"] = cuda_ms(
                 torch, lambda: kernels.trunc_unpack_plain(w, P0_BITS, False, n, c))
+            out["thunks"] = {
+                "trunc_pack_kernel": lambda y=y: kernels.trunc_pack(y, P0_BITS, False),
+                "trunc_unpack_kernel": lambda w=w, n=n, c=c: kernels.trunc_unpack(
+                    w, P0_BITS, False, n, c)}
     print(f"kernels trunc_pack / trunc_unpack at {list(TRUNC_SHAPES)}, bits 16/24/32, both "
           f"byte orders: equal to plain (max|d| {out['pack_err']} / {out['unpack_err']}); "
           f"at {TRUNC_SHAPES[0]} {P0_BITS}-bit: trunc_pack {out['pack_ms']:.4f} ms vs plain "
@@ -607,6 +762,339 @@ def long_kernels(torch, kernels, dev, pq_shape, oa_shape, olap: int) -> dict:
     return out
 
 
+def tns_inputs(lanes: int, n: int, dtype: str, seed: int):
+    """(x [lanes, n], coeffs [lanes, 13], ac [lanes, 13]) for the TNS
+    kernels. Lanes cycle through: an active stable filter (quantised
+    coefficients with sum |a| < 1) on a spectrum-like x; a bypass
+    ([1, 0, ...]); a dead lane (zero spectrum, zero autocorrelation); a
+    tonal lane (autocorrelation of a slow cosine: the first reflection
+    clamps at 0.96); a lane whose output passes 1e6 (a = [1, -1, 0, ...]
+    summing x of size 1e5); a lane of lags 1.1e-10 * [1, 1, 2, 1, ...],
+    whose first two reflections clamp at -0.96 and whose prediction error
+    then falls under 1e-12 (the freeze: coefficients 3.. stay 0); and raw
+    random lags."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((lanes, n)) * np.exp(rng.standard_normal((lanes, 1)))
+    q = np.zeros((lanes, 13))
+    q[:, 1] = rng.integers(-7, 8, lanes)
+    q[:, 2] = rng.integers(-3, 4, lanes)
+    q[:, 3:6] = rng.integers(-1, 2, (lanes, 3))
+    coeffs = q / 15.0
+    lag = np.arange(13)
+    sig = rng.standard_normal((lanes, 256))
+    sig = np.cumsum(sig, axis=1) * 0.2 + sig
+    sig /= np.linalg.norm(sig, axis=1, keepdims=True)
+    ac = np.stack([(sig[:, :256 - l] * sig[:, l:]).sum(1) for l in lag], axis=1)
+    kind = np.arange(lanes) % 7
+    coeffs[kind == 1, 1:] = 0.0
+    x[kind == 2] = 0.0
+    ac[kind == 2] = 0.0
+    ac[kind == 3] = np.cos(0.01 * lag) * np.exp(-0.5 * (0.01 * lag) ** 2)
+    coeffs[kind == 4, 1:] = 0.0
+    coeffs[kind == 4, 1] = -1.0
+    x[kind == 4] = rng.standard_normal((int((kind == 4).sum()), n)) * 1e5
+    ac[kind == 5] = 1.1e-10
+    ac[kind == 5, 2] = 2.2e-10
+    ac[kind == 6] = rng.standard_normal((int((kind == 6).sum()), 13))
+    coeffs[:, 0] = 1.0
+    return tuple(np.ascontiguousarray(a, dtype=dtype) for a in (x, coeffs, ac))
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Equal bit for bit (a NaN equals the same NaN, -0 differs from +0)."""
+    it = {4: torch.int32, 8: torch.int64, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(it), b.view(it))
+
+
+def check_tns_kernels(torch, kernels, dev) -> dict:
+    """tns_iir and tns_levinson against their plain versions, bit for bit,
+    at TNS_SHAPES, float32 and float64; power_quant at
+    P2_POWER_QUANT_FORMS and overlap_add at P2_OVERLAP_FORMS likewise:
+    every form the Profile 2 and float64 runs launch. CUDA-event times of
+    the kernels; of the plain versions at the main path's shape (the plain
+    IIR, a Python loop over time, with one call, at float32 only)."""
+    from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
+
+    res = {"iir_err": 0.0, "lev_err": 0.0, "pq_err": 0.0, "oa_err": 0.0, "thunks": {}}
+    for dtype, shapes in TNS_SHAPES.items():
+        for si, (lanes, n) in enumerate(shapes):
+            x, coeffs, ac = (torch.from_numpy(a).to(dev)
+                             for a in tns_inputs(lanes, n, dtype, 31 + lanes))
+            (y_k,), (y_p,) = held(kernels, "tns_iir", x, coeffs)
+            (l_k,), (l_p,) = held(kernels, "tns_levinson", ac)
+            torch.cuda.synchronize()
+            kind = torch.arange(lanes, device=dev) % 7
+            d_iir = float((y_k - y_p).abs().nan_to_num(float("inf")).max())
+            d_lev = float((l_k - l_p).abs().nan_to_num(float("inf")).max())
+            res["iir_err"], res["lev_err"] = max(res["iir_err"], d_iir), max(res["lev_err"], d_lev)
+            if not bits_equal(torch, y_k, y_p):
+                raise AssertionError(f"tns_iir {(lanes, n)} {dtype} differs from its plain "
+                                     f"version: max |d| {d_iir}")
+            if not bits_equal(torch, l_k, l_p):
+                raise AssertionError(f"tns_levinson {(lanes, 13)} {dtype} differs from its "
+                                     f"plain version: max |d| {d_lev}")
+            # lanes of every kind from 7 lanes on; fewer hold the first kinds
+            peak = y_k[kind == 4].abs().amax(dim=-1)
+            unit = torch.zeros(13, dtype=l_k.dtype, device=dev)
+            unit[0] = 1.0
+            if not (bits_equal(torch, y_k[kind == 1], x[kind == 1])
+                    and bool(torch.isfinite(y_k).all()) and bool((peak > 1e6).all())
+                    and bool((l_k[kind == 2] == unit).all())
+                    and bool((l_k[kind == 5][:, 2] == torch.tensor(-0.96, dtype=l_k.dtype)).all())
+                    and bool((l_k[kind == 5][:, 3:] == 0).all())):
+                raise AssertionError(f"TNS kernel inputs {(lanes, n)} {dtype} miss a case: "
+                                     f"bypass, blow-up {peak.tolist()[:3]}, dead, clamp or freeze")
+            t = {"iir": cuda_ms(torch, lambda: kernels.tns_iir(x, coeffs)),
+                 "lev": cuda_ms(torch, lambda: kernels.tns_levinson(ac))}
+            line = (f"kernels tns_iir {(lanes, n)} / tns_levinson {(lanes, 13)} {dtype}: equal "
+                    f"bit for bit, tns_iir {t['iir']:.4f} ms, tns_levinson {t['lev']:.4f} ms")
+            if si == 0:
+                t["lev_plain"] = cuda_ms(torch, lambda: kernels.tns_levinson_plain(ac), 3, 1)
+                line += f" vs plain {t['lev_plain']:.3f} ms"
+                if dtype == "float32":
+                    t["iir_plain"] = cuda_ms(torch, lambda: kernels.tns_iir_plain(x, coeffs), 1, 1)
+                    line += f", plain tns_iir {t['iir_plain']:.1f} ms"
+                    res["thunks"] = {
+                        "tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c),
+                        "tns_levinson_kernel": lambda ac=ac: kernels.tns_levinson(ac)}
+            res[(lanes, dtype)] = t
+            print(line)
+
+    # power_quant without a divisor and at float64, overlap_add at float64
+    rng = np.random.default_rng(2468)
+    for dtype, with_div, shapes in P2_POWER_QUANT_FORMS:
+        for si, shape in enumerate(shapes):
+            freqs = rng.standard_normal(shape) * 1e-2
+            div = np.exp(rng.standard_normal(shape) * 2.0) * 0.1
+            div[:, -shape[1] // 16:] = 0.0
+            # no divisor: the spectrum as Profile 2 hands it over, divided
+            fv = torch.from_numpy((freqs if with_div else freqs * 30.0).astype(dtype)).to(dev)
+            dv = torch.from_numpy(div.astype(dtype)).to(dev) if with_div else None
+            (got,), (want,) = held(kernels, "power_quant", fv, dv, 2.0 ** 15)
+            torch.cuda.synchronize()
+            err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            res["pq_err"] = max(res["pq_err"], err)
+            if not bits_equal(torch, got, want) or int(got.abs().max()) < 1000:
+                raise AssertionError(f"power_quant {shape} {dtype} divisor={with_div} differs "
+                                     f"from its plain version: max |d| {err}")
+            if si == 0:
+                res[f"pq_{'div' if with_div else 'nodiv'}_{dtype}"] = (
+                    cuda_ms(torch, lambda: kernels.power_quant(fv, dv, 2.0 ** 15)),
+                    cuda_ms(torch, lambda: kernels.power_quant_plain(fv, dv, 2.0 ** 15)))
+    for dtype, shape, olap, i16 in P2_OVERLAP_FORMS:
+        pcm_k = torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(dtype)).to(dev)
+        w = crossfade_window(olap, dev, pcm_k.dtype)
+        cut = shape[2] - olap
+        (o_k, f_k), (o_p, f_p) = held(kernels, "overlap_add", pcm_k, w, cut, i16)
+        torch.cuda.synchronize()
+        err = max(float((o_k.double() - o_p.double()).abs().max()),
+                  float((f_k - f_p).abs().max()))
+        res["oa_err"] = max(res["oa_err"], err)
+        if not (bits_equal(torch, o_k, o_p) and bits_equal(torch, f_k, f_p)
+                and f_k.dtype == pcm_k.dtype):
+            raise AssertionError(f"overlap_add {shape} {dtype} olap={olap} i16={i16} differs "
+                                 f"from its plain version: max |d| {err}")
+        if "oa_f64" not in res:
+            res["oa_f64"] = (
+                cuda_ms(torch, lambda: kernels.overlap_add(pcm_k, w, cut, i16)),
+                cuda_ms(torch, lambda: kernels.overlap_add_plain(pcm_k, w, cut, i16)))
+    shape = P2_POWER_QUANT_FORMS[0][2][0]
+    print(f"kernels power_quant at {[f[:2] + (list(f[2]),) for f in P2_POWER_QUANT_FORMS]} and "
+          f"overlap_add at {list(P2_OVERLAP_FORMS)}: all equal bit for bit; power_quant {shape} "
+          f"no divisor f32 {res['pq_nodiv_float32'][0]:.4f} ms vs plain "
+          f"{res['pq_nodiv_float32'][1]:.4f} ms, f64 {res['pq_nodiv_float64'][0]:.4f} vs "
+          f"{res['pq_nodiv_float64'][1]:.4f} ms, f64 with divisor {res['pq_div_float64'][0]:.4f} "
+          f"vs {res['pq_div_float64'][1]:.4f} ms; overlap_add {P2_OVERLAP_FORMS[0][1]} f64 emit "
+          f"{res['oa_f64'][0]:.4f} vs {res['oa_f64'][1]:.4f} ms")
+    return res
+
+
+def tns_lane_share(stream: bytes) -> tuple[int, int]:
+    """(lanes with a non-zero LPC row, lanes) over the Profile 2 payloads."""
+    from frad_python_tpu_torch.models import profile2
+    from frad_python_tpu_torch.parallel.pipeline import _parse_frames
+
+    headers, payloads, _ = _parse_frames(stream)
+    active = lanes = 0
+    for h, p in zip(headers, payloads):
+        if p is None:
+            continue
+        lpc = profile2.untrim_streams(profile2.unpack_streams(p), h.fsize, h.channels)[2]
+        active += int((lpc.reshape(profile2.ORDER1, h.channels) != 0).any(axis=0).sum())
+        lanes += h.channels
+    return active, lanes
+
+
+def tns_phase(ft, torch, kernels, native, dev) -> dict:
+    """Profile 2 on the card (see the module docstring). Returns the
+    kernel checks, the launches of the batch and of the streaming runs, and
+    a call of each TNS kernel at the main path's shape (`thunks`)."""
+    from frad_python_tpu_torch.models import profile2
+    from frad_python_tpu_torch.parallel import pipeline
+    from frad_python_tpu_torch.parallel.pipeline import _parse_frames
+
+    res = check_tns_kernels(torch, kernels, dev)
+    pcm = make_audio(SECONDS, SRATE, CHANNELS)
+    frames, terms = pipeline.plan_frames(len(pcm), FSIZE, 16, True)
+    n = len(frames)
+
+    # batch: one encode and one decode of the 30 s track
+    warm = make_audio(1.0, SRATE, CHANNELS)
+    warm_s = ft.batch_encode(warm, 2, SRATE, BITS, FSIZE, device=dev)
+    ft.batch_decode(warm_s, device=dev)
+    stream_decode(ft, torch, warm_s, PUSH, dev)
+    torch.cuda.synchronize()
+    forms = FormTally()
+    kernels.reset_launches()
+    native.reset_calls()
+    with forms:
+        stream, t_enc = timed(torch, lambda: ft.batch_encode(pcm, 2, SRATE, BITS, FSIZE,
+                                                             device=dev))
+        (out, sr), t_dec = timed(torch, lambda: ft.batch_decode(stream, device=dev))
+    res["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    calls = {w.__name__: w.calls for w in native.WRAPPERS}
+    headers, payloads, tail = _parse_frames(stream)
+    if (sum(p is not None for p in payloads), sum(p is None for p in payloads), tail,
+            {h.profile for h in headers}) != (n, terms, b"", {2}):
+        raise AssertionError(f"profile 2 stream: {len(headers)} headers of profiles "
+                             f"{ {h.profile for h in headers} }, plan {n} + {terms}")
+    if sr != SRATE or out.shape[1] != CHANNELS or len(out) < len(pcm) \
+            or not np.isfinite(out).all():
+        raise AssertionError(f"profile 2: decoded {out.shape} at {sr} Hz, or not finite")
+    snr = snr_db(pcm, out)
+    active, lanes = tns_lane_share(stream)
+    if snr < P2_SNR_FLOOR_DB or active <= 0:
+        raise AssertionError(f"profile 2: SNR {snr:.4f} dB (floor {P2_SNR_FLOOR_DB}), TNS ran "
+                             f"on {active} of {lanes} lanes")
+    for name in P2_KERNELS:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the profile 2 batch path")
+    if calls["p1_unpack_batch"] <= 0:
+        raise AssertionError("native p1_unpack_batch was not called by the profile 2 decode")
+    out_cpu, _ = ft.batch_decode(stream, device="cpu")
+    d_cpu = float(np.abs(out_cpu - out).max()) if out_cpu.shape == out.shape else float("inf")
+    if d_cpu > P2_CARD_VS_CPU_MAX_ABS:
+        raise AssertionError(f"profile 2 card vs CPU decode differ by {d_cpu} > "
+                             f"{P2_CARD_VS_CPU_MAX_ABS}")
+    print(f"p2_stereo_44k1: {n} frames + {terms} terminators, {len(stream)} bytes, TNS ran on "
+          f"{active} of {lanes} lanes ({active / lanes:.4f}), SNR {snr:.4f} dB (floor "
+          f"{P2_SNR_FLOOR_DB}), enc {n / t_enc:.1f} frames/s ({t_enc:.3f} s), dec "
+          f"{n / t_dec:.1f} frames/s ({t_dec:.3f} s), card vs cpu decode max|d| {d_cpu} "
+          f"(tolerance {P2_CARD_VS_CPU_MAX_ABS}), launches {res['launches']}, native calls "
+          f"{calls}")
+
+    # streaming: the Decoder in 32 KiB pushes over the same stream
+    kernels.reset_launches()
+    with forms, FrameTally(pipeline, profile2) as dec_tally:
+        (out_s, ttfa), t_s = timed(torch, lambda: stream_decode(ft, torch, stream, PUSH, dev))
+    res["stream_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    d_sb = float(np.abs(out_s - out).max()) if out_s.shape == out.shape else float("inf")
+    if d_sb > STREAM_VS_BATCH_MAX_ABS or snr_db(pcm, out_s) < P2_SNR_FLOOR_DB \
+            or min(res["stream_launches"][k] for k in ("tns_iir", "overlap_add")) <= 0:
+        raise AssertionError(f"profile 2 streaming decode: max|stream - batch| {d_sb}, SNR "
+                             f"{snr_db(pcm, out_s):.4f} dB, launches {res['stream_launches']}")
+    # the Encoder refuses profile 2 in its gauntlet, as the JAX package's
+    # does; an engine whose loaded state names profile 2 encodes it
+    enc = ft.Encoder(1, SRATE, CHANNELS, BITS, FSIZE, "s16le", device=dev)
+    enc.set_overlap_ratio(16)
+    state = enc.state_dict()
+    state["profile"] = 2
+    enc.load_state_dict(state)
+    raw = to_s16le(pcm)
+    kernels.reset_launches()
+    with forms:
+        s_enc, t_se = timed(torch, lambda: b"".join(
+            [enc.process(raw[i:i + PUSH]).buf for i in range(0, len(raw), PUSH)]
+            + [enc.flush().buf]))
+    l_enc = {k.__name__: k.launches for k in kernels.KERNELS}
+    for k in l_enc:
+        res["stream_launches"][k] += l_enc[k]
+    out_e, _ = ft.batch_decode(s_enc, device=dev)
+    h_e, p_e, _ = _parse_frames(s_enc)
+    if {h.profile for h in h_e} != {2} or sum(p is not None for p in p_e) != n \
+            or snr_db(pcm, out_e) < P2_SNR_FLOOR_DB \
+            or min(l_enc[k] for k in ("power_quant", "tns_levinson")) <= 0:
+        raise AssertionError(f"profile 2 streaming encode: {len(h_e)} headers, SNR "
+                             f"{snr_db(pcm, out_e):.4f} dB, launches {l_enc}")
+    print(f"stream p2: dec {PUSH}-byte pushes {t_s:.3f} s ({n / t_s:.1f} frames/s, first audio "
+          f"after {ttfa * 1e3:.2f} ms), max|stream - batch| {d_sb} (tolerance "
+          f"{STREAM_VS_BATCH_MAX_ABS}), SNR {snr_db(pcm, out_s):.4f} dB, frames per call "
+          f"{dec_tally.used()}; enc (state dict with profile 2) {t_se:.3f} s "
+          f"({n / t_se:.1f} frames/s), SNR {snr_db(pcm, out_e):.4f} dB; launches "
+          f"{res['stream_launches']}")
+
+    # profiles 1 and 2 at float64 (the JAX package's default off the TPU)
+    short = make_audio(F64_SECONDS, SRATE, CHANNELS)
+    n64 = len(pipeline.plan_frames(len(short), FSIZE, 16, True)[0])
+    for profile in (1, 2):
+        # first-use set-up (cuFFT plans are per batch shape): the same track
+        ft.batch_decode(ft.batch_encode(short, profile, SRATE, BITS, FSIZE,
+                                        compute_dtype="float64", device=dev),
+                        compute_dtype="float64", device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with forms:
+            s64, t_e = timed(torch, lambda: ft.batch_encode(
+                short, profile, SRATE, BITS, FSIZE, compute_dtype="float64", device=dev))
+            (o64, _), t_d = timed(torch, lambda: ft.batch_decode(
+                s64, compute_dtype="float64", device=dev))
+        l64 = {k.__name__: k.launches for k in kernels.KERNELS}
+        o_cpu, _ = ft.batch_decode(s64, compute_dtype="float64", device="cpu")
+        s_cpu = ft.batch_encode(short, profile, SRATE, BITS, FSIZE, compute_dtype="float64",
+                                device="cpu")
+        differ = sum(a != b for a, b in zip(_parse_frames(s64)[1], _parse_frames(s_cpu)[1]))
+        d64 = float(np.abs(o_cpu - o64).max()) if o_cpu.shape == o64.shape else float("inf")
+        snr64 = snr_db(short, o64)
+        need = P2_KERNELS if profile == 2 else P1_KERNELS
+        if d64 > F64_LOSSY_CARD_VS_CPU_MAX_ABS or snr64 < F64_SNR_FLOOR_DB[profile] \
+                or min(l64[k] for k in need) <= 0:
+            raise AssertionError(f"profile {profile} float64: card vs cpu decode {d64}, SNR "
+                                 f"{snr64:.4f} dB (floor {F64_SNR_FLOOR_DB[profile]}), "
+                                 f"launches {l64}")
+        print(f"profile {profile} float64, {F64_SECONDS:g} s: {n64} frames, enc {t_e:.3f} s, "
+              f"dec {t_d:.3f} s, SNR {snr64:.4f} dB (floor {F64_SNR_FLOOR_DB[profile]}), "
+              f"payloads differing from the CPU stream {differ} of {n64}, card vs cpu decode "
+              f"max|d| {d64} (tolerance {F64_LOSSY_CARD_VS_CPU_MAX_ABS}), launches {l64}")
+    if forms.unchecked():
+        raise AssertionError(f"the Profile 2 and float64 runs launched kernels at forms that no "
+                             f"check held against a plain version: {forms.unchecked()}")
+    print(f"forms launched by the Profile 2 and float64 runs, each held against its plain "
+          f"version above (form: launches): "
+          + ", ".join(f"{f}: {c}" for f, c in sorted(forms.seen.items(), key=str)))
+    return res
+
+
+def kernel_yardsticks(torch, thunks: dict) -> dict:
+    """For the six kernels at their main-path shapes (float32): the device
+    time of one launch of each on its check's inputs (`thunks`, {kernel
+    function name: call}) from one `torch.profiler` call, and each
+    kernel's bound from the bytes it must move and the operations it
+    does."""
+    device_ms = profiled_device_ms(torch, thunks)
+    b, c, nn = OVERLAP_SHAPE
+    tb, tc, tn = TRUNC_SHAPES[0]
+    lanes, n = TNS_SHAPES["float32"][0]
+    pq_n = POWER_QUANT_SHAPE[0] * POWER_QUANT_SHAPE[1]
+    tr_n = tb * tc * tn
+    bounds = {
+        "power_quant": bound(pq_n * 12, pq_n * 8),
+        "overlap_add": bound(b * c * nn * 4 + OLAP * 4 + b * CUT * c * 2 + OLAP * c * 4,
+                             b * c * CUT * 2 + (b - 1) * c * OLAP * 3),
+        "trunc_pack": bound(tr_n * 4 + tr_n * P0_BITS // 8 + tb * 4, tr_n * 2),
+        "trunc_unpack": bound(tr_n * P0_BITS // 8 + tr_n * 4, tr_n),
+        "tns_iir": bound(2 * lanes * n * 4 + lanes * 13 * 4, lanes * n * 25),
+        "tns_levinson": bound(2 * lanes * 13 * 4, lanes * 360),
+    }
+    print("device time of one launch each on its check's inputs, not the runs' data, one "
+          "torch.profiler call (ms): "
+          + ", ".join(f"{k.removesuffix('_kernel')} {v:.4f}" if v is not None
+                      else f"{k.removesuffix('_kernel')} not in the trace"
+                      for k, v in device_ms.items())
+          + "; bounds (ms): " + ", ".join(f"{k} {v[0]:.5f} by {v[1]}" for k, v in bounds.items()))
+    return {"device_ms": {k.removesuffix("_kernel"): v for k, v in device_ms.items()},
+            "bounds": bounds}
+
+
 def main() -> int:
     import torch
 
@@ -661,8 +1149,7 @@ def main() -> int:
     div[:, -128:] = 0.0
     f_d, d_d = torch.from_numpy(freqs).to(dev), torch.from_numpy(div).to(dev)
     factor = 2.0 ** 15
-    got = kernels.power_quant(f_d, d_d, factor)
-    want = kernels.power_quant_plain(f_d, d_d, factor)
+    (got,), (want,) = held(kernels, "power_quant", f_d, d_d, factor)
     torch.cuda.synchronize()
     pq_err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got, want):
@@ -677,8 +1164,7 @@ def main() -> int:
     oa = {}
     oa_err = 0.0
     for i16 in (True, False):
-        out_k, frag_k = kernels.overlap_add(pcm_k, w, CUT, i16)
-        out_p, frag_p = kernels.overlap_add_plain(pcm_k, w, CUT, i16)
+        (out_k, frag_k), (out_p, frag_p) = held(kernels, "overlap_add", pcm_k, w, CUT, i16)
         torch.cuda.synchronize()
         err = max(float((out_k.double() - out_p.double()).abs().max()),
                   float((frag_k - frag_p).abs().max()))
@@ -897,6 +1383,28 @@ def main() -> int:
     lossless = lossless_phase(ft, torch, kernels, native, dev)
     mid, long = lossless[f"p1_{P1_MID_FSIZE}"], lossless[f"p1_{P1_LONG_FSIZE}"]
 
+    # 9. Profile 2 (TNS), and the lossy profiles at float64
+    p2 = tns_phase(ft, torch, kernels, native, dev)
+    tns_lanes = TNS_SHAPES["float32"][0][0]
+    big = p2[(tns_lanes, "float32")]
+    yards = kernel_yardsticks(torch, {
+        "power_quant_kernel": lambda: kernels.power_quant(f_d, d_d, factor),
+        "overlap_add_kernel": lambda: kernels.overlap_add(pcm_k, w, CUT, True),
+        **lossless["thunks"], **p2["thunks"]})
+
+    def yard(name: str) -> dict:
+        """The keys every kernel's entry carries beside its own times:
+        its bound, `library_ms` (no single PyTorch call computes any of the
+        six functions), `device_ms_synthetic` (one launch on the check's
+        inputs under the profiler, not the runs' data), and for the four
+        kernels of the Profile 2 path their launches there."""
+        out = {"bound_ms": yards["bounds"][name][0], "bound_by": yards["bounds"][name][1],
+               "library_ms": None, "device_ms_synthetic": yards["device_ms"][name]}
+        if name in P2_KERNELS:
+            out.update(launches_p2=p2["launches"][name],
+                       streaming_launches_p2=p2["stream_launches"][name])
+        return out
+
     print(json.dumps({"kernels": [
         {"name": "power_quant", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/power_quant.cu",
@@ -905,7 +1413,10 @@ def main() -> int:
          "ms": pq_ms, "plain_ms": pq_plain_ms,
          "streaming_launches": stream_launches["power_quant"],
          "ms_8192": mid["pq_ms"], "plain_ms_8192": mid["pq_plain_ms"],
-         "ms_16384": long["pq_ms"], "plain_ms_16384": long["pq_plain_ms"]},
+         "ms_16384": long["pq_ms"], "plain_ms_16384": long["pq_plain_ms"],
+         "ms_nodiv": p2["pq_nodiv_float32"][0], "plain_ms_nodiv": p2["pq_nodiv_float32"][1],
+         "ms_f64": p2["pq_div_float64"][0], "plain_ms_f64": p2["pq_div_float64"][1],
+         **yard("power_quant")},
         {"name": "overlap_add", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/overlap_add.cu",
          "replaces": "frad_python_tpu/research/pallas_kernels.py:90",
@@ -914,18 +1425,35 @@ def main() -> int:
          "ms_f32": oa[False][0], "plain_ms_f32": oa[False][1],
          "streaming_launches": stream_launches["overlap_add"],
          "ms_8192": mid["oa_ms"], "plain_ms_8192": mid["oa_plain_ms"],
-         "ms_16384": long["oa_ms"], "plain_ms_16384": long["oa_plain_ms"]},
+         "ms_16384": long["oa_ms"], "plain_ms_16384": long["oa_plain_ms"],
+         "ms_f64": p2["oa_f64"][0], "plain_ms_f64": p2["oa_f64"][1], **yard("overlap_add")},
         {"name": "trunc_pack", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/trunc_pack.cu",
          "replaces": "frad_python_tpu/ops/bitpack.py:184",
          "launches": lossless["launches"]["trunc_pack"], "max_abs_err": lossless["pack_err"],
-         "ms": lossless["pack_ms"], "plain_ms": lossless["pack_plain_ms"]},
+         "ms": lossless["pack_ms"], "plain_ms": lossless["pack_plain_ms"],
+         **yard("trunc_pack")},
         {"name": "trunc_unpack", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/trunc_unpack.cu",
          "replaces": "frad_python_tpu/ops/bitpack.py:218",
          "launches": lossless["launches"]["trunc_unpack"],
          "max_abs_err": lossless["unpack_err"],
-         "ms": lossless["unpack_ms"], "plain_ms": lossless["unpack_plain_ms"]},
+         "ms": lossless["unpack_ms"], "plain_ms": lossless["unpack_plain_ms"],
+         **yard("trunc_unpack")},
+        {"name": "tns_iir", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/tns_iir.cu",
+         "replaces": "frad_python_tpu/ops/tns_jax.py:96",
+         "launches": p2["launches"]["tns_iir"], "max_abs_err": p2["iir_err"],
+         "ms": big["iir"], "plain_ms": big["iir_plain"],
+         "ms_f64": p2[(tns_lanes, "float64")]["iir"],
+         "ms_8_lanes": p2[(8, "float32")]["iir"], **yard("tns_iir")},
+        {"name": "tns_levinson", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/tns_levinson.cu",
+         "replaces": "frad_python_tpu/ops/tns_jax.py:45",
+         "launches": p2["launches"]["tns_levinson"], "max_abs_err": p2["lev_err"],
+         "ms": big["lev"], "plain_ms": big["lev_plain"],
+         "ms_f64": p2[(tns_lanes, "float64")]["lev"],
+         "ms_8_lanes": p2[(8, "float32")]["lev"], **yard("tns_levinson")},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

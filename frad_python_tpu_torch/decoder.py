@@ -1,4 +1,4 @@
-"""Streaming FrAD decoder engine (profiles 0, 1 and 4).
+"""Streaming FrAD decoder engine (profiles 0, 1, 2 and 4).
 
 The port of `frad_python_tpu.decoder`: push FrAD bytes in, get PCM out.
 FRM_SIGN resync, the incremental ASFH parse, CRC-gated Reed-Solomon
@@ -9,18 +9,15 @@ with `crit`, force-flush handling, and suspend / resume through
 `process` defers each whole frame and decodes the deferred frames at
 drain points. Runs of >= 2 frames with one header configuration go to
 `pipeline._decode_run` in power-of-two groups (the batch cores and
-kernels on `device`, the lossless transform at `policy.compute_dtype()`);
+kernels on `device`, at `policy.compute_dtype()`);
 a single frame, a fragment that needs a crossfade over several frames, a
 frame of a reserved profile and a lossless run the batch cannot split
-take the per-frame path (`profile0/1/4.digital`, crossfade on the host).
+take the per-frame path (`profile0/1/2/4.digital`, crossfade on the host).
 A reserved profile decodes as profile 0, as in the JAX package.
 `exact=True` takes the per-frame path for every frame, so the output is
 bit-identical across push sizes; FRAD_TORCH_EXACT_DECODE=1 makes that
 the default. The API boundary is numpy: `DecodeResult.pcm` is [T, C]
 float64.
-
-A frame of profile 2, or of Profile 1 at FRAD_TORCH_COMPUTE_DTYPE=float64,
-raises NotImplementedError: those are not ported yet.
 """
 
 from __future__ import annotations
@@ -101,11 +98,10 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def _decode_frame_payload(self, frad: bytes, a: ASFH) -> np.ndarray:
-        if a.profile == 1:
-            policy.check_compute_dtype(None, 1)
-            return models.profile1.digital(frad, a.bit_depth_index, a.channels, a.srate,
-                                           a.fsize, self.device)
-        models.check_ported(a.profile)
+        if a.profile in (1, 2):
+            codec = models.profile1 if a.profile == 1 else models.profile2
+            return codec.digital(frad, a.bit_depth_index, a.channels, a.srate, a.fsize,
+                                 self.device)
         if a.profile == 4:
             return models.profile4.digital(frad, a.bit_depth_index, a.channels, a.endian,
                                            a.fsize)
@@ -161,7 +157,7 @@ class Decoder:
                     or (frag.size and (len(frag) > pipeline._emit_cut(h0)
                                        or frag.shape[1] != h0.channels))):
                 # a single frame, a crossfade over several frames, or a
-                # reserved profile (decoded as profile 0) or profile 2
+                # reserved profile (decoded as profile 0)
                 ret_pcm.append(self._decode_one(hs[idx], ps[idx]))
                 idx += 1
                 continue

@@ -1,9 +1,11 @@
-"""Streaming FrAD encoder engine (profiles 0, 1 and 4).
+"""Streaming FrAD encoder engine (profiles 0, 1 and 4; profile 2 through
+a loaded state).
 
 The port of `frad_python_tpu.encoder`: push PCM bytes in, get framed FrAD
-bytes out. Incremental buffering, compact read-size rounding (Profile 1),
-the overlap fragment carry, per-frame profile dispatch, optional
-Reed-Solomon armor, ASFH framing, force-flush terminators (Profile 1),
+bytes out. Incremental buffering, compact read-size rounding (the lossy
+profiles), the overlap fragment carry, per-frame profile dispatch, optional
+Reed-Solomon armor, ASFH framing, force-flush terminators (the lossy
+profiles),
 mid-stream reconfiguration with the validation gauntlet and a flush when
 the channel layout or sample rate changes, and suspend / resume through
 `state_dict`.
@@ -13,14 +15,13 @@ without one). When the buffer holds two or more whole frames on the
 steady overlap grid, `_micro_batch` hands them to
 `parallel.batch_encode(final=False)` in power-of-two groups, the same
 cores and packers as the batch path; otherwise a frame goes alone through
-`profile0/1/4.analogue`. The lossless transform computes at
-`policy.transform_dtype` (FRAD_TORCH_COMPUTE_DTYPE). The API boundary is
-numpy and bytes.
+`profile0/1/2/4.analogue`. The transforms compute at
+FRAD_TORCH_COMPUTE_DTYPE (`policy.compute_dtype`, `policy.transform_dtype`).
+The API boundary is numpy and bytes.
 
 The gauntlet answers for every profile with the JAX package's messages;
-profile 2 is not available there, and a JAX state dict of profile 2, or
-Profile 1 at FRAD_TORCH_COMPUTE_DTYPE=float64, raises
-NotImplementedError.
+the experimental profile 2 is not available there, as in the JAX
+package, but an engine whose loaded state dict names profile 2 encodes it.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from . import models
 from .common import MICRO_BATCH_MAX
 from .container import ecc
 from .container.asfh import ASFH
-from .models import AVAILABLE, BIT_DEPTHS, COMPACT, SEGMAX, check_ported, compact
+from .models import AVAILABLE, BIT_DEPTHS, COMPACT, SEGMAX, compact
 from .ops import policy
 from .ops.pcm import ff_format_to_numpy_type, to_f64
 from .repairer import DEFAULT_ECC_RATIO, sanitize_ecc_ratio
@@ -136,10 +137,10 @@ class Encoder:
     # ------------------------------------------------------------------
     def _encode_frame_payload(self, frame: np.ndarray) -> tuple[bytes, int, int, int]:
         profile = self.asfh.profile
-        if profile == 1:
-            policy.check_compute_dtype(None, 1)
-            return models.profile1.analogue(frame, self.bit_depth, self.srate,
-                                            self.loss_level, self.device)
+        if profile in (1, 2):
+            codec = models.profile1 if profile == 1 else models.profile2
+            return codec.analogue(frame, self.bit_depth, self.srate, self.loss_level,
+                                  self.device)
         if profile == 4:
             return models.profile4.analogue(frame, self.bit_depth, self.srate,
                                             self.asfh.endian)
@@ -207,8 +208,9 @@ class Encoder:
         self.asfh.channels = self.channels
         self.asfh.fsize = rlen
         if is_compact:
-            bits = self.bit_depth if self.bit_depth in models.profile1.DEPTHS else 16
-            self.asfh.bit_depth_index = models.profile1.DEPTHS.index(bits)
+            depths = BIT_DEPTHS[profile]
+            bits = self.bit_depth if self.bit_depth in depths else 16
+            self.asfh.bit_depth_index = depths.index(bits)
             self.asfh.srate = compact.get_valid_srate(self.srate)
         else:
             # a lossless depth index depends on the data (escalation); the
@@ -392,7 +394,6 @@ class Encoder:
         }
 
     def load_state_dict(self, state: dict) -> None:
-        check_ported(state["profile"])
         self.buffer = state["buffer"]
         self.overlap_fragment = np.asarray(state["overlap_fragment"])
         self.bit_depth = state["bit_depth"]

@@ -1,6 +1,6 @@
 """Build the CUDA kernels in `csrc/` into one plain-C shared library.
 
-`nvcc` compiles every `csrc/*.cu` for `sm_90a` (Hopper) into
+`nvcc` compiles every `csrc/*.cu` for `sm_90a` (Hopper), in parallel, into
 `_build/<hash>/libfrad_kernels.so`, where the hash covers the sources and
 the flags, so an edited source rebuilds and an unchanged one loads the
 library already built. The build runs at the first kernel launch (or
@@ -28,13 +28,15 @@ LIB_NAME = "libfrad_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 #: C entry points and their argument types
 SIGNATURES = {
-    "frad_power_quant": (_P, _P, _P, _LL, _F, _P),
-    "frad_overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "frad_power_quant": (_P, _P, _P, _LL, _D, _I, _P),
+    "frad_overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "frad_trunc_pack": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "frad_trunc_unpack": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "frad_tns_levinson": (_P, _P, _I, _I, _P),
+    "frad_tns_iir": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -66,29 +68,38 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> tuple[Path, bool]:
-    """Compile the kernels if this source set is not built yet.
+    """Compile the kernels if this source set is not built yet: one nvcc
+    per source, all started together, then one link.
 
     Returns (library path, whether this call compiled it)."""
     out = library_path()
     if out.exists():
         return out, False
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in sources():
+            obj = str(Path(tmp) / (src.stem + ".o"))
+            cmd = [nvcc(), *compile_flags, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, str(src)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+            elif verbose:
+                print(err, end="")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib_tmp = str(Path(tmp) / LIB_NAME)
+        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", lib_tmp, *(o for _, o, _ in jobs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        if verbose:
-            print(res.stderr, end="")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(lib_tmp, out)
     return out, True
 
 

@@ -19,18 +19,21 @@ from . import build
 
 
 @functools.lru_cache(maxsize=32)
-def crossfade_window(olap: int, device: torch.device) -> torch.Tensor:
-    """The [olap] float32 fade-in window, computed in float32 in the same
-    operation order as the JAX overlap-add (its f32 cos may differ from
-    numpy's by an ulp)."""
-    a = np.arange(1, olap + 1, dtype=np.float32)
-    w = np.float32(0.5) * (np.float32(1.0) - np.cos(np.float32(np.pi) * a / np.float32(olap + 1)))
-    return torch.from_numpy(w.astype(np.float32)).to(device)
+def crossfade_window(olap: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The [olap] fade-in window, computed in `dtype` (float32 or float64)
+    in the same operation order as the JAX overlap-add (its cos may differ
+    from numpy's by an ulp)."""
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    a = np.arange(1, olap + 1, dtype=ft)
+    w = ft(0.5) * (ft(1.0) - np.cos(ft(np.pi) * a / ft(olap + 1)))
+    return torch.from_numpy(w.astype(ft)).to(device)
 
 
 def overlap_add_plain(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
-    """pcm [B, C, N] float32 frames, w [olap] window ->
-    (out [B, cut, C] int16 (x32768, clamped) or float32, frag [olap, C] float32).
+    """pcm [B, C, N] float32 or float64 frames, w [olap] window of the
+    same dtype -> (out [B, cut, C] int16 (x32768, clamped) or that dtype,
+    frag [olap, C] of that dtype).
 
     Frame 0's head passes through; frame b >= 1's first olap samples are
     head*w + prev[cut:cut+olap]*reverse(w); samples [olap:cut] are copied;
@@ -53,8 +56,9 @@ def overlap_add(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
         return overlap_add_plain(pcm, w, cut, i16)
     if pcm.device.type != "cuda" or w.device != pcm.device:
         raise ValueError(f"overlap_add: tensors on {pcm.device} and {w.device}")
-    if pcm.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"overlap_add: float32 inputs required, got {pcm.dtype}, {w.dtype}")
+    if pcm.dtype not in (torch.float32, torch.float64) or w.dtype != pcm.dtype:
+        raise TypeError(f"overlap_add: float32 or float64 inputs of one dtype required, got "
+                        f"{pcm.dtype}, {w.dtype}")
     if pcm.dim() != 3 or w.dim() != 1:
         raise ValueError(f"overlap_add: pcm [B, C, N] and w [olap] required, got "
                          f"{tuple(pcm.shape)}, {tuple(w.shape)}")
@@ -64,14 +68,14 @@ def overlap_add(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
         raise ValueError(f"overlap_add: bad geometry B={b} N={n} olap={olap} cut={cut}")
     if not (pcm.is_contiguous() and w.is_contiguous()):
         raise ValueError("overlap_add: contiguous inputs required")
-    out = torch.empty((b, cut, c), dtype=torch.int16 if i16 else torch.float32,
+    out = torch.empty((b, cut, c), dtype=torch.int16 if i16 else pcm.dtype,
                       device=pcm.device)
-    frag = torch.empty((olap, c), dtype=torch.float32, device=pcm.device)
+    frag = torch.empty((olap, c), dtype=pcm.dtype, device=pcm.device)
     lib = build.library()
     err = lib.frad_overlap_add(
         ctypes.c_void_p(pcm.data_ptr()), ctypes.c_void_p(w.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(frag.data_ptr()),
-        b, c, n, olap, cut, int(bool(i16)),
+        b, c, n, olap, cut, int(bool(i16)), int(pcm.dtype == torch.float64),
         ctypes.c_void_p(torch.cuda.current_stream(pcm.device).cuda_stream))
     build.check("frad_overlap_add", err)
     overlap_add.launches += 1

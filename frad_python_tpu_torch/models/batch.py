@@ -1,5 +1,5 @@
-"""Batched Profile 0 and Profile 1 cores over a frame batch [B, N, C], as
-torch ops on one device.
+"""Batched Profile 0, 1 and 2 cores over a frame batch [B, N, C], as torch
+ops on one device.
 
 Profile 0: the DCT-II / IDCT of `ops/dct.py` (the float32 GEMM, or the
 FFT form at float64 and above N = 8192), and the fast path's fused
@@ -14,6 +14,16 @@ kernel (`p1_decode_oa_core`). The GEMMs are
 `torch.matmul` at full float32; the two elementwise stages that the JAX
 package wrote as Pallas kernels are the hand-written CUDA kernels of
 `kernels/`.
+
+Profile 2 is Profile 1's chain with Temporal Noise Shaping (`ops/tns.py`)
+between the masking divide and the quantiser: the encoder divides, runs
+the TNS analysis (`tns_levinson` kernel) and quantises the residual with
+the `power_quant` kernel's no-divisor form; the decoder dequantises, runs
+the TNS synthesis (`tns_iir` kernel), multiplies the divisors back and
+ends like Profile 1.
+
+The lossy cores compute in the dtype of their input: float32 (int32
+symbols), or float64 (int64 symbols, the FFT form of the DCT).
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ from ..kernels.overlap_add import crossfade_window, overlap_add
 from ..kernels.power_quant import power_quant
 from ..kernels.trunc_pack import trunc_pack
 from ..kernels.trunc_unpack import trunc_unpack
-from ..ops import bitpack, psycho
+from ..ops import bitpack, psycho, tns
 from ..ops.dct import dct2, idct2
 
 _E_HALF = np.e / 2.0
@@ -71,20 +81,33 @@ def p0_unpack_decode_i24_core(words: torch.Tensor, bits: int, little: bool, n: i
     return bitpack.pcm_to_i24_words(p0_unpack_decode_core(words, bits, little, n, ch))
 
 
+def _thres_quant(thres: torch.Tensor) -> torch.Tensor:
+    """Masking thresholds -> log-companded integer symbols (int64 at
+    float64, else int32)."""
+    log_base = torch.log(torch.tensor(_E_HALF, dtype=thres.dtype, device=thres.device))
+    return torch.round(
+        psycho.dequant(torch.log(torch.clamp(thres, min=1.0)) / log_base)
+    ).to(torch.int64 if thres.dtype == torch.float64 else torch.int32)
+
+
+def _thres_expand(thres_flat: torch.Tensor, n: int, srate: int) -> torch.Tensor:
+    """[B, 27, C] threshold symbols -> [B, C, N] per-bin divisors."""
+    e_half = torch.tensor(_E_HALF, dtype=thres_flat.dtype, device=thres_flat.device)
+    thres = torch.pow(e_half, psycho.quant(thres_flat.transpose(1, 2)))
+    return psycho.mapping_from_opus(thres, n, srate)
+
+
 def p1_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: float):
-    """[B, N, C] float32 PCM -> (freqs_q [B, N, C] int32, thres_q [B, 27, C] int32)."""
+    """[B, N, C] PCM -> (freqs_q [B, N, C], thres_q [B, 27, C]): int32 for
+    float32 frames, int64 for float64."""
     b, n, c = frames.shape
     x = frames.transpose(1, 2)                                  # [B, C, N]
     freqs = dct2(x)
     thres = psycho.mask_thres_mos(torch.abs(freqs) * factor, srate, loss_level)
     div = psycho.mapping_from_opus(thres, n, srate)
-    freqs_q = power_quant(freqs.reshape(b * c, n), div.reshape(b * c, n),
-                          factor).reshape(b, c, n)
-    log_base = torch.log(torch.tensor(_E_HALF, dtype=torch.float32, device=frames.device))
-    thres_q = torch.round(
-        psycho.dequant(torch.log(torch.clamp(thres, min=1.0)) / log_base)
-    ).to(torch.int32)
-    return freqs_q.transpose(1, 2), thres_q.transpose(1, 2)
+    freqs_q = power_quant(freqs.reshape(b * c, n).contiguous(),
+                          div.reshape(b * c, n).contiguous(), factor).reshape(b, c, n)
+    return freqs_q.transpose(1, 2), _thres_quant(thres).transpose(1, 2)
 
 
 def p1_encode_core_i16(frames_i16: torch.Tensor, srate: int, loss_level: float, factor: float):
@@ -94,39 +117,83 @@ def p1_encode_core_i16(frames_i16: torch.Tensor, srate: int, loss_level: float, 
     return p1_encode_core(frames, srate, loss_level, factor)
 
 
+def _symbols_float(freqs_flat: torch.Tensor) -> torch.Tensor:
+    """An int16 symbol upload (exact for EGR symbols) back to float32."""
+    return freqs_flat.to(torch.float32) if freqs_flat.dtype == torch.int16 else freqs_flat
+
+
 def p1_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
                    srate: int, factor: float) -> torch.Tensor:
     """Profile 1 decode without overlap-add.
 
-    freqs_flat [B, N, C] symbols (int16 — exact for EGR symbols — or
-    float32), thres_flat [B, 27, C] float32 -> [B, N, C] float32 PCM (a
-    transposed view of the IDCT's [B, C, N] output)."""
-    if freqs_flat.dtype == torch.int16:
-        freqs_flat = freqs_flat.to(torch.float32)
+    freqs_flat [B, N, C] symbols (int16, or float32 / float64),
+    thres_flat [B, 27, C] in the compute dtype -> [B, N, C] PCM in that
+    dtype (a transposed view of the IDCT's [B, C, N] output)."""
+    freqs_flat = _symbols_float(freqs_flat)
     n = freqs_flat.shape[1]
     masked = psycho.dequant(freqs_flat.transpose(1, 2)) / factor     # [B, C, N]
-    e_half = torch.tensor(_E_HALF, dtype=torch.float32, device=freqs_flat.device)
-    thres = torch.pow(e_half, psycho.quant(thres_flat.transpose(1, 2)))
-    div = psycho.mapping_from_opus(thres, n, srate)
-    return idct2(masked * div).transpose(1, 2)
+    return idct2(masked * _thres_expand(thres_flat, n, srate)).transpose(1, 2)
+
+
+def _overlap_add_emit(pcm: torch.Tensor, olap: int, cut: int, i16: bool):
+    """[B, N, C] decoded frames (a view of [B, C, N]) -> the `overlap_add`
+    kernel's (out, frag)."""
+    pcm = pcm.transpose(1, 2).contiguous()                           # [B, C, N]
+    return overlap_add(pcm, crossfade_window(olap, pcm.device, pcm.dtype), cut, i16)
 
 
 def p1_decode_oa_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
                       srate: int, factor: float, olap: int, cut: int, i16: bool):
     """`p1_decode_core` + overlap-add of one uniform run -> (pcm_out
-    [B, cut, C], int16 x32768 when `i16` else float32; fragment [olap, C]
-    float32, the raw tail of the last frame that the next run crossfades
+    [B, cut, C], int16 x32768 when `i16` else the compute dtype; fragment
+    [olap, C], the raw tail of the last frame that the next run crossfades
     in)."""
-    pcm = p1_decode_core(freqs_flat, thres_flat, srate, factor).transpose(1, 2)  # [B, C, N]
-    return overlap_add(pcm.contiguous(), crossfade_window(olap, pcm.device), cut, i16)
+    return _overlap_add_emit(p1_decode_core(freqs_flat, thres_flat, srate, factor),
+                             olap, cut, i16)
+
+
+def p2_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: float):
+    """[B, N, C] PCM -> (freqs_q [B, N, C], thres_q [B, 27, C], lpc_q
+    [B, 13, C]): Profile 1's chain with the TNS analysis between the
+    masking divide and the quantiser. int32 for float32 frames, int64 for
+    float64."""
+    b, n, c = frames.shape
+    freqs = dct2(frames.transpose(1, 2))                        # [B, C, N]
+    thres = psycho.mask_thres_mos(torch.abs(freqs) * factor, srate, loss_level)
+    div = psycho.mapping_from_opus(thres, n, srate)
+    masked, lpc_q = tns.tns_analysis(freqs / torch.where(div == 0, torch.inf, div))
+    freqs_q = power_quant(masked.reshape(b * c, n).contiguous(), None,
+                          factor).reshape(b, c, n)
+    return (freqs_q.transpose(1, 2), _thres_quant(thres).transpose(1, 2),
+            lpc_q.to(freqs_q.dtype).transpose(1, 2))
+
+
+def p2_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
+                   lpc_flat: torch.Tensor, srate: int, factor: float) -> torch.Tensor:
+    """Inverse of `p2_encode_core` without overlap-add: freqs_flat
+    [B, N, C] symbols (int16, or the compute dtype), thres_flat [B, 27, C]
+    and lpc_flat [B, 13, C] in the compute dtype -> [B, N, C] PCM."""
+    freqs_flat = _symbols_float(freqs_flat)
+    n = freqs_flat.shape[1]
+    masked = psycho.dequant(freqs_flat.transpose(1, 2)) / factor     # [B, C, N]
+    freqs = tns.tns_synthesis(masked, lpc_flat.transpose(1, 2)) \
+        * _thres_expand(thres_flat, n, srate)
+    return idct2(freqs).transpose(1, 2)
+
+
+def p2_decode_oa_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
+                      lpc_flat: torch.Tensor, srate: int, factor: float,
+                      olap: int, cut: int, i16: bool):
+    """`p2_decode_core` + overlap-add of one uniform run; returns as
+    `p1_decode_oa_core` does."""
+    return _overlap_add_emit(p2_decode_core(freqs_flat, thres_flat, lpc_flat, srate, factor),
+                             olap, cut, i16)
 
 
 def overlap_add_core(frames: torch.Tensor, olap: int, cut: int) -> torch.Tensor:
-    """[B, N, C] decoded float32 frames -> [B, cut, C] overlap-added PCM
+    """[B, N, C] decoded frames -> [B, cut, C] overlap-added PCM
     (frame 0's head fade-free; the stream tail is frames[-1, cut:])."""
-    out, _ = overlap_add(frames.transpose(1, 2).contiguous(),
-                         crossfade_window(olap, frames.device), cut, False)
-    return out
+    return _overlap_add_emit(frames, olap, cut, False)[0]
 
 
 def overlap_frame_starts(total: int, fsize: int, overlap_ratio: int) -> tuple[np.ndarray, int]:

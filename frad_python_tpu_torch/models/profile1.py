@@ -67,7 +67,8 @@ def prepare_frame(pcm: np.ndarray, srate: int, loss_level: float):
 def analogue(pcm: np.ndarray, bits: int, srate: int, loss_level: float,
              device: torch.device) -> tuple[bytes, int, int, int]:
     """Encode one frame: [fsize, channels] f64 PCM -> (payload, depth index,
-    channels, srate). The tensor chain runs on `device` in float32."""
+    channels, srate). The tensor chain runs on `device` at
+    `policy.compute_dtype()`."""
     if bits not in DEPTHS:
         bits = 16
     factor = _scale_factor(bits)
@@ -75,7 +76,8 @@ def analogue(pcm: np.ndarray, bits: int, srate: int, loss_level: float,
     channels = pcm.shape[1]
 
     fq, tq = batch.p1_encode_core(
-        policy.to_device(pcm[None].astype(np.float32), device), srate, loss_level, factor)
+        policy.to_device(pcm[None].astype(policy.compute_dtype()), device), srate,
+        loss_level, factor)
     fqh, tqh = policy.to_host(fq, tq)
     # [1, N, C] -> channel-interleaved symbols
     return pack_streams(fqh[0].ravel(), tqh[0].ravel()), DEPTHS.index(bits), channels, srate
@@ -97,9 +99,10 @@ def digital(frad: bytes, bit_depth_index: int, channels: int, srate: int, fsize:
     freqs = _untrim(freqs_ints.astype(np.float64), fsize, channels)[: fsize * channels]
     thres = _untrim(thres_ints.astype(np.float64), psycho.SUBBANDS,
                     channels)[: psycho.SUBBANDS * channels]
+    dt = policy.compute_dtype()
     pcm = batch.p1_decode_core(
-        policy.to_device(freqs.reshape(1, fsize, channels).astype(np.float32), device),
-        policy.to_device(thres.reshape(1, psycho.SUBBANDS, channels).astype(np.float32),
-                         device), srate, factor)
+        policy.to_device(freqs.reshape(1, fsize, channels).astype(dt), device),
+        policy.to_device(thres.reshape(1, psycho.SUBBANDS, channels).astype(dt), device),
+        srate, factor)
     (out,) = policy.to_host(pcm[0])
     return out.astype(np.float64)

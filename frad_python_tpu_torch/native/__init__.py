@@ -268,22 +268,26 @@ def maxabs_rows(mat: np.ndarray, nthreads: int = 2) -> np.ndarray:
 
 
 @_counted
-def p1_unpack_batch(payloads: list[bytes], fq_len: int, tq_len: int,
-                    nthreads: int = 3) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Inflate + EGR-decode + untrim a batch of Profile 1 payloads into f32.
+def p1_unpack_batch(payloads: list[bytes], fq_len: int, tq_len: int, lq_len: int = 0,
+                    nthreads: int = 3
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None, np.ndarray]:
+    """Inflate + EGR-decode + untrim a batch of Profile 1 payloads, or with
+    `lq_len` of Profile 2 payloads, into f32.
 
-    Returns (fq [B, fq_len], tq [B, tq_len], ok [B] bool). A corrupt
-    payload comes back as zero rows with ok False."""
+    Returns (fq [B, fq_len], tq [B, tq_len], lq [B, lq_len] or None,
+    ok [B] bool). A corrupt payload comes back as zero rows with ok False."""
     b = len(payloads)
     blob = b"".join(payloads)
     offsets = _offsets(payloads)
     fq = np.empty((b, fq_len), dtype=np.float32)
     tq = np.empty((b, tq_len), dtype=np.float32)
+    lq = np.empty((b, lq_len), dtype=np.float32) if lq_len else None
     ok = np.empty(b, dtype=np.uint8)
-    library().frad_p1_unpack_batch(blob, _i64p(offsets), b, fq_len, tq_len, 0,
-                                   fq.ctypes.data, tq.ctypes.data, None, ok.ctypes.data,
-                                   nthreads)
-    return fq, tq, ok.astype(bool)
+    library().frad_p1_unpack_batch(blob, _i64p(offsets), b, fq_len, tq_len, lq_len,
+                                   fq.ctypes.data, tq.ctypes.data,
+                                   lq.ctypes.data if lq is not None else None,
+                                   ok.ctypes.data, nthreads)
+    return fq, tq, lq, ok.astype(bool)
 
 
 @_counted

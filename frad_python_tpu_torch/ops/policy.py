@@ -11,10 +11,12 @@
   False` and `torch.backends.cudnn.allow_tf32 = False`, so the DCT/IDCT
   and the masking GEMMs never drop to TF32, the counterpart of the JAX
   package's `Precision.HIGHEST`. The JAX package's reduced-precision
-  lossy GEMMs were a TPU trade-off and are not carried over. float64 runs
-  on the device (the H100 has native FP64) for the lossless profiles 0
-  and 4, and always for their 48- and 64-bit containers; Profile 1 at
-  float64 is not ported yet and raises NotImplementedError.
+  lossy GEMMs were a TPU trade-off and are not carried over. float64 (the
+  JAX package's default off the TPU) runs on the device for every
+  profile (the H100 has native FP64), and always for the 48- and 64-bit
+  lossless containers; the lossy profiles at float64 give int64 symbols
+  and take the host EGR coder and the Python payload unpack, as in the
+  JAX package.
 """
 
 from __future__ import annotations
@@ -61,17 +63,12 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
-def check_compute_dtype(dtype: str | None, profile: int) -> str:
-    """The compute dtype of a `profile` run: `dtype`, or `compute_dtype()`
-    when None. Raises ValueError for a dtype other than float32 and
-    float64, and NotImplementedError for a lossy profile at float64."""
+def check_compute_dtype(dtype: str | None) -> str:
+    """The compute dtype of a run: `dtype`, or `compute_dtype()` when None. Raises ValueError for a dtype other than float32 and
+    float64."""
     dt = dtype or compute_dtype()
     if dt not in _DTYPES:
         raise ValueError(f"compute_dtype={dt!r}: expected one of {_DTYPES}")
-    if dt == "float64" and profile in (1, 2):
-        raise NotImplementedError(
-            f"compute_dtype='float64' for profile {profile}: the port computes "
-            "the lossy profiles in float32 only")
     return dt
 
 

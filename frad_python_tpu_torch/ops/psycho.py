@@ -1,4 +1,4 @@
-"""Psychoacoustic masking for Profile 1, as torch ops on the device.
+"""Psychoacoustic masking for the lossy profiles, as torch ops on the device.
 
 * 27 modified-Opus subband edges
 * per-subband masking threshold: RMS(|X|)^0.8 against the absolute
@@ -10,8 +10,8 @@
 * alpha=0.75 power-law compand, in the sqrt form sqrt(|x|*sqrt(|x|))
 
 The numpy constant builders are verbatim copies of the JAX package's, so
-the tables are bit-identical; `device_consts` turns them into float32
-tensors on the device, cached per (N, srate, device).
+the tables are bit-identical; `device_consts` turns them into float32 or
+float64 tensors on the device, cached per (N, srate, device, dtype).
 """
 
 from __future__ import annotations
@@ -104,22 +104,26 @@ def _interp_matrix(dlen: int, srate: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def device_consts(dlen: int, srate: int, device: torch.device) -> dict:
-    """The masking and mapping tables as float32 tensors on `device`:
-    `ind` [dlen, nb'], `inv_w` [nb'], `aht` [nb'] (nb' = max(nb, 1)),
-    `interp` [SUBBANDS, dlen], and the active band count `nb`."""
+def device_consts(dlen: int, srate: int, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """The masking and mapping tables as `dtype` (float32 or float64)
+    tensors on `device`: `ind` [dlen, nb'], `inv_w` [nb'], `aht` [nb']
+    (nb' = max(nb, 1)), `interp` [SUBBANDS, dlen], and the active band
+    count `nb`."""
     ind, inv_w, aht_floor, nb, *_ = _mask_consts_jnp(dlen, srate)
+    ft = np.float64 if dtype == torch.float64 else np.float32
 
-    def f32(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=ft)).to(device)
 
-    return {"ind": f32(ind), "inv_w": f32(inv_w),
-            "aht": f32(aht_floor[:ind.shape[1]]),
-            "interp": f32(_interp_matrix(dlen, srate)), "nb": nb}
+    return {"ind": dev(ind), "inv_w": dev(inv_w),
+            "aht": dev(aht_floor[:ind.shape[1]]),
+            "interp": dev(_interp_matrix(dlen, srate)), "nb": nb}
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root on every backend.
+    """Correctly rounded float32 square root on every backend (for
+    float64 input, the plain float64 square root).
 
     Torch's vectorised CPU sqrt can be an ulp off (measured: 0.7% of
     float32 results on an AVX-512 host), while XLA, numpy and CUDA round
@@ -132,7 +136,7 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 def mask_thres_mos(freqs: torch.Tensor, srate: int, loss_level: float,
                    alpha: float = SPREAD_ALPHA) -> torch.Tensor:
     """Masking thresholds for [..., N] magnitude spectra -> [..., SUBBANDS]."""
-    c = device_consts(freqs.shape[-1], srate, freqs.device)
+    c = device_consts(freqs.shape[-1], srate, freqs.device, freqs.dtype)
     nb = c["nb"]
     sums = matmul_rows(freqs * freqs, c["ind"])                 # [..., nb']
     rms = sqrt_rn(sums * c["inv_w"]) ** alpha
@@ -147,7 +151,7 @@ def mask_thres_mos(freqs: torch.Tensor, srate: int, loss_level: float,
 def mapping_from_opus(mapped_thres: torch.Tensor, freqs_len: int, srate: int) -> torch.Tensor:
     """Per-bin divisors [..., freqs_len] from [..., SUBBANDS] thresholds,
     as one GEMM against the interpolation matrix."""
-    w = device_consts(freqs_len, srate, mapped_thres.device)["interp"]
+    w = device_consts(freqs_len, srate, mapped_thres.device, mapped_thres.dtype)["interp"]
     return matmul_rows(mapped_thres[..., :SUBBANDS], w)
 
 

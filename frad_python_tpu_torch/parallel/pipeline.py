@@ -1,11 +1,12 @@
-"""Whole-file batch codec pipeline of profiles 0, 1 and 4, with ECC armor
-and repair.
+"""Whole-file batch codec pipeline of profiles 0, 1, 2 and 4, with ECC
+armor and repair.
 
 `batch_encode` plans every frame of a stream up front, runs the tensor
 domain on one device as one call over the uniform frames, and finishes
 the byte domain on the host. Profile 1: PCM upload -> DCT/mask/quant core
 -> EGR bit-pack -> compaction of each frame's used words, then EGR
-thresholds and DEFLATE. Profile 0: the DCT, then the truncated-float
+thresholds and DEFLATE. Profile 2: the Profile 1 core with the TNS
+analysis, then the host EGR coder and DEFLATE frame by frame. Profile 0: the DCT, then the truncated-float
 pack, fused on the device (`trunc_pack` kernel) at float32 for 16/24/32
 bits, or on the host (`packing`) after a float32 GEMM or float64 FFT
 DCT; a frame whose coefficients leave the container float escalates to a
@@ -13,6 +14,7 @@ deeper depth. Profile 4 packs the PCM on the host. Then Reed-Solomon
 armor and ASFH framing. `batch_decode` parses the frames on the host,
 strips (and with `fix_error` repairs) the armor, decodes each uniform run
 with one device call (Profile 1: dequant -> IDCT -> overlap-add; Profile
+2: the same with the TNS synthesis before the IDCT; Profile
 0: `trunc_unpack` kernel -> IDCT, or the host unpack and the IDCT), and
 carries the overlap fragment across runs and terminators. `batch_repair`
 re-armors a stream on the host alone.
@@ -31,8 +33,9 @@ frames of a reserved profile, which decode as profile 0, and a lossless
 run the batch cannot split into frames (a payload of a partial value),
 which the JAX package's `batch_decode` raises on.
 
-Not ported yet, and raising NotImplementedError: profile 2, and Profile 1
-at float64. The JAX package's TPU transfer machinery (`_spans`,
+At float64 the lossy profiles take the JAX package's float64 routes: int64
+symbols through the host EGR coder, the Python payload unpack, no int16
+upload or transfer. The JAX package's TPU transfer machinery (`_spans`,
 `_put_concurrent`, `_fetch`, the upload thread pool) and its emulated-f64
 routing (`_deep_transform_batch`) are not ported: each run is one device
 call with pinned, non-blocking copies, and float64 runs on the device.
@@ -50,7 +53,7 @@ from .. import models, native
 from ..common import FRM_SIGN
 from ..container import ecc as ecc_mod
 from ..container.asfh import ASFH, COMPLETE, FORCE_FLUSH
-from ..models import batch, profile0, profile1
+from ..models import batch, profile0, profile1, profile2
 from ..models.profiles import COMPACT, compact
 from ..ops import bitpack, golomb, packing, policy, psycho
 from ..ops.window import hanning_in_overlap
@@ -146,10 +149,10 @@ def _gather(pcm: np.ndarray, frs: list[tuple[int, int]], length: int) -> np.ndar
     return out
 
 
-def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], srate: int,
-                   bit_depth: int, loss_level: float, i16_upload: bool,
+def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, srate: int,
+                   bit_depth: int, loss_level: float, dtype: str, i16_upload: bool,
                    device: torch.device) -> list[tuple[bytes, int, int]]:
-    """Profile 1 payloads of equal-length frames: [(payload, bdi, flen)]."""
+    """Profile 1 or 2 payloads of equal-length frames: [(payload, bdi, flen)]."""
     if not frs:
         return []
     channels = pcm.shape[1]
@@ -161,25 +164,35 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], srate: int,
         pad = np.zeros((len(frs), dlen, channels))
         pad[:, :flen] = arr
         arr = pad
-    bits = bit_depth if bit_depth in profile1.DEPTHS else 16
+    depths = models.BIT_DEPTHS[profile]
+    bits = bit_depth if bit_depth in depths else 16
     factor = profile1._scale_factor(bits)
-    bdi = profile1.DEPTHS.index(bits)
+    bdi = depths.index(bits)
+    b = len(frs)
 
-    if i16_upload:
+    if profile == 2:
+        # one core call, then the host EGR coder and DEFLATE per frame
+        fq, tq, lq = batch.p2_encode_core(
+            policy.to_device(arr.astype(dtype), device), srate_v, ll, factor)
+        fqh, tqh, lqh = policy.to_host(fq, tq, lq)
+        return [(profile2.pack_streams(fqh[i].ravel(), tqh[i].ravel(), lqh[i].ravel()),
+                 bdi, frs[i][1]) for i in range(b)]
+
+    if i16_upload and dtype == "float32":
         fq, tq = batch.p1_encode_core_i16(
             policy.to_device(_to_i16(arr), device), srate_v, ll, factor)
     else:
         fq, tq = batch.p1_encode_core(
-            policy.to_device(arr.astype(np.float32), device), srate_v, ll, factor)
-    b = len(frs)
+            policy.to_device(arr.astype(dtype), device), srate_v, ll, factor)
     m = dlen * channels
     fq = fq.reshape(b, m)                   # [B, N, C] -> interleaved rows
     tq = tq.reshape(b, psycho.SUBBANDS * channels)
 
-    # single frames and depths over 24 bits (symbols may pass 2^23) take
-    # the host EGR coder; the rest bit-pack on the device, so the fetch
-    # carries the stream's own bytes instead of int32 symbols
-    if bits > 24 or b == 1:
+    # single frames, depths over 24 bits (symbols may pass 2^23) and the
+    # int64 symbols of float64 take the host EGR coder; the rest bit-pack
+    # on the device, so the fetch carries the stream's own bytes instead
+    # of int32 symbols
+    if bits > 24 or b == 1 or dtype != "float32":
         fqh, tqh = policy.to_host(fq, tq)
         return [(profile1.pack_streams(fqh[i], tqh[i]), bdi, frs[i][1])
                 for i in range(b)]
@@ -334,13 +347,13 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
                  i24_upload: bool = False, final: bool = True,
                  device: str | torch.device | None = None) -> bytes:
     """Encode a whole [T, C] float PCM array into a FrAD stream of profile
-    0, 1 or 4.
+    0, 1, 2 or 4.
 
     `device` defaults to CUDA and raises when none is present.
     `compute_dtype` (None: `policy.compute_dtype()`) is the transform's
-    dtype: float32, or float64 for the lossless profiles (the 48- and
-    64-bit containers always take float64). `i16_upload` sends Profile 1's
-    PCM to the device as int16 (x32768); `i24_upload` sends Profile 0's
+    dtype, float32 or float64 (the 48- and 64-bit lossless containers
+    always take float64). `i16_upload` sends Profile 1's PCM to the device
+    as int16 (x32768) at float32; `i24_upload` sends Profile 0's
     PCM as int24 (x2^23) at 24 bits and float32. `enable_ecc` armors every
     payload with Reed-Solomon parity at `ecc_ratio` = (data bytes, parity
     bytes) per block; a ratio GF(256) cannot honor (data + parity > 255)
@@ -353,8 +366,7 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
     force-flush terminators are left out, so the next span, which re-reads
     the overlap, follows on byte for byte.
     """
-    models.check_ported(profile)
-    dtype = policy.check_compute_dtype(compute_dtype, profile)
+    dtype = policy.check_compute_dtype(compute_dtype)
     dev = policy.resolve_device(device)
     pcm = np.asarray(pcm, dtype=np.float64)
     total, channels = pcm.shape
@@ -387,8 +399,10 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
     tail = frames[len(uniform):]            # 0 or 1 non-uniform tail frame
     if is_compact:
         groups = [g for g in (
-            _encode_frames(pcm, uniform, srate, bit_depth, loss_level, i16_upload, dev),
-            _encode_frames(pcm, tail, srate, bit_depth, loss_level, i16_upload, dev)) if g]
+            _encode_frames(pcm, uniform, profile, srate, bit_depth, loss_level, dtype,
+                           i16_upload, dev),
+            _encode_frames(pcm, tail, profile, srate, bit_depth, loss_level, dtype,
+                           i16_upload, dev)) if g]
     else:
         groups = [g for g in (
             _encode_lossless(pcm, uniform, profile, bit_depth, little_endian, dtype,
@@ -521,24 +535,35 @@ def _frag_head(out: np.ndarray, frag: np.ndarray) -> np.ndarray:
     return out[:take] * w[:, None] + frag * w[::-1, None]
 
 
-def _unpack_run(ps: list[bytes], n: int, ch: int) -> tuple[np.ndarray, np.ndarray]:
-    """Profile 1 payloads -> (freq symbols [B, n*ch], threshold symbols
-    [B, 27*ch]) as float32 rows; a corrupt payload gives zero rows."""
-    if native.enabled():
+def _unpack_run(ps: list[bytes], n: int, ch: int, profile: int, dtype: str
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
+    """Profile 1 or 2 payloads -> (freq symbols [B, n*ch], threshold
+    symbols [B, 27*ch], and for Profile 2 LPC symbols [B, 13*ch], else
+    None) as rows of `dtype`; a corrupt payload gives zero rows. float32
+    takes the C++ unpack, float64 (and the numpy host path) the Python
+    one."""
+    tq_len = psycho.SUBBANDS * ch
+    lq_len = profile2.ORDER1 * ch if profile == 2 else 0
+    if native.enabled() and dtype == "float32":
         # one threaded C++ pass: inflate + EGR decode + untrim
-        fq, tq, _ok = native.p1_unpack_batch(ps, n * ch, psycho.SUBBANDS * ch)
-        return fq, tq
-    fq = np.zeros((len(ps), n * ch), dtype=np.float32)
-    tq = np.zeros((len(ps), psycho.SUBBANDS * ch), dtype=np.float32)
+        fq, tq, lq, _ok = native.p1_unpack_batch(ps, n * ch, tq_len, lq_len)
+        return fq, tq, lq
+    fq = np.zeros((len(ps), n * ch), dtype=dtype)
+    tq = np.zeros((len(ps), tq_len), dtype=dtype)
+    lq = np.zeros((len(ps), lq_len), dtype=dtype) if profile == 2 else None
     for i, p in enumerate(ps):
+        if profile == 2:
+            s = profile2.unpack_streams(p)
+            if s is not None:
+                fq[i], tq[i], lq[i] = profile2.untrim_streams(s, n, ch)
+            continue
         s = profile1.unpack_streams(p)
         if s is None:
             continue
         fi, ti = s
         fq[i] = profile1._untrim(fi.astype(np.float64), n, ch)[: n * ch]
-        tq[i] = profile1._untrim(ti.astype(np.float64), psycho.SUBBANDS,
-                                 ch)[: psycho.SUBBANDS * ch]
-    return fq, tq
+        tq[i] = profile1._untrim(ti.astype(np.float64), psycho.SUBBANDS, ch)[: tq_len]
+    return fq, tq, lq
 
 
 def _batch_splits(ps: list[bytes], bits: int, ch: int) -> bool:
@@ -596,7 +621,7 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
                 device: torch.device, fix_error: bool = False,
                 compute_dtype: str | None = None, i24_transfer: bool = False
                 ) -> tuple[np.ndarray, np.ndarray] | None:
-    """Decode one uniform run of profile 0, 1 or 4 with one device call.
+    """Decode one uniform run of profile 0, 1, 2 or 4 with one device call.
 
     Returns (pcm [S, C] — overlap-added within the run, frame 0's head
     left fade-free for the caller's fragment fixup —, trailing overlap
@@ -608,7 +633,7 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     run = len(hs)
     ch = h0.channels
     n = h0.fsize
-    dtype = policy.check_compute_dtype(compute_dtype, h0.profile)
+    dtype = policy.check_compute_dtype(compute_dtype)
     if h0.ecc:
         ps = _unarmor(hs, ps, fix_error)
     if h0.profile in (0, 4):
@@ -620,21 +645,29 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
 
     cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
     olap = n - cut
-    factor = profile1._scale_factor(profile1.DEPTHS[h0.bit_depth_index])
+    depths = models.BIT_DEPTHS[h0.profile]
+    factor = profile1._scale_factor(depths[h0.bit_depth_index])
 
-    fq, tq = _unpack_run(ps, n, ch)
+    fq, tq, lq = _unpack_run(ps, n, ch, h0.profile, dtype)
     fq = fq.reshape(run, n, ch)
     tq = tq.reshape(run, psycho.SUBBANDS, ch)
-    if float(np.abs(fq).max(initial=0.0)) <= 32767.0:
+    if dtype == "float32" and float(np.abs(fq).max(initial=0.0)) <= 32767.0:
         # EGR symbols are small exact integers: int16 halves the upload,
         # and the cast back on the device is exact
         fq = fq.astype(np.int16)
+    # the int16 emit is Profile 1's at float32; the JAX package fetches
+    # Profile 2's frames as floats
+    i16 = i16_transfer and dtype == "float32" and h0.profile == 1
 
-    out_d, frag_d = batch.p1_decode_oa_core(
-        policy.to_device(fq, device), policy.to_device(tq, device),
-        h0.srate, factor, olap, cut, i16_transfer)
+    fq_d, tq_d = policy.to_device(fq, device), policy.to_device(tq, device)
+    if h0.profile == 2:
+        out_d, frag_d = batch.p2_decode_oa_core(
+            fq_d, tq_d, policy.to_device(lq.reshape(run, profile2.ORDER1, ch), device),
+            h0.srate, factor, olap, cut, i16)
+    else:
+        out_d, frag_d = batch.p1_decode_oa_core(fq_d, tq_d, h0.srate, factor, olap, cut, i16)
     out_h, frag = policy.to_host(out_d, frag_d)
-    if i16_transfer:
+    if i16:
         out_h = (native.i16_to_f64(out_h) if native.enabled()
                  else out_h.astype(np.float64) / 32768.0)
     return out_h.reshape(-1, ch), frag.astype(np.float64)
@@ -651,7 +684,7 @@ def _emit_cut(h: ASFH) -> int:
 
 #: profiles `_decode_run` takes; a reserved profile streams through the
 #: Decoder, which decodes it as profile 0
-_BATCHABLE = (0, 1, 4)
+_BATCHABLE = (0, 1, 2, 4)
 
 
 def _reframe(a: ASFH, payload: bytes | None) -> bytes:
@@ -663,7 +696,7 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
                  compute_dtype: str | None = None, i16_transfer: bool = False,
                  i24_transfer: bool = False, return_remainder: bool = False,
                  device: str | torch.device | None = None):
-    """Decode a FrAD byte stream of profiles 0, 1 and 4 in batched mode.
+    """Decode a FrAD byte stream of profiles 0, 1, 2 and 4 in batched mode.
 
     Every uniform run (same profile/depth/channels/srate/fsize/overlap/
     ECC ratio) is decoded as one device call; the overlap fragment
@@ -673,9 +706,9 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
     (pcm [T, C], srate), or with `return_remainder` (pcm, srate,
     remainder) where `remainder` holds the frames after a mid-stream
     change of channel layout or sample rate, for another call.
-    `compute_dtype` (None: `policy.compute_dtype()`) is the lossless
-    transform's dtype; `i16_transfer` brings Profile 1's PCM back from the
-    device as int16 (x32768), `i24_transfer` Profile 0's at 24 bits and
+    `compute_dtype` (None: `policy.compute_dtype()`) is the transform's
+    dtype; `i16_transfer` brings Profile 1's PCM back from the
+    device as int16 (x32768) at float32, `i24_transfer` Profile 0's at 24 bits and
     float32 as int24 (x2^23). `device` defaults to CUDA and raises when
     none is present. A stream with no payload frame, an unparsable tail, a
     fragment longer than the next run's emit window (which needs a
@@ -685,7 +718,7 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
     """
     from ..decoder import Decoder
 
-    policy.check_compute_dtype(compute_dtype, 0)
+    policy.check_compute_dtype(compute_dtype)
     dev = policy.resolve_device(device)
     headers, payloads, tail_bytes = _parse_frames(stream)
     if not any(p is not None for p in payloads):
@@ -727,7 +760,6 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
             break
         if h0.profile not in _BATCHABLE:
             # a reserved profile, which the Decoder decodes as profile 0
-            # (or profile 2, which it refuses)
             stream_rest = True
             break
         key0 = _run_key(h0)

@@ -99,12 +99,17 @@ def payload_symbols(stream: bytes) -> list[np.ndarray]:
 
 
 def _jax_core(monkeypatch):
-    """Route the port's float32 encode core through the JAX package's."""
+    """Route the port's float32 encode cores through the JAX package's."""
     def f32_core(frames, srate, ll, factor):
         fq, tq = jbatch.p1_encode_core(frames.numpy(), srate, ll, factor)
         return torch.from_numpy(np.array(fq)), torch.from_numpy(np.array(tq))
 
+    def f32_core_p2(frames, srate, ll, factor):
+        return tuple(torch.from_numpy(np.array(a))
+                     for a in jbatch.p2_encode_core(frames.numpy(), srate, ll, factor))
+
     monkeypatch.setattr(tbatch, "p1_encode_core", f32_core)
+    monkeypatch.setattr(tbatch, "p2_encode_core", f32_core_p2)
 
 
 @pytest.fixture(scope="module")
@@ -435,11 +440,14 @@ def test_setters_and_ecc_messages_match_jax(monkeypatch, raw):
     assert t.set_profile(2, 44100, 2, 16, 2048) == j.set_profile(2, 44100, 2, 16, 2048)
     res = t.set_profile(0, 44100, 2, 16, 2048)
     assert isinstance(res, ft.EncodeResult) and t.get_profile() == 0
-    # Profile 1 at float64 is the one unported compute path of the Encoder
+    # Profile 1 at float64, per frame and micro-batched: the JAX Encoder's
+    # float64 bytes (float64 symbols sit far from the rint boundaries: no
+    # flip on this content)
     monkeypatch.setenv("FRAD_TORCH_COMPUTE_DTYPE", "float64")
+    monkeypatch.setenv("FRAD_TPU_COMPUTE_DTYPE", "float64")
+    jpolicy.compute_dtype.cache_clear()
     for chunk in (FRAME_BYTES_S16 // 2, len(raw)):
-        with pytest.raises(NotImplementedError, match="profile 1"):
-            encode_all(encoder(ft), raw, chunk)
+        assert encode_all(encoder(ft), raw, chunk) == encode_all(encoder(jf), raw, chunk)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ft.Encoder(1, 44100, 2, 16, 2048)
@@ -484,9 +492,16 @@ def test_encoder_jax_state_hand_over(monkeypatch, raw):
     enc = encoder(ft)
     enc.load_state_dict(state)
     assert out + enc.process(raw[20000:]).buf + enc.flush().buf == ref
+    # a state dict that names profile 2 loads and encodes, as in the JAX package
     state["profile"] = 2
-    with pytest.raises(NotImplementedError, match="profile 2"):
-        encoder(ft).load_state_dict(state)
+    jenc2, enc2 = encoder(jf), encoder(ft)
+    jenc2.load_state_dict(state)
+    enc2.load_state_dict(state)
+    want = jenc2.process(raw[20000:]).buf + jenc2.flush().buf
+    got = enc2.process(raw[20000:]).buf + enc2.flush().buf
+    assert got == want and enc2.get_profile() == 2
+    headers, payloads, _ = tpipeline._parse_frames(got)
+    assert {h.profile for h in headers} == {2} and sum(p is not None for p in payloads) > 4
 
 
 @pytest.mark.parametrize("cut", [2500, 4000, 7001])
@@ -519,16 +534,8 @@ def test_decoder_jax_state_hand_over(jax_stream, exact):
 
 
 # ----------------------------------------------------------------------
-# Adversarial input: only NotImplementedError for the unported profile 2
+# Adversarial input: no exception at all
 # ----------------------------------------------------------------------
-def _decode_or_unported(dec, stream: bytes, chunk: int):
-    try:
-        return decode_all(dec, stream, chunk)
-    except NotImplementedError as e:
-        assert "profile 2" in str(e)
-        return None
-
-
 def test_random_bytes_never_crash():
     r = np.random.default_rng(99)
     for _ in range(8):
@@ -556,8 +563,7 @@ def test_random_truncations_never_crash():
 @pytest.mark.parametrize("seed", [3, 4, 5])
 def test_bitflip_storm_never_crashes(seed):
     """1% of bytes flipped, beyond RS capacity: the decode ends with finite
-    output, or with NotImplementedError where a flipped header names an
-    unported profile."""
+    output, whatever profile a flipped header names."""
     raw = make_audio(0.3, 44100, 2).astype(">f8").tobytes()
     stream = bytearray(encode_all(encoder(ft, fmt="f64be", fsize=1024, ecc=(96, 24)),
                                   raw, 32768))
@@ -565,10 +571,8 @@ def test_bitflip_storm_never_crashes(seed):
     for off in r.integers(0, len(stream), size=len(stream) // 100):
         stream[int(off)] ^= int(r.integers(1, 256))
     for exact in (False, True):
-        got = _decode_or_unported(decoder(ft, fix_error=True, exact=exact), bytes(stream),
-                                  len(stream))
-        if got is not None:
-            assert np.all(np.isfinite(got))
+        got = decode_all(decoder(ft, fix_error=True, exact=exact), bytes(stream), len(stream))
+        assert np.all(np.isfinite(got))
 
 
 @pytest.mark.parametrize("host", ["native", "numpy"])
@@ -608,15 +612,24 @@ def test_corrupt_payloads_raise_nothing(monkeypatch, host):
 
 @pytest.mark.parametrize("exact", [False, True])
 def test_unported_profile_raises(monkeypatch, exact):
-    """Profile 2 frames, and Profile 1 frames at float64, raise."""
+    """The two paths that once raised NotImplementedError: Profile 2
+    frames decode as in the JAX package (float32, within 2e-6), and so do
+    Profile 1 and 2 frames at float64 (within 1e-9)."""
     audio = make_audio(0.1, 44100, 2)
-    p2 = jpipeline.batch_encode(audio, 2, 44100, 16, 1024)
-    with pytest.raises(NotImplementedError, match="profile 2"):
-        decode_all(decoder(ft, exact=exact), p2)
-    p1 = jpipeline.batch_encode(audio, 1, 44100, 16, 1024)
+    p2 = jpipeline.batch_encode(audio, 2, 44100, 16, 1024, compute_dtype="float32")
+    want = decode_all(decoder(jf, exact=exact), p2)
+    got = decode_all(decoder(ft, exact=exact), p2)
+    assert got.shape == want.shape and len(got) >= len(audio)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     monkeypatch.setenv("FRAD_TORCH_COMPUTE_DTYPE", "float64")
-    with pytest.raises(NotImplementedError, match="profile 1"):
-        decode_all(decoder(ft, exact=exact), p1)
+    monkeypatch.setenv("FRAD_TPU_COMPUTE_DTYPE", "float64")
+    jpolicy.compute_dtype.cache_clear()
+    for profile in (1, 2):
+        stream = jpipeline.batch_encode(audio, profile, 44100, 16, 1024)
+        want = decode_all(decoder(jf, exact=exact), stream)
+        got = decode_all(decoder(ft, exact=exact), stream)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
 
 # ----------------------------------------------------------------------

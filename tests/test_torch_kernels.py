@@ -129,16 +129,25 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
     with pytest.raises(ValueError):
         kernels.overlap_add(torch.empty((2, 2, 8), device="meta"),
                             torch.empty(2, device="meta"), 6, True)
-    assert kernels.power_quant.launches == 0 and kernels.overlap_add.launches == 0
+    with pytest.raises(ValueError):
+        kernels.power_quant(meta, None, FACTOR)
+    with pytest.raises(ValueError):
+        kernels.tns_iir(meta, torch.empty((4, 13), device="meta"))
+    with pytest.raises(ValueError):
+        kernels.tns_levinson(torch.empty((4, 13), device="meta"))
+    assert all(k.launches == 0 for k in kernels.KERNELS)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     path = build.library_path()
     assert path.parent.parent == build.BUILD_DIR and path.name == build.LIB_NAME
     assert {p.name for p in build.sources()} == {"power_quant.cu", "overlap_add.cu",
-                                                 "trunc_pack.cu", "trunc_unpack.cu"}
+                                                 "trunc_pack.cu", "trunc_unpack.cu",
+                                                 "tns_iir.cu", "tns_levinson.cu"}
     assert set(build.SIGNATURES) == {"frad_power_quant", "frad_overlap_add",
-                                     "frad_trunc_pack", "frad_trunc_unpack"}
+                                     "frad_trunc_pack", "frad_trunc_unpack",
+                                     "frad_tns_iir", "frad_tns_levinson"}
+    assert len(kernels.KERNELS) == len(build.SIGNATURES)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -192,7 +192,8 @@ def test_p1_unpack_batch_with_corrupt_payloads(numpy_path):
                  zlib.compress(b"\x00\x00", wbits=-15),               # too short
                  zlib.compress(b"\xff\xff\xff\xff\x00", wbits=-15)]   # thres_len past end
     n, ch = 1024, 2
-    got_fq, got_tq, ok = tnative.p1_unpack_batch(payloads, n * ch, 27 * ch)
+    got_fq, got_tq, no_lq, ok = tnative.p1_unpack_batch(payloads, n * ch, 27 * ch)
+    assert no_lq is None
     jfq, jtq, _, jok = jnative.p1_unpack_batch(payloads, n * ch, 27 * ch)
     np.testing.assert_array_equal(got_fq, jfq)
     np.testing.assert_array_equal(got_tq, jtq)
@@ -200,7 +201,7 @@ def test_p1_unpack_batch_with_corrupt_payloads(numpy_path):
     assert ok[:9].all() and not ok[9:13].any()
     assert not got_fq[~ok].any() and not got_tq[~ok].any()
     with numpy_path:
-        nfq, ntq = tpipeline._unpack_run(payloads, n, ch)
+        nfq, ntq, _ = tpipeline._unpack_run(payloads, n, ch, 1, "float32")
     np.testing.assert_array_equal(nfq, got_fq)
     np.testing.assert_array_equal(ntq, got_tq)
     np.testing.assert_array_equal(got_fq[0, :2048], fq[0])

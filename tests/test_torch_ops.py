@@ -150,13 +150,11 @@ def test_policy_device_and_dtype():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             policy.resolve_device(None)
-    with pytest.raises(NotImplementedError):
-        policy.check_compute_dtype("float64", 1)
     with pytest.raises(ValueError):
-        policy.check_compute_dtype("float16", 0)
-    assert policy.check_compute_dtype("float32", 1) == "float32"
-    assert policy.check_compute_dtype("float64", 0) == "float64"
-    assert policy.check_compute_dtype("float64", 4) == "float64"
+        policy.check_compute_dtype("float16")
+    assert policy.check_compute_dtype("float32") == "float32"
+    assert policy.check_compute_dtype("float64") == "float64"
+    assert policy.check_compute_dtype(None) == policy.compute_dtype()
     a = np.arange(6, dtype=np.int16).reshape(2, 3)
     t = policy.to_device(a, CPU)
     (back,) = policy.to_host(t)

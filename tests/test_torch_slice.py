@@ -163,19 +163,28 @@ def test_return_remainder_on_format_change(audio):
 
 
 def test_unported_paths_raise(audio):
-    """Profile 2 and Profile 1 at float64 raise; profile 0 is ported (its
-    stream decodes to the JAX decode within 1e-12 at float64)."""
+    """The paths that once raised NotImplementedError are ported: Profile
+    2, and Profile 1 at float64 (the JAX package's default off the TPU),
+    decode a JAX stream within 1e-9 at float64 and 2e-6 at float32, and
+    encode the JAX float64 stream byte for byte (float64 symbols sit far
+    from the rint boundaries on this content); profile 0 decodes to the
+    JAX decode within 1e-12 at float64."""
     small = audio[:6000]
-    with pytest.raises(NotImplementedError, match="profile 2"):
-        ft.batch_encode(small, 2, 44100, 16, 2048, device=CPU)
-    with pytest.raises(NotImplementedError, match="profile 1"):
-        ft.batch_encode(small, 1, 44100, 16, 2048, compute_dtype="float64", device=CPU)
-    ecc = jpipeline.batch_encode(small, 1, 44100, 16, 2048, enable_ecc=True)
-    with pytest.raises(NotImplementedError, match="profile 1"):
-        ft.batch_decode(ecc, compute_dtype="float64", device=CPU)
     p2 = jpipeline.batch_encode(small, 2, 44100, 16, 2048)
-    with pytest.raises(NotImplementedError, match="profile 2"):
-        ft.batch_decode(p2, device=CPU)
+    assert ft.batch_encode(small, 2, 44100, 16, 2048, compute_dtype="float64",
+                           device=CPU) == p2
+    p1 = jpipeline.batch_encode(small, 1, 44100, 16, 2048)
+    assert ft.batch_encode(small, 1, 44100, 16, 2048, compute_dtype="float64",
+                           device=CPU) == p1
+    ecc = jpipeline.batch_encode(small, 1, 44100, 16, 2048, enable_ecc=True)
+    for stream in (ecc, p2):
+        got, _ = ft.batch_decode(stream, compute_dtype="float64", device=CPU)
+        want, _ = jpipeline.batch_decode(stream)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    got, _ = ft.batch_decode(p2, device=CPU)
+    want, _ = jpipeline.batch_decode(p2, compute_dtype="float32")
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
     p0 = jpipeline.batch_encode(small, 0, 44100, 16, 2048)
     got, _ = ft.batch_decode(p0, compute_dtype="float64", device=CPU)
     want, _ = jpipeline.batch_decode(p0)

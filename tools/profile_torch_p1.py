@@ -4,6 +4,7 @@
     python3 tools/profile_torch_p1.py --lossless    # profiles 0 and 4
     python3 tools/profile_torch_p1.py --long        # Profile 1 at 8192 / 16384
     python3 tools/profile_torch_p1.py --ksplit      # the DCT GEMM's K cut
+    python3 tools/profile_torch_p1.py --p2          # Profile 2, and float64
 
 Profile 1: `chip_smoke.py`'s configuration (44.1 kHz stereo, 16-bit,
 2048-sample frames, overlap ratio 16, i16 upload and transfer) on
@@ -20,6 +21,11 @@ through `Encoder` and `Decoder` in 32 KiB pushes.
 
 `--long`: Profile 1 on the same 30 s at 8192-sample frames (the DCT GEMM
 cut along K) and at 16384 (the float32 FFT form), encode and decode.
+
+`--p2`: Profile 2 on the same 30 s and geometry: batch encode and
+decode, `Decoder` in 32 KiB pushes and in `exact` mode, and an `Encoder`
+whose loaded state names profile 2 in 32 KiB pushes; then profiles 1 and
+2 at `compute_dtype="float64"` on 5 s.
 
 After a warm-up of each call:
 
@@ -147,6 +153,46 @@ def long_calls(ft, torch, dev):
     return calls, tuple(calls)
 
 
+def p2_calls(ft, torch, dev):
+    """{name: (call, frames)} of the Profile 2 path and of the lossy
+    profiles at float64, and the traced names."""
+    from chip_smoke import (BITS, CHANNELS, F64_SECONDS, FSIZE, PUSH, SRATE, make_audio,
+                            stream_decode, to_s16le)
+    from frad_python_tpu_torch.parallel.pipeline import plan_frames
+
+    pcm = make_audio(SECONDS, SRATE, CHANNELS)
+    short = make_audio(F64_SECONDS, SRATE, CHANNELS)
+    n = len(plan_frames(len(pcm), FSIZE, 16, True)[0])
+    n64 = len(plan_frames(len(short), FSIZE, 16, True)[0])
+    stream = ft.batch_encode(pcm, 2, SRATE, BITS, FSIZE, device=dev)
+    raw = to_s16le(pcm)
+
+    def stream_encode_p2() -> bytes:
+        enc = ft.Encoder(1, SRATE, CHANNELS, BITS, FSIZE, "s16le", device=dev)
+        enc.set_overlap_ratio(16)
+        enc.load_state_dict(dict(enc.state_dict(), profile=2))
+        out = [enc.process(raw[i:i + PUSH]).buf for i in range(0, len(raw), PUSH)]
+        return b"".join(out) + enc.flush().buf
+
+    calls = {
+        "p2_enc": (lambda: ft.batch_encode(pcm, 2, SRATE, BITS, FSIZE, device=dev), n),
+        "p2_dec": (lambda: ft.batch_decode(stream, device=dev), n),
+        "p2_stream_enc": (stream_encode_p2, n),
+        "p2_stream_dec": (lambda: stream_decode(ft, torch, stream, PUSH, dev), n),
+        "p2_stream_dec_exact": (lambda: stream_decode(ft, torch, stream, PUSH, dev, exact=True),
+                                n),
+    }
+    for profile in (1, 2):
+        s64 = ft.batch_encode(short, profile, SRATE, BITS, FSIZE, compute_dtype="float64",
+                              device=dev)
+        calls[f"p{profile}_f64_enc"] = (lambda p=profile: ft.batch_encode(
+            short, p, SRATE, BITS, FSIZE, compute_dtype="float64", device=dev), n64)
+        calls[f"p{profile}_f64_dec"] = (lambda s=s64: ft.batch_decode(
+            s, compute_dtype="float64", device=dev), n64)
+    return calls, ("p2_enc", "p2_dec", "p2_stream_enc", "p2_stream_dec", "p2_f64_enc",
+                   "p2_f64_dec")
+
+
 def ksplit_probe(ft, torch, dev) -> None:
     """See the module docstring (`--ksplit`)."""
     import numpy as np
@@ -220,7 +266,7 @@ def main() -> int:
     if "--ksplit" in sys.argv[1:]:
         ksplit_probe(ft, torch, dev)
         return 0
-    mode = {"--lossless": lossless_calls, "--long": long_calls}
+    mode = {"--lossless": lossless_calls, "--long": long_calls, "--p2": p2_calls}
     calls, traced = next((fn for flag, fn in mode.items() if flag in sys.argv[1:]),
                          p1_calls)(ft, torch, dev)
     for fn, _ in calls.values():             # first-use set-up outside the timing
