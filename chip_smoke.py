@@ -32,7 +32,15 @@ float64 and no-divisor forms of `power_quant` and the float64 form of
 shape, dtype or option that was not held so); the track as profile 2 through `batch_encode` /
 `batch_decode` (the card's stream decoded again on the CPU) and through
 `Decoder` in 32 KiB pushes; and 5 s of it as profiles 1 and 2 at
-`compute_dtype="float64"`.
+`compute_dtype="float64"`. `egr_pack` and `dequant` are held against
+their plain versions first, at every shape, dtype and option that any of
+these runs launches them at (a tally over all the runs fails the script on
+a form that was not held). Last, the command-line phase: the track as an
+s16le file through `frad_python_tpu_torch.app.main` on the card: `encode`
+(the file must be the metadata header plus `batch_encode`'s bytes),
+`decode`, `--no-turbo` through the engines, profile 0 at 24 bits, `repair`
+of a damaged armored file, the `meta` actions, and one
+`python3 -m frad_python_tpu_torch encode` subprocess.
 Every phase prints one line; any failure exits non-zero. The
 second-to-last line is a JSON object with one entry per kernel, the last
 line `{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++,
@@ -42,10 +50,14 @@ nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -109,7 +121,9 @@ P2_OVERLAP_FORMS = (
 #: the card's memory rate and float32 / float64 peak (NVIDIA H100 SXM data
 #: sheet), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# the data sheet gives no rate for 32-bit integer operations outside the
+# tensor cores: the float32 rate of the same units stands in as their ceiling
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "int32": 67e12}
 
 #: SNR floor of the lossless p0_stereo_44k1 run (24-bit, float32 fast
 #: path): the JAX package's float32 SNR on this content, 97.5471 dB on the
@@ -156,9 +170,9 @@ OLAP, CUT = 128, 1920
 ECC_RATIO = (96, 24)
 DEVICE = "cuda"
 #: the kernels of the Profile 1 paths
-P1_KERNELS = ("power_quant", "overlap_add")
+P1_KERNELS = ("power_quant", "overlap_add", "egr_pack", "dequant")
 #: the kernels of the Profile 2 paths
-P2_KERNELS = P1_KERNELS + ("tns_iir", "tns_levinson")
+P2_KERNELS = ("power_quant", "overlap_add", "dequant", "tns_iir", "tns_levinson")
 # the streaming engines' shapes: one frame per call on the per-frame path,
 # 2..256 frames per micro-batch; the decoder's micro-batches emit float32
 STREAM_POWER_QUANT_SHAPES = ((2, 2048), (512, 2048))
@@ -170,6 +184,41 @@ PUSH = 32768
 STREAM_VS_BATCH_MAX_ABS = 2e-6
 
 
+#: egr_pack's forms, (rows, symbols a row): the batch encode's 688 uniform
+#: frames (a tail frame is one row and takes the host coder) and the 1 s
+#: warm-up's 22, the engines' micro-batches (2 and 4 frames in 32 KiB
+#: pushes; 256, 128, 32 and 16 in one deep push or an 8 MiB read), and
+#: Profile 1's uniform frames at 8192 and 16384 samples with their
+#: warm-ups' 4; max_words is symbols * 12 // 32
+EGR_FORMS = ((688, 4096), (2, 4096), (4, 4096), (16, 4096), (22, 4096), (32, 4096),
+             (128, 4096), (256, 4096), (172, 16384), (4, 16384), (86, 32768), (4, 32768))
+#: dequant's forms, (symbol dtype, [B, N, C], with a divisor): Profile 1
+#: has a divisor, Profile 2 none. int16 symbols in batches, runs and
+#: micro-batches (689 frames, the warm-ups' 23, runs of 1, 2, 4 and 8; at
+#: 8192 samples 172 and the 6144-sample tail frame, at 16384 samples 86,
+#: and the warm-ups' 4 and 5), float32 on the per-frame path (one frame),
+#: float64 at compute_dtype="float64" (the F64_SECONDS track's 114 uniform
+#: frames and its tail frame padded to 1792 samples)
+DEQUANT_FORMS = (
+    ("int16", (689, 2048, 2), True), ("int16", (1, 2048, 2), True),
+    ("int16", (2, 2048, 2), True), ("int16", (4, 2048, 2), True),
+    ("int16", (8, 2048, 2), True), ("int16", (23, 2048, 2), True),
+    ("float32", (1, 2048, 2), True), ("int16", (172, 8192, 2), True),
+    ("int16", (1, 6144, 2), True), ("int16", (4, 8192, 2), True),
+    ("int16", (86, 16384, 2), True), ("int16", (5, 16384, 2), True),
+    ("int16", (689, 2048, 2), False), ("int16", (2, 2048, 2), False),
+    ("int16", (4, 2048, 2), False), ("int16", (8, 2048, 2), False),
+    ("int16", (23, 2048, 2), False), ("float32", (1, 2048, 2), False),
+    ("float64", (114, 2048, 2), True), ("float64", (1, 1792, 2), True),
+    ("float64", (114, 2048, 2), False), ("float64", (1, 1792, 2), False))
+#: the command-line phase: the track as an s16le file. Profile 1 at the
+#: CLI's default loss level, decoded to s16le: the JAX package's float32
+#: SNR there, 17.6704 dB on the CPU, minus 0.1 dB; profile 0 at 24 bits
+#: decoded to f64be, against the file's samples: 97.5227 dB minus 0.1 dB
+#: (tests/test_torch_app_floors.py measures both)
+CLI_P1_SNR_FLOOR_DB = 17.570
+CLI_P0_SNR_FLOOR_DB = 97.423
+
 #: every form (`kernel_form`) at which a kernel was held against its plain
 #: version in this run
 CHECKED: set[tuple] = set()
@@ -178,13 +227,18 @@ CHECKED: set[tuple] = set()
 def kernel_form(name: str, *args) -> tuple:
     """What tells one launch of a kernel from another of another form: the
     wrapper's name, its first tensor's shape and dtype, and for power_quant
-    whether it has a divisor, for overlap_add the overlap, cut and emit."""
+    and dequant whether it has a divisor, for overlap_add the overlap, cut
+    and emit, for egr_pack max_words."""
     x = args[0]
     form = (name, tuple(x.shape), str(x.dtype).removeprefix("torch."))
     if name == "power_quant":
         return form + (args[1] is not None,)
     if name == "overlap_add":
         return form + (int(args[1].numel()), int(args[2]), bool(args[3]))
+    if name == "egr_pack":
+        return form + (int(args[1]),)
+    if name == "dequant":
+        return form + (args[1] is not None,)
     return form
 
 
@@ -203,22 +257,35 @@ class FormTally:
     counted over its `with` blocks by wrapping the names the modules hold
     them under."""
 
-    def __init__(self):
+    def __init__(self, only: tuple[str, ...] | None = None, device_type: str = "cuda"):
+        """`only`: the wrappers to count (None: all). `device_type`: where
+        a call's first tensor must lie to count: "cuda" counts launches and
+        leaves the plain versions' calls out, "cpu" serves the CPU tests."""
         from frad_python_tpu_torch.models import batch
         from frad_python_tpu_torch.ops import tns
+        from frad_python_tpu_torch.parallel import pipeline
 
-        self.targets = [(batch, "power_quant"), (batch, "overlap_add"),
-                        (tns, "tns_iir"), (tns, "tns_levinson")]
+        self.targets = [(mod, name) for mod, name in (
+            (batch, "power_quant"), (batch, "overlap_add"), (tns, "tns_iir"),
+            (tns, "tns_levinson"), (pipeline, "egr_pack"), (batch, "dequant"))
+            if only is None or name in only]
+        self.device_type = device_type
         self.seen: dict[tuple, int] = {}
+        #: words of the compacted streams that egr_pack returned
+        self.egr_words = 0
 
     def __enter__(self):
         self.saved = [getattr(mod, name) for mod, name in self.targets]
 
         def wrap(fn, name):
             def counted(*args):
-                form = kernel_form(name, *args)
-                self.seen[form] = self.seen.get(form, 0) + 1
-                return fn(*args)
+                out = fn(*args)
+                if args[0].device.type == self.device_type:
+                    form = kernel_form(name, *args)
+                    self.seen[form] = self.seen.get(form, 0) + 1
+                    if name == "egr_pack":
+                        self.egr_words += int(out[0].numel())
+                return out
             return counted
 
         for (mod, name), fn in zip(self.targets, self.saved):
@@ -233,6 +300,11 @@ class FormTally:
         """The forms launched in the block that no check of this run held
         against a plain version."""
         return sorted((f for f in self.seen if f not in CHECKED), key=str)
+
+    def require_held(self, what: str) -> None:
+        if self.unchecked():
+            raise AssertionError(f"{what} launched kernels at forms that no check held "
+                                 f"against a plain version: {self.unchecked()}")
 
 
 def make_audio(seconds: float, srate: int, ch: int) -> np.ndarray:
@@ -909,6 +981,107 @@ def check_tns_kernels(torch, kernels, dev) -> dict:
     return res
 
 
+def egr_inputs(rows: int, m: int, seed: int) -> np.ndarray:
+    """[rows, m] int32 symbol frames: Laplace rows of several scales, with
+    a row of zeros (k = 0, every code one bit), a row whose only non-zero
+    symbol is 1, the extremes -2^23 and 2^23 - 1, and from three rows on a
+    row of wide symbols that overflows max_words in the middle."""
+    rng = np.random.default_rng(seed)
+    s = np.rint(rng.laplace(0, 1, (rows, m)) * np.exp(rng.standard_normal((rows, 1)) * 1.5 + 1))
+    s[0] = 0
+    s[1] = 0
+    s[1, m // 3] = 1
+    if rows > 2:
+        s[2] = rng.integers(-(1 << 22), 1 << 22, m)
+        s[-1, 0], s[-1, -1] = -(1 << 23), (1 << 23) - 1
+    return s.astype(np.int32)
+
+
+def check_egr_dequant(torch, kernels, dev) -> dict:
+    """egr_pack at EGR_FORMS and dequant at DEQUANT_FORMS against their
+    plain versions on the card. egr_pack: the compacted words, used,
+    total_bits, k and overflow equal on every row, the padded words on
+    every row that does not overflow. dequant: equal bit for bit; were it
+    not, the count of differing elements and their distance in ulps is
+    printed before the failure. CUDA-event times of both at the main
+    path's forms, a call of each there (`thunks`), and each one's bound
+    from the sizes of those inputs."""
+    res = {"egr_err": 0, "deq_err": 0.0, "thunks": {}, "bounds": {}}
+    for fi, (rows, m) in enumerate(EGR_FORMS):
+        max_words = max(m * 12 // 32, 16)
+        sym = torch.from_numpy(egr_inputs(rows, m, 500 + fi)).to(dev)
+        got, want = held(kernels, "egr_pack", sym, max_words)
+        got_w = kernels.egr_pack(sym, max_words, True)[5]
+        want_w = kernels.egr_pack_plain(sym, max_words, True)[5]
+        torch.cuda.synchronize()
+        keep = want[4] == 0
+        names = ("flat", "used", "total_bits", "k", "overflow")
+        bad = [n for n, g, w in zip(names, got, want)
+               if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w)]
+        if not torch.equal(got_w[keep], want_w[keep]):
+            bad.append("words")
+        if bad or (rows > 2 and int(want[4][2]) != 1) or bool(want[4][:2].any()):
+            res["egr_err"] = 1
+            raise AssertionError(f"egr_pack {(rows, m)} differs from its plain version in "
+                                 f"{bad}; overflow rows {int((~keep).sum())}")
+        if fi == 0:
+            res["egr_ms"] = cuda_ms(torch, lambda: kernels.egr_pack(sym, max_words))
+            res["egr_plain_ms"] = cuda_ms(torch, lambda: kernels.egr_pack_plain(sym, max_words),
+                                          5, 5)
+            res["thunks"]["egr_"] = lambda sym=sym, mw=max_words: kernels.egr_pack(sym, mw)
+            nbytes = sym.numel() * 4 + got[0].numel() * 4 + 4 * rows * 4
+            res["bounds"]["egr_pack"] = bound(nbytes, sym.numel() * 14, "int32")
+            res["egr_words"] = int(got[0].numel())
+        elif (rows, m) == (4, 4096):
+            res["egr_ms_4"] = cuda_ms(torch, lambda: kernels.egr_pack(sym, max_words))
+            res["egr_plain_ms_4"] = cuda_ms(
+                torch, lambda: kernels.egr_pack_plain(sym, max_words), 5, 5)
+    print(f"kernel egr_pack at {list(EGR_FORMS)} (zero, dmax = 1, extreme and overflowing rows "
+          f"in each): equal to plain word for word; {EGR_FORMS[0]} {res['egr_ms']:.4f} ms vs "
+          f"plain {res['egr_plain_ms']:.4f} ms ({res['egr_words']} words compacted: "
+          f"{res['egr_words'] * 4} bytes to copy back as int32, {res['egr_words'] * 8} as the "
+          f"plain version's int64); (4, 4096) {res['egr_ms_4']:.4f} vs "
+          f"{res['egr_plain_ms_4']:.4f} ms")
+
+    rng = np.random.default_rng(600)
+    edges = [0, -0.0, 1, -1, 2, -3, 32767, -32768]
+    for fi, (dtype, shape, with_div) in enumerate(DEQUANT_FORMS):
+        b, n, c = shape
+        compute = "float64" if dtype == "float64" else "float32"
+        sym = np.rint(rng.laplace(0, 20, shape))
+        sym[0, :len(edges), 0] = edges
+        div = np.exp(rng.standard_normal((b, c, n)) * 2.0) * 0.1
+        div[:, :, -n // 16:] = 0.0
+        s_d = torch.from_numpy(sym.astype(dtype)).to(dev)
+        d_d = torch.from_numpy(div.astype(compute)).to(dev) if with_div else None
+        for factor in (2.0 ** 15, 2.0 ** 23):
+            (got,), (want,) = held(kernels, "dequant", s_d, d_d, factor)
+            torch.cuda.synchronize()
+            if not bits_equal(torch, got, want.contiguous()):
+                it = torch.int64 if compute == "float64" else torch.int32
+                d = (got.view(it).to(torch.int64)
+                     - want.contiguous().view(it).to(torch.int64)).abs()
+                res["deq_err"] = float((got - want).abs().nan_to_num(float("inf")).max())
+                raise AssertionError(
+                    f"dequant {dtype} {shape} divisor={with_div} factor={factor} differs from "
+                    f"its plain version in {int((d != 0).sum())} of {got.numel()} elements, "
+                    f"by at most {int(d.max())} ulp (max |d| {res['deq_err']})")
+        if fi == 0 or (dtype, shape) == ("int16", (4, 2048, 2)) and with_div:
+            key = "deq" if fi == 0 else "deq_4"
+            res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.dequant(s_d, d_d, 2.0 ** 15))
+            res[f"{key}_plain_ms"] = cuda_ms(
+                torch, lambda: kernels.dequant_plain(s_d, d_d, 2.0 ** 15))
+        if fi == 0:
+            res["thunks"]["dequant_kernel"] = lambda s=s_d, d=d_d: kernels.dequant(s, d, 2.0 ** 15)
+            n_el = s_d.numel()
+            res["bounds"]["dequant"] = bound(n_el * (2 + 4 + 4), n_el * 40)
+    print(f"kernel dequant at {len(DEQUANT_FORMS)} forms {list(DEQUANT_FORMS)}, factors 2^15 "
+          f"and 2^23 (zeros, signs and the int16 extremes in each): equal to plain bit for "
+          f"bit; {DEQUANT_FORMS[0]} {res['deq_ms']:.4f} ms vs plain {res['deq_plain_ms']:.4f} "
+          f"ms; (4, 2048, 2) {res['deq_4_ms']:.4f} vs {res['deq_4_plain_ms']:.4f} ms")
+    return res
+
+
 def tns_lane_share(stream: bytes) -> tuple[int, int]:
     """(lanes with a non-zero LPC row, lanes) over the Profile 2 payloads."""
     from frad_python_tpu_torch.models import profile2
@@ -1045,7 +1218,8 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
         differ = sum(a != b for a, b in zip(_parse_frames(s64)[1], _parse_frames(s_cpu)[1]))
         d64 = float(np.abs(o_cpu - o64).max()) if o_cpu.shape == o64.shape else float("inf")
         snr64 = snr_db(short, o64)
-        need = P2_KERNELS if profile == 2 else P1_KERNELS
+        # float64 symbols are int64 and take the host EGR coder: no egr_pack
+        need = P2_KERNELS if profile == 2 else tuple(k for k in P1_KERNELS if k != "egr_pack")
         if d64 > F64_LOSSY_CARD_VS_CPU_MAX_ABS or snr64 < F64_SNR_FLOOR_DB[profile] \
                 or min(l64[k] for k in need) <= 0:
             raise AssertionError(f"profile {profile} float64: card vs cpu decode {d64}, SNR "
@@ -1055,22 +1229,177 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
               f"dec {t_d:.3f} s, SNR {snr64:.4f} dB (floor {F64_SNR_FLOOR_DB[profile]}), "
               f"payloads differing from the CPU stream {differ} of {n64}, card vs cpu decode "
               f"max|d| {d64} (tolerance {F64_LOSSY_CARD_VS_CPU_MAX_ABS}), launches {l64}")
-    if forms.unchecked():
-        raise AssertionError(f"the Profile 2 and float64 runs launched kernels at forms that no "
-                             f"check held against a plain version: {forms.unchecked()}")
+    forms.require_held("the Profile 2 and float64 runs")
     print(f"forms launched by the Profile 2 and float64 runs, each held against its plain "
           f"version above (form: launches): "
           + ", ".join(f"{f}: {c}" for f, c in sorted(forms.seen.items(), key=str)))
     return res
 
 
-def kernel_yardsticks(torch, thunks: dict) -> dict:
-    """For the six kernels at their main-path shapes (float32): the device
+def cli_phase(ft, torch, kernels, dev, pcm: np.ndarray, smi: str) -> dict:
+    """The command line on the card, in a temporary directory: every
+    action through `app.main.main` with no `--device` (CUDA), and one
+    `python3 -m frad_python_tpu_torch encode` subprocess. Returns the walls
+    per action."""
+    from frad_python_tpu_torch.app.encode import loss_level_from_cli
+    from frad_python_tpu_torch.app.main import main as cli_main
+    from frad_python_tpu_torch.container import head
+    from frad_python_tpu_torch.ops.pcm import to_f64
+    from frad_python_tpu_torch.utils.damage import damage_stream
+
+    repo = Path(__file__).resolve().parent
+    png = b"\x89PNG\r\n\x1a\n" + bytes(range(256)) * 8
+    raw = to_s16le(pcm)
+    s16 = np.dtype("<i2")
+    content = to_f64(np.frombuffer(raw, s16).reshape(-1, CHANNELS), s16)
+    geometry = ["--srate", str(SRATE), "--ch", str(CHANNELS), "--pcm", "s16le",
+                "--bits", str(BITS), "--fr", str(FSIZE)]
+    walls = {}
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)                    # `meta parse` exports beside the working directory
+        try:
+            Path("track.pcm").write_bytes(raw)
+            Path("cover.png").write_bytes(png)
+
+            def run(name: str, argv: list[str]) -> None:
+                _, walls[name] = timed(torch, lambda: cli_main(["frad-torch"] + argv))
+
+            def read_s16(path: str) -> np.ndarray:
+                return np.frombuffer(Path(path).read_bytes(), s16).reshape(-1, CHANNELS) / 32768.0
+
+            # Profile 1: encode (batch path), the file's bytes, decode
+            kernels.reset_launches()
+            run("encode", ["encode", "track.pcm", "--profile", "1", "--tag", "TITLE", "smoke",
+                           "--img", "cover.png", "-o", "track.frad", "-y"] + geometry)
+            run("decode", ["decode", "track.frad", "--pcm", "s16le", "-o", "back", "-y"])
+            launches = {k.__name__: k.launches for k in kernels.KERNELS}
+            header = head.builder([("TITLE", b"smoke")], png)
+            stream = ft.batch_encode(content, 1, SRATE, BITS, FSIZE,
+                                     loss_level=loss_level_from_cli(0), device=dev)
+            file = Path("track.frad").read_bytes()
+            if file != header + stream:
+                raise AssertionError("cli encode: the file is not head.builder(...) + the bytes "
+                                     "of batch_encode on the same input")
+            out, _ = ft.batch_decode(stream, device=dev)
+            want = np.frombuffer(
+                (np.asarray(out) * 32768.0).astype(s16).tobytes(), s16).reshape(-1, CHANNELS)
+            back = read_s16("back.pcm")
+            snr = snr_db(pcm, back)
+            if not np.array_equal(back * 32768.0, want) or snr < CLI_P1_SNR_FLOOR_DB:
+                raise AssertionError(f"cli decode: PCM differs from batch_decode's through the "
+                                     f"same cast, or SNR {snr:.4f} dB below {CLI_P1_SNR_FLOOR_DB}")
+            for name in P1_KERNELS:
+                if launches[name] <= 0:
+                    raise AssertionError(f"kernel {name} was not launched by the cli's encode "
+                                         f"and decode: {launches}")
+
+            # the engines: --no-turbo encode, and a decode fed in the pipe's reads
+            kernels.reset_launches()
+            run("encode_no_turbo", ["encode", "track.pcm", "--profile", "1", "--no-turbo",
+                                    "-o", "engine.frad", "-y"] + geometry)
+
+            class Pipe:
+                def __init__(self, data: bytes = b""):
+                    self.buffer = io.BytesIO(data)
+
+                def isatty(self) -> bool:
+                    return False
+
+            stdin, stdout = sys.stdin, sys.stdout
+            piped = Pipe()
+            sys.stdin, sys.stdout = Pipe(Path("engine.frad").read_bytes()), piped
+            try:
+                run("decode_pipe", ["decode", "-", "--pcm", "s16le", "-o", "-"])
+            finally:
+                sys.stdin, sys.stdout = stdin, stdout
+            l_engine = {k.__name__: k.launches for k in kernels.KERNELS}
+            back_e = np.frombuffer(piped.buffer.getvalue(), s16).reshape(-1, CHANNELS) / 32768.0
+            snr_e = snr_db(pcm, back_e)
+            if len(back_e) != len(back) or snr_e < CLI_P1_SNR_FLOOR_DB \
+                    or min(l_engine[k] for k in P1_KERNELS) <= 0:
+                raise AssertionError(f"cli engines: {len(back_e)} samples, SNR {snr_e:.4f} dB, "
+                                     f"launches {l_engine}")
+
+            # profile 0 at 24 bits
+            run("encode_p0", ["encode", "track.pcm", "--profile", "0", "-o", "p0.frad", "-y"]
+                + geometry[:6] + ["--bits", str(P0_BITS), "--fr", str(FSIZE)])
+            run("decode_p0", ["decode", "p0.frad", "--pcm", "f64le", "-o", "p0back", "-y"])
+            back0 = np.frombuffer(Path("p0back.pcm").read_bytes(), "<f8").reshape(-1, CHANNELS)
+            snr0 = snr_db(content, back0)
+            if back0.shape != content.shape or snr0 < CLI_P0_SNR_FLOOR_DB:
+                raise AssertionError(f"cli profile 0: {back0.shape}, SNR {snr0:.4f} dB below "
+                                     f"{CLI_P0_SNR_FLOOR_DB}")
+
+            # repair of a damaged armored file
+            run("encode_ecc", ["encode", "track.pcm", "--profile", "1", "--ecc",
+                               str(ECC_RATIO[0]), str(ECC_RATIO[1]), "-o", "armored.frad", "-y"]
+                + geometry)
+            armored = Path("armored.frad").read_bytes()
+            n_head = len(head.builder([], b""))
+            Path("damaged.frad").write_bytes(armored[:n_head] + damage_stream(armored[n_head:]))
+            run("repair", ["repair", "damaged.frad", "--ecc", str(ECC_RATIO[0]),
+                           str(ECC_RATIO[1]), "-o", "repaired.frad", "-y"])
+            if Path("damaged.frad").read_bytes() == armored \
+                    or Path("repaired.frad").read_bytes() != armored:
+                raise AssertionError("cli repair of the damaged armored file differs from the "
+                                     "armored file")
+
+            # meta: add, parse, remove
+            run("meta_add", ["meta", "add", "track.frad", "--meta", "ARTIST", "chip"])
+            run("meta_parse", ["meta", "parse", "track.frad"])
+            keys = [m["key"] for m in json.loads(Path("track.json").read_text())]
+            run("meta_remove", ["meta", "remove", "track.frad", "--meta", "TITLE"])
+            cli_main(["frad-torch", "meta", "parse", "track.frad"])
+            keys2 = [m["key"] for m in json.loads(Path("track.json").read_text())]
+            after = Path("track.frad").read_bytes()
+            if keys != ["TITLE", "ARTIST"] or keys2 != ["ARTIST"] \
+                    or Path("track.png").read_bytes() != png \
+                    or after != head.builder([("ARTIST", b"chip")], png) + stream:
+                raise AssertionError(f"cli meta: keys {keys} then {keys2}, or the audio moved")
+
+            # the real entry point: a process of its own, the build at first
+            # use (cached from this run), its exit code
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "frad_python_tpu_torch", "encode", "track.pcm",
+                 "--profile", "1", "--tag", "TITLE", "smoke", "--img", "cover.png", "-o",
+                 "sub.frad", "-y", "--log", "1"] + geometry,
+                env=dict(os.environ, PYTHONPATH=str(repo)), capture_output=True, text=True,
+                timeout=600)
+            walls["subprocess_encode"] = time.perf_counter() - t0
+            if res.returncode != 0 or Path("sub.frad").read_bytes() != file \
+                    or "size=" not in res.stderr:
+                raise AssertionError(f"python3 -m frad_python_tpu_torch encode: exit code "
+                                     f"{res.returncode}, or another file than in process:\n"
+                                     f"{res.stderr[-2000:]}")
+        finally:
+            os.chdir(here)
+    n = len(_frames_of(pcm))
+    print(f"cli ({smi}): " + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items())
+          + f"; encode = header + batch_encode's bytes ({len(file)} bytes, {n} frames), decode "
+          f"= batch_decode's PCM, SNR {snr:.4f} dB (floor {CLI_P1_SNR_FLOOR_DB}); engines SNR "
+          f"{snr_e:.4f} dB; profile 0 {P0_BITS}-bit SNR {snr0:.4f} dB (floor "
+          f"{CLI_P0_SNR_FLOOR_DB}); repair equal to the armored file; meta {keys} -> {keys2}; "
+          f"subprocess equal to the in-process file; launches encode + decode {launches}, "
+          f"engines {l_engine}")
+    return walls
+
+
+def _frames_of(pcm: np.ndarray) -> list:
+    from frad_python_tpu_torch.parallel.pipeline import plan_frames
+    return plan_frames(len(pcm), FSIZE, 16, True)[0]
+
+
+def kernel_yardsticks(torch, thunks: dict, more_bounds: dict) -> dict:
+    """For the eight kernels at their main-path shapes (float32): the device
     time of one launch of each on its check's inputs (`thunks`, {kernel
-    function name: call}) from one `torch.profiler` call, and each
-    kernel's bound from the bytes it must move and the operations it
-    does."""
+    function name: call}; `egr_` sums egr_pack's three kernels) from one
+    `torch.profiler` call, and each kernel's bound from the bytes it must
+    move and the operations it does (`more_bounds`: those worked out
+    beside the checks)."""
     device_ms = profiled_device_ms(torch, thunks)
+    device_ms = {("egr_pack_kernel" if k == "egr_" else k): v for k, v in device_ms.items()}
     b, c, nn = OVERLAP_SHAPE
     tb, tc, tn = TRUNC_SHAPES[0]
     lanes, n = TNS_SHAPES["float32"][0]
@@ -1084,6 +1413,7 @@ def kernel_yardsticks(torch, thunks: dict) -> dict:
         "trunc_unpack": bound(tr_n * P0_BITS // 8 + tr_n * 4, tr_n),
         "tns_iir": bound(2 * lanes * n * 4 + lanes * 13 * 4, lanes * n * 25),
         "tns_levinson": bound(2 * lanes * 13 * 4, lanes * 360),
+        **more_bounds,
     }
     print("device time of one launch each on its check's inputs, not the runs' data, one "
           "torch.profiler call (ms): "
@@ -1177,6 +1507,12 @@ def main() -> int:
         print(f"kernel overlap_add {OVERLAP_SHAPE} i16={i16}: equal, max|d| {err}, "
               f"{oa[i16][0]:.4f} ms vs plain {oa[i16][1]:.4f} ms")
 
+    # 3b. egr_pack and dequant at every form the runs below launch them at;
+    # from here to the end a tally of their launches holds the runs to that
+    new = check_egr_dequant(torch, kernels, dev)
+    tally_stack = contextlib.ExitStack()
+    new_forms = tally_stack.enter_context(FormTally(only=("egr_pack", "dequant")))
+
     # 4. the slice end to end on the card
     pcm = make_audio(SECONDS, SRATE, CHANNELS)
     warm = make_audio(1.0, SRATE, CHANNELS)          # first-use set-up outside the timing
@@ -1186,6 +1522,7 @@ def main() -> int:
 
     kernels.reset_launches()
     native.reset_calls()
+    egr_words_before = new_forms.egr_words
     t0 = time.perf_counter()
     stream = ft.batch_encode(pcm, 1, SRATE, BITS, FSIZE, i16_upload=True, device=dev)
     torch.cuda.synchronize()
@@ -1196,6 +1533,7 @@ def main() -> int:
     t_dec = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     calls = {w.__name__: w.calls for w in native.WRAPPERS}
+    main_egr_words = new_forms.egr_words - egr_words_before
 
     frames, terms = plan_frames(len(pcm), FSIZE, 16, True)
     headers, payloads, tail = _parse_frames(stream)
@@ -1223,7 +1561,8 @@ def main() -> int:
           f"{out.shape[0]} samples, SNR {snr:.4f} dB (floor {SNR_FLOOR_DB}), "
           f"enc {len(frames) / t_enc:.1f} frames/s ({t_enc:.3f} s), "
           f"dec {len(frames) / t_dec:.1f} frames/s ({t_dec:.3f} s), launches {launches}, "
-          f"native calls {calls}")
+          f"native calls {calls}; egr_pack's compacted words copied back: {main_egr_words} "
+          f"({main_egr_words * 4} bytes as int32)")
 
     # 5. the card's stream decoded on the CPU (plain versions)
     out_cpu, _ = ft.batch_decode(stream, i16_transfer=True, device="cpu")
@@ -1387,15 +1726,24 @@ def main() -> int:
     p2 = tns_phase(ft, torch, kernels, native, dev)
     tns_lanes = TNS_SHAPES["float32"][0][0]
     big = p2[(tns_lanes, "float32")]
+
+    # 10. the command line, then the tally of egr_pack's and dequant's forms
+    cli_phase(ft, torch, kernels, dev, pcm, smi)
+    tally_stack.close()
+    new_forms.require_held("the runs")
+    print("forms at which the runs launched egr_pack and dequant, each held against its plain "
+          "version above (form: launches): "
+          + ", ".join(f"{f}: {c}" for f, c in sorted(new_forms.seen.items(), key=str)))
+
     yards = kernel_yardsticks(torch, {
         "power_quant_kernel": lambda: kernels.power_quant(f_d, d_d, factor),
         "overlap_add_kernel": lambda: kernels.overlap_add(pcm_k, w, CUT, True),
-        **lossless["thunks"], **p2["thunks"]})
+        **lossless["thunks"], **p2["thunks"], **new["thunks"]}, new["bounds"])
 
     def yard(name: str) -> dict:
         """The keys every kernel's entry carries beside its own times:
         its bound, `library_ms` (no single PyTorch call computes any of the
-        six functions), `device_ms_synthetic` (one launch on the check's
+        eight functions), `device_ms_synthetic` (one launch on the check's
         inputs under the profiler, not the runs' data), and for the four
         kernels of the Profile 2 path their launches there."""
         out = {"bound_ms": yards["bounds"][name][0], "bound_by": yards["bounds"][name][1],
@@ -1454,6 +1802,21 @@ def main() -> int:
          "ms": big["lev"], "plain_ms": big["lev_plain"],
          "ms_f64": p2[(tns_lanes, "float64")]["lev"],
          "ms_8_lanes": p2[(8, "float32")]["lev"], **yard("tns_levinson")},
+        {"name": "egr_pack", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/egr_pack.cu",
+         "replaces": "frad_python_tpu/ops/bitpack.py:34",
+         "launches": launches["egr_pack"], "max_abs_err": new["egr_err"],
+         "ms": new["egr_ms"], "plain_ms": new["egr_plain_ms"],
+         "ms_4_rows": new["egr_ms_4"], "plain_ms_4_rows": new["egr_plain_ms_4"],
+         "streaming_launches": stream_launches["egr_pack"],
+         "words_copied_back": main_egr_words, **yard("egr_pack")},
+        {"name": "dequant", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/dequant.cu",
+         "replaces": "frad_python_tpu/models/batch.py:350",
+         "launches": launches["dequant"], "max_abs_err": new["deq_err"],
+         "ms": new["deq_ms"], "plain_ms": new["deq_plain_ms"],
+         "ms_4_frames": new["deq_4_ms"], "plain_ms_4_frames": new["deq_4_plain_ms"],
+         "streaming_launches": stream_launches["dequant"], **yard("dequant")},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """FrAD stream constants and CRC primitives.
 
 Format parity with `frad_python_tpu.common`: the frame sync word, the
-CRC-16/ANSI of compact frame headers (poly 0xA001 reflected, init 0) and
-the zlib CRC-32 of lossless frame headers. The port carries its own copy
-so that importing it never imports the JAX package.
+file signature, the CRC-16/ANSI of compact frame headers (poly 0xA001
+reflected, init 0) and the zlib CRC-32 of lossless frame headers. The port
+carries its own copy so that importing it never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import zlib
 import numpy as np
 
 FRM_SIGN = b"\xff\xd0\xd2\x98"
+#: first bytes of a FrAD file's metadata header (`container/head.py`)
+SIGNATURE = b"fRad"
 
 #: The streaming engines (Encoder._micro_batch, Decoder._drain_pending)
 #: hand buffered frames to the batch cores in power-of-two groups of at

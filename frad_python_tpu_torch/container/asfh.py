@@ -11,7 +11,10 @@ Byte layout:
   CRC32
 * 64-bit extended frame size escape when the u32 length field is
   0xFFFFFFFF
-* Incremental parse returning Complete/Incomplete/ForceFlush
+* Incremental parse returning Complete/Incomplete/ForceFlush, or Invalid
+  for a compact header whose sample-rate or frame-size index lies past
+  its table (the JAX package's parser raises IndexError there): the
+  caller resyncs on the next frame sign
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..models.profiles import compact as compact_tables
 COMPLETE = "Complete"
 INCOMPLETE = "Incomplete"
 FORCE_FLUSH = "ForceFlush"
+INVALID = "Invalid"
 
 
 def encode_pfb(profile: int, ecc: bool, little_endian: bool, bit_depth_index: int) -> int:
@@ -44,11 +48,14 @@ def encode_css(channels: int, srate: int, fsize: int, force_flush: bool) -> int:
     )
 
 
-def decode_css(css: int) -> tuple[int, int, int, bool]:
-    channels = (css >> 10) + 1
-    srate = compact_tables.SRATES[(css >> 6) & 0b1111]
-    fsize = compact_tables.SAMPLES[(css >> 1) & 0b11111]
-    return channels, srate, fsize, bool(css & 1)
+def decode_css(css: int) -> tuple[int, int, int, bool] | None:
+    """(channels, srate, fsize, force_flush), or None when the sample-rate
+    or frame-size index lies past its table."""
+    srate_idx, fsize_idx = (css >> 6) & 0b1111, (css >> 1) & 0b11111
+    if srate_idx >= len(compact_tables.SRATES) or fsize_idx >= len(compact_tables.SAMPLES):
+        return None
+    return ((css >> 10) + 1, compact_tables.SRATES[srate_idx],
+            compact_tables.SAMPLES[fsize_idx], bool(css & 1))
 
 
 class ASFH:
@@ -152,7 +159,10 @@ class ASFH:
         """Incrementally parse a header; self.buffer must start at FRM_SIGN.
 
         Returns (status, remaining_buffer). `Complete` sets all fields and
-        `all_set`; `ForceFlush` signals a terminator frame.
+        `all_set`; `ForceFlush` signals a terminator frame. `Invalid` (a
+        compact header with an index past its table) forgets the header
+        and hands back every byte after its frame sign, so the caller's
+        search for the next sign starts right behind this one.
         """
         ok, buffer = self._fill(buffer, 9)
         if not ok:
@@ -164,8 +174,12 @@ class ASFH:
             ok, buffer = self._fill(buffer, 12)
             if not ok:
                 return INCOMPLETE, buffer
-            css = struct.unpack(">H", self.buffer[9:11])[0]
-            self.channels, self.srate, self.fsize, force_flush = decode_css(css)
+            fields = decode_css(struct.unpack(">H", self.buffer[9:11])[0])
+            if fields is None:
+                buffer = self.buffer[len(FRM_SIGN):] + buffer
+                self.clear()
+                return INVALID, buffer
+            self.channels, self.srate, self.fsize, force_flush = fields
             if force_flush:
                 return FORCE_FLUSH, buffer
 

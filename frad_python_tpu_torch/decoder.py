@@ -30,7 +30,7 @@ import torch
 from . import models
 from .common import FRM_SIGN, MICRO_BATCH_MAX
 from .container import ecc
-from .container.asfh import ASFH, COMPLETE, FORCE_FLUSH
+from .container.asfh import ASFH, COMPLETE, FORCE_FLUSH, INVALID
 from .models import COMPACT
 from .ops import policy
 from .ops.window import crossfade
@@ -245,6 +245,8 @@ class Decoder:
                     drain()
                     ret_pcm.append(self.flush().pcm)
                     break
+                elif status == INVALID:
+                    continue        # not a header: hunt for the next frame sign
                 else:  # INCOMPLETE
                     break
 

@@ -37,6 +37,8 @@ SIGNATURES = {
     "frad_trunc_unpack": (_P, _P, _I, _I, _I, _I, _I, _P),
     "frad_tns_levinson": (_P, _P, _I, _I, _P),
     "frad_tns_iir": (_P, _P, _P, _I, _I, _I, _P),
+    "frad_egr_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "frad_dequant": (_P, _P, _P, _I, _I, _I, _D, _D, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,7 @@ per frame; BIT_DEPTHS lists each profile's valid stream depths.
 from __future__ import annotations
 
 from . import profile0, profile1, profile2, profile4
-from .profiles import COMPACT, compact
+from .profiles import COMPACT, LOSSLESS, compact
 
 AVAILABLE = [0, 1, 4]
 
@@ -32,5 +32,5 @@ BIT_DEPTHS = [
 ]
 
 
-__all__ = ["AVAILABLE", "BIT_DEPTHS", "COMPACT", "SEGMAX", "compact", "profile0",
+__all__ = ["AVAILABLE", "BIT_DEPTHS", "COMPACT", "LOSSLESS", "SEGMAX", "compact", "profile0",
            "profile1", "profile2", "profile4"]

@@ -8,12 +8,11 @@ max|x|), and `trunc_unpack` kernel -> IDCT GEMM.
 
 Encode: PCM -> DCT-II GEMM -> masking thresholds (band-sum GEMM, RMS^0.8,
 AHT floor, x loss) -> interpolation GEMM -> `power_quant` kernel ->
-threshold log-compand. Decode: dequant + threshold expansion ->
-interpolation GEMM -> IDCT GEMM (`p1_decode_core`) -> `overlap_add`
-kernel (`p1_decode_oa_core`). The GEMMs are
-`torch.matmul` at full float32; the two elementwise stages that the JAX
-package wrote as Pallas kernels are the hand-written CUDA kernels of
-`kernels/`.
+threshold log-compand. Decode: threshold expansion ->
+interpolation GEMM -> `dequant` kernel -> IDCT GEMM (`p1_decode_core`) ->
+`overlap_add` kernel (`p1_decode_oa_core`). The GEMMs are `torch.matmul`
+at full float32; the elementwise stages between them are the
+hand-written CUDA kernels of `kernels/`.
 
 Profile 2 is Profile 1's chain with Temporal Noise Shaping (`ops/tns.py`)
 between the masking divide and the quantiser: the encoder divides, runs
@@ -31,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.dequant import dequant
 from ..kernels.overlap_add import crossfade_window, overlap_add
 from ..kernels.power_quant import power_quant
 from ..kernels.trunc_pack import trunc_pack
@@ -117,11 +117,6 @@ def p1_encode_core_i16(frames_i16: torch.Tensor, srate: int, loss_level: float, 
     return p1_encode_core(frames, srate, loss_level, factor)
 
 
-def _symbols_float(freqs_flat: torch.Tensor) -> torch.Tensor:
-    """An int16 symbol upload (exact for EGR symbols) back to float32."""
-    return freqs_flat.to(torch.float32) if freqs_flat.dtype == torch.int16 else freqs_flat
-
-
 def p1_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
                    srate: int, factor: float) -> torch.Tensor:
     """Profile 1 decode without overlap-add.
@@ -129,10 +124,8 @@ def p1_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
     freqs_flat [B, N, C] symbols (int16, or float32 / float64),
     thres_flat [B, 27, C] in the compute dtype -> [B, N, C] PCM in that
     dtype (a transposed view of the IDCT's [B, C, N] output)."""
-    freqs_flat = _symbols_float(freqs_flat)
-    n = freqs_flat.shape[1]
-    masked = psycho.dequant(freqs_flat.transpose(1, 2)) / factor     # [B, C, N]
-    return idct2(masked * _thres_expand(thres_flat, n, srate)).transpose(1, 2)
+    div = _thres_expand(thres_flat, freqs_flat.shape[1], srate)      # [B, C, N]
+    return idct2(dequant(freqs_flat.contiguous(), div.contiguous(), factor)).transpose(1, 2)
 
 
 def _overlap_add_emit(pcm: torch.Tensor, olap: int, cut: int, i16: bool):
@@ -173,11 +166,9 @@ def p2_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
     """Inverse of `p2_encode_core` without overlap-add: freqs_flat
     [B, N, C] symbols (int16, or the compute dtype), thres_flat [B, 27, C]
     and lpc_flat [B, 13, C] in the compute dtype -> [B, N, C] PCM."""
-    freqs_flat = _symbols_float(freqs_flat)
-    n = freqs_flat.shape[1]
-    masked = psycho.dequant(freqs_flat.transpose(1, 2)) / factor     # [B, C, N]
+    masked = dequant(freqs_flat.contiguous(), None, factor)          # [B, C, N]
     freqs = tns.tns_synthesis(masked, lpc_flat.transpose(1, 2)) \
-        * _thres_expand(thres_flat, n, srate)
+        * _thres_expand(thres_flat, freqs_flat.shape[1], srate)
     return idct2(freqs).transpose(1, 2)
 
 

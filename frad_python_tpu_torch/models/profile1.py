@@ -86,7 +86,9 @@ def analogue(pcm: np.ndarray, bits: int, srate: int, loss_level: float,
 def digital(frad: bytes, bit_depth_index: int, channels: int, srate: int, fsize: int,
             device: torch.device) -> np.ndarray:
     """Decode one frame payload -> [fsize, channels] f64 PCM; a corrupt
-    payload decodes to a zero frame."""
+    payload, or a depth index past the table, decodes to a zero frame."""
+    if bit_depth_index >= len(DEPTHS):
+        return np.zeros((fsize, channels))
     factor = _scale_factor(DEPTHS[bit_depth_index])
 
     streams = unpack_streams(frad)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 COMPACT = (1, 2)
+LOSSLESS = (0, 4)
 
 
 class compact:

@@ -405,9 +405,9 @@ def frame_parse_batch(stream: bytes):
 
     Returns (count, pay_off, pay_len, is_ff, pfb, chans, srates, fsizes,
     olaps, eccds, ecccs, crcs, hdrlens, tail_pos): tail_pos is the byte
-    offset of the unparsed tail, -1 when there is none. Raises IndexError
-    on a CSS sample-rate index outside the table, as the Python parser
-    does on the same bytes.
+    offset of the unparsed tail, -1 when there is none. A compact header
+    with a CSS sample-rate index outside the table is skipped: the scan
+    resumes behind its frame sign, as the Python parser does.
     """
     n = len(stream)
     cap = max(min(stream.count(b"\xff\xd0\xd2\x98"), n // 12 + 1), 1)
@@ -417,6 +417,4 @@ def frame_parse_batch(stream: bytes):
     tail_pos = ctypes.c_int64(-1)
     cnt = library().frad_frame_parse_batch(stream, n, cap, *(c.ctypes.data for c in cols),
                                            ctypes.byref(tail_pos))
-    if tail_pos.value == -2:
-        raise IndexError("tuple index out of range")  # CSS srate index
     return (int(cnt), *cols, int(tail_pos.value))

@@ -1373,8 +1373,9 @@ static inline uint32_t be32(const uint8_t* p) {
 
 // returns #frames parsed; *tail_pos = offset where the (possibly empty)
 // unparsed tail begins, or -1 for "no tail" (scan consumed everything
-// after the last frame and found no further sign), or -2 on a CSS srate
-// index the Python tables would throw for (caller raises IndexError).
+// after the last frame and found no further sign). A compact header whose
+// CSS srate index lies past the table is no header: the scan resumes
+// behind its sign, as ASFH.read's Invalid status makes the Python scans.
 int64_t frad_frame_parse_batch(
         const uint8_t* s, int64_t n, int64_t cap,
         int64_t* pay_off, int64_t* pay_len, uint8_t* is_ff,
@@ -1403,7 +1404,7 @@ int64_t frad_frame_parse_batch(
             uint16_t css = ((uint16_t)s[idx + 9] << 8) | s[idx + 10];
             ch = (css >> 10) + 1;
             int sri = (css >> 6) & 0xf;
-            if (sri >= 12) { *tail_pos = -2; return cnt; }
+            if (sri >= 12) { pos = idx + 4; continue; }
             sr = css_srates[sri];
             int fsi = (css >> 1) & 0x1f;
             static const int bases[4] = {128, 160, 192, 224};

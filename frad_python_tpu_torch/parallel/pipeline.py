@@ -4,9 +4,9 @@ armor and repair.
 `batch_encode` plans every frame of a stream up front, runs the tensor
 domain on one device as one call over the uniform frames, and finishes
 the byte domain on the host. Profile 1: PCM upload -> DCT/mask/quant core
--> EGR bit-pack -> compaction of each frame's used words, then EGR
-thresholds and DEFLATE. Profile 2: the Profile 1 core with the TNS
-analysis, then the host EGR coder and DEFLATE frame by frame. Profile 0: the DCT, then the truncated-float
+-> `egr_pack` kernel (EGR bit-pack and compaction of each frame's used
+words), then EGR thresholds and DEFLATE. Profile 2: the Profile 1 core
+with the TNS analysis, then the host EGR coder and DEFLATE frame by frame. Profile 0: the DCT, then the truncated-float
 pack, fused on the device (`trunc_pack` kernel) at float32 for 16/24/32
 bits, or on the host (`packing`) after a float32 GEMM or float64 FFT
 DCT; a frame whose coefficients leave the container float escalates to a
@@ -52,7 +52,8 @@ import torch
 from .. import models, native
 from ..common import FRM_SIGN
 from ..container import ecc as ecc_mod
-from ..container.asfh import ASFH, COMPLETE, FORCE_FLUSH
+from ..container.asfh import ASFH, COMPLETE, FORCE_FLUSH, INVALID
+from ..kernels.egr_pack import egr_pack
 from ..models import batch, profile0, profile1, profile2
 from ..models.profiles import COMPACT, compact
 from ..ops import bitpack, golomb, packing, policy, psycho
@@ -198,12 +199,11 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
                 for i in range(b)]
 
     max_words = max(m * 12 // 32, 16)
-    words, nbits, ks, ovf = bitpack.egr_pack_frames(fq, max_words)
-    flat, used = bitpack.compact_words(words, nbits, ovf)
+    flat, used, nbits, ks, ovf = egr_pack(fq.contiguous(), max_words)
     flat_h, used_h, nbits_h, ks_h, ovf_h, tqh = policy.to_host(
         flat, used, nbits, ks, ovf, tq)
-    flat_h = flat_h.astype(np.uint32)
-    offs = np.cumsum(used_h) - used_h
+    flat_h = flat_h.view(np.uint32)         # int32 words hold the uint32 bit pattern
+    offs = np.cumsum(used_h, dtype=np.int64) - used_h
     ovf_rows = np.flatnonzero(ovf_h)
     fq_ovf: dict[int, np.ndarray] = {}
     if ovf_rows.size:
@@ -489,6 +489,9 @@ def _parse_frames(stream: bytes) -> tuple[list[ASFH], list[bytes | None], bytes]
             return headers, payloads, b""
         a = ASFH()
         status, _ = a.read(stream[idx: idx + 48])
+        if status == INVALID:
+            pos = idx + len(FRM_SIGN)             # not a header: resync behind its sign
+            continue
         if status == FORCE_FLUSH:
             headers.append(a)
             payloads.append(None)
@@ -626,9 +629,9 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     Returns (pcm [S, C] — overlap-added within the run, frame 0's head
     left fade-free for the caller's fragment fixup —, trailing overlap
     fragment [olap, C] f64), or None for a lossless run the batch cannot
-    split into frames (see `_batch_splits`; its depth index may also lie
-    past the table): the caller decodes it frame by frame, as the JAX
-    package's Decoder does."""
+    split into frames (see `_batch_splits`) and for a run of any profile
+    whose depth index lies past its table: the caller decodes it frame by
+    frame, as the JAX package's Decoder does."""
     h0 = hs[0]
     run = len(hs)
     ch = h0.channels
@@ -643,9 +646,11 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
         out = _decode_lossless(hs, ps, dtype, i24_transfer, device)
         return out.reshape(-1, ch), np.empty((0, 0), dtype=np.float64)
 
+    depths = models.BIT_DEPTHS[h0.profile]
+    if h0.bit_depth_index >= len(depths):
+        return None             # frame by frame: each decodes to a zero frame
     cut = n * (h0.overlap_ratio - 1) // h0.overlap_ratio if h0.overlap_ratio > 1 else n
     olap = n - cut
-    depths = models.BIT_DEPTHS[h0.profile]
     factor = profile1._scale_factor(depths[h0.bit_depth_index])
 
     fq, tq, lq = _unpack_run(ps, n, ch, h0.profile, dtype)
@@ -907,6 +912,12 @@ def batch_repair(stream: bytes, ecc_ratio: tuple[int, int] = DEFAULT_ECC_RATIO,
             out.append(stream[pos:idx])           # passthrough bytes
         a = ASFH()
         status, _ = a.read(stream[idx: idx + 48])
+        if status == INVALID:
+            # not a header: its sign passes through, the scan goes on behind it
+            flush_run()
+            out.append(stream[idx: idx + len(FRM_SIGN)])
+            pos = idx + len(FRM_SIGN)
+            continue
         if status == FORCE_FLUSH:
             flush_run()
             out.append(stream[idx: idx + a.header_bytes])

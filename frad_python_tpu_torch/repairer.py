@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from .common import FRM_SIGN
 from .container import ecc
-from .container.asfh import ASFH, COMPLETE, FORCE_FLUSH
+from .container.asfh import ASFH, COMPLETE, FORCE_FLUSH, INVALID
 
 DEFAULT_ECC_RATIO = (96, 24)
 
@@ -100,6 +100,10 @@ class Repairer:
             # scanning, since the stream may continue after it
             out.append(self.asfh.force_flush())
             self.asfh.clear()
+            return True
+        if status == INVALID:
+            # not a header: its sign passes through, the scan goes on behind it
+            out.append(FRM_SIGN)
             return True
         return False        # INCOMPLETE: wait for more header bytes
 

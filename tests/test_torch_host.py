@@ -135,6 +135,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, frad_python_tpu_torch\n"
         "import frad_python_tpu_torch.kernels.build, frad_python_tpu_torch.models.batch\n"
+        "import frad_python_tpu_torch.container.head, frad_python_tpu_torch.__main__\n"
+        "from frad_python_tpu_torch.app import decode, encode, main, metadata, repair\n"
+        "from frad_python_tpu_torch.utils import cli, fmt, hostmem, telemetry, tracing\n"
+        "from frad_python_tpu_torch.kernels import dequant, egr_pack\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'frad_python_tpu' or m.startswith('frad_python_tpu.')]\n"
         "print(bad)\n"
@@ -147,6 +151,11 @@ def test_import_leaves_jax_out():
 def test_port_sources_import_neither_jax_nor_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(PORT)) for p in files[:-1]}
+    assert {"container/head.py", "app/main.py", "app/encode.py", "app/decode.py",
+            "app/repair.py", "app/metadata.py", "__main__.py", "utils/cli.py", "utils/fmt.py",
+            "utils/telemetry.py", "utils/hostmem.py", "utils/tracing.py",
+            "kernels/egr_pack.py", "kernels/dequant.py"} <= names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

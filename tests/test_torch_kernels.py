@@ -135,6 +135,10 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
         kernels.tns_iir(meta, torch.empty((4, 13), device="meta"))
     with pytest.raises(ValueError):
         kernels.tns_levinson(torch.empty((4, 13), device="meta"))
+    with pytest.raises(ValueError):
+        kernels.egr_pack(torch.empty((4, 8), dtype=torch.int32, device="meta"), 16)
+    with pytest.raises(ValueError):
+        kernels.dequant(torch.empty((2, 8, 2), device="meta"), None, FACTOR)
     assert all(k.launches == 0 for k in kernels.KERNELS)
 
 
@@ -143,10 +147,12 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert path.parent.parent == build.BUILD_DIR and path.name == build.LIB_NAME
     assert {p.name for p in build.sources()} == {"power_quant.cu", "overlap_add.cu",
                                                  "trunc_pack.cu", "trunc_unpack.cu",
-                                                 "tns_iir.cu", "tns_levinson.cu"}
+                                                 "tns_iir.cu", "tns_levinson.cu",
+                                                 "egr_pack.cu", "dequant.cu"}
     assert set(build.SIGNATURES) == {"frad_power_quant", "frad_overlap_add",
                                      "frad_trunc_pack", "frad_trunc_unpack",
-                                     "frad_tns_iir", "frad_tns_levinson"}
+                                     "frad_tns_iir", "frad_tns_levinson",
+                                     "frad_egr_pack", "frad_dequant"}
     assert len(kernels.KERNELS) == len(build.SIGNATURES)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -448,6 +448,8 @@ def smoke_form_tables() -> set:
         forms |= {("power_quant", shape, dtype, with_div) for shape in shapes}
     for dtype, shape, olap, i16 in chip_smoke.P2_OVERLAP_FORMS:
         forms.add(("overlap_add", shape, dtype, olap, shape[2] - olap, i16))
+    forms |= {("dequant", shape, dtype, with_div)
+              for dtype, shape, with_div in chip_smoke.DEQUANT_FORMS}
     return forms
 
 
@@ -456,7 +458,7 @@ def test_chip_smoke_forms_cover_the_float64_runs():
     call a kernel's wrapper is in its tables of checked forms, and a form
     outside them is reported."""
     short = chip_smoke.make_audio(chip_smoke.F64_SECONDS, chip_smoke.SRATE, chip_smoke.CHANNELS)
-    tally = chip_smoke.FormTally()
+    tally = chip_smoke.FormTally(device_type="cpu")      # the plain versions' calls
     with tally:
         for profile in (1, 2):
             s64 = ft.batch_encode(short, profile, chip_smoke.SRATE, chip_smoke.BITS,

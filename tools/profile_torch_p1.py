@@ -36,7 +36,10 @@ After a warm-up of each call:
   time (full listings under `_profile/`, with the device tables);
 * device: one `torch.profiler` call of each traced call: device busy
   (self device time of all kernels and copies), the wall of the traced
-  call, and the device idle share 1 - busy / wall.
+  call, the device idle share 1 - busy / wall, and the device launches
+  (kernels and copies) of the traced call beside its calls of
+  `pipeline.batch_encode` and `pipeline._decode_run`, which gives the
+  streaming engines' launches per call.
 
 `--ksplit` replaces the three with the probe behind `ops/dct.py`'s
 K_SPLIT_ABOVE / K_CHUNK: the float32 DCT GEMM at the `hires_96k_8ch` and
@@ -302,13 +305,30 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from frad_python_tpu_torch.parallel import pipeline
+
     device_types = {torch.autograd.DeviceType.CUDA}
     for name in traced:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            calls[name][0]()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        n_calls = {"batch_encode": 0, "_decode_run": 0}
+        saved = {fn: getattr(pipeline, fn) for fn in n_calls}
+
+        def counting(fn_name):
+            def call(*args, **kwargs):
+                n_calls[fn_name] += 1
+                return saved[fn_name](*args, **kwargs)
+            return call
+
+        for fn_name in saved:
+            setattr(pipeline, fn_name, counting(fn_name))
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                calls[name][0]()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for fn_name, fn in saved.items():
+                setattr(pipeline, fn_name, fn)
         events = prof.key_averages()
         busy_us = sum(e.self_device_time_total for e in events
                       if e.device_type in device_types and not e.is_user_annotation)
@@ -316,6 +336,11 @@ def main() -> int:
             events.table(sort_by="self_device_time_total", row_limit=40))
         top = sorted((e for e in events if e.device_type in device_types),
                      key=lambda e: e.self_device_time_total, reverse=True)[:5]
+        launches = sum(e.count for e in events
+                       if e.device_type in device_types and not e.is_user_annotation)
+        print(f"launches {name}: {launches} device kernels and copies over "
+              f"{n_calls['batch_encode']} batch_encode and {n_calls['_decode_run']} "
+              f"_decode_run calls")
         print(f"device {name}: busy {busy_us / 1e3:.4f} ms of a {wall:.4f} s traced wall, "
               f"idle share {1 - busy_us / 1e6 / wall:.5f}; top: "
               + "; ".join(f"{e.key[:60]} {e.self_device_time_total:.1f} us x{e.count}"
