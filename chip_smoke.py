@@ -35,7 +35,13 @@ shape, dtype or option that was not held so); the track as profile 2 through `ba
 `compute_dtype="float64"`. `egr_pack` and `dequant` are held against
 their plain versions first, at every shape, dtype and option that any of
 these runs launches them at (a tally over all the runs fails the script on
-a form that was not held). Last, the command-line phase: the track as an
+a form that was not held); so are `mask_thres` and `thres_expand`, the
+threshold chains of every lossy encode and decode, and in the Profile 2
+phase `tns_autocorr` and `tns_fir_gate`, which with `tns_levinson` are the
+TNS analysis (inputs that meet every gate from both sides; the card's
+quantised LPC rows of the 30 s track are held against a CPU encode's). The
+batch and streaming runs of Profiles 1 and 2 print the pipeline's stage
+timer. Last, the command-line phase: the track as an
 s16le file through `frad_python_tpu_torch.app.main` on the card: `encode`
 (the file must be the metadata header plus `batch_encode`'s bytes),
 `decode`, `--no-turbo` through the engines, profile 0 at 24 bits, `repair`
@@ -170,9 +176,18 @@ OLAP, CUT = 128, 1920
 ECC_RATIO = (96, 24)
 DEVICE = "cuda"
 #: the kernels of the Profile 1 paths
-P1_KERNELS = ("power_quant", "overlap_add", "egr_pack", "dequant")
+P1_KERNELS = ("power_quant", "overlap_add", "egr_pack", "dequant", "mask_thres",
+              "thres_expand")
 #: the kernels of the Profile 2 paths
-P2_KERNELS = ("power_quant", "overlap_add", "dequant", "tns_iir", "tns_levinson")
+P2_KERNELS = ("power_quant", "overlap_add", "dequant", "tns_iir", "tns_levinson",
+              "tns_autocorr", "tns_fir_gate", "mask_thres", "thres_expand")
+#: the kernels of a Profile 2 encode
+P2_ENCODE_KERNELS = ("power_quant", "tns_levinson", "tns_autocorr", "tns_fir_gate",
+                     "mask_thres")
+#: lanes of the 30 s track whose quantised LPC row may differ between the
+#: card's encode and the CPU's (a gate is a threshold on float sums, and the
+#: DCT GEMM before them sums in another order on each)
+TNS_CARD_VS_CPU_LANES = 2
 # the streaming engines' shapes: one frame per call on the per-frame path,
 # 2..256 frames per micro-batch; the decoder's micro-batches emit float32
 STREAM_POWER_QUANT_SHAPES = ((2, 2048), (512, 2048))
@@ -211,6 +226,22 @@ DEQUANT_FORMS = (
     ("int16", (23, 2048, 2), False), ("float32", (1, 2048, 2), False),
     ("float64", (114, 2048, 2), True), ("float64", (1, 1792, 2), True),
     ("float64", (114, 2048, 2), False), ("float64", (1, 1792, 2), False))
+#: mask_thres's forms, (dtype, rows = frames * channels, samples a frame),
+#: for every batch that an encoder of these runs hands over: the 30 s
+#: track's 688 uniform frames and its tail frame, the 1 s warm-ups' 22, the
+#: engines' micro-batches, Profile 1 at 8192 and 16384 samples, and the
+#: F64_SECONDS track at float64
+MASK_THRES_FORMS = (
+    ("float32", 1376, 2048), ("float32", 2, 2048), ("float32", 4, 2048),
+    ("float32", 8, 2048), ("float32", 16, 2048), ("float32", 32, 2048),
+    ("float32", 44, 2048), ("float32", 64, 2048), ("float32", 256, 2048),
+    ("float32", 512, 2048), ("float32", 344, 8192), ("float32", 8, 8192),
+    ("float32", 2, 6144), ("float32", 172, 16384), ("float32", 8, 16384),
+    ("float64", 228, 2048), ("float64", 2, 1792))
+#: thres_expand's forms, (dtype, frames): every run of DEQUANT_FORMS
+THRES_EXPAND_FORMS = tuple(sorted({
+    ("float64" if dtype == "float64" else "float32", shape[0])
+    for dtype, shape, _ in DEQUANT_FORMS}))
 #: the command-line phase: the track as an s16le file. Profile 1 at the
 #: CLI's default loss level, decoded to s16le: the JAX package's float32
 #: SNR there, 17.6704 dB on the CPU, minus 0.1 dB; profile 0 at 24 bits
@@ -227,8 +258,9 @@ CHECKED: set[tuple] = set()
 def kernel_form(name: str, *args) -> tuple:
     """What tells one launch of a kernel from another of another form: the
     wrapper's name, its first tensor's shape and dtype, and for power_quant
-    and dequant whether it has a divisor, for overlap_add the overlap, cut
-    and emit, for egr_pack max_words."""
+    dequant and tns_autocorr whether it has a divisor, for overlap_add the
+    overlap, cut and emit, for egr_pack max_words, for mask_thres the
+    active bands and the channels."""
     x = args[0]
     form = (name, tuple(x.shape), str(x.dtype).removeprefix("torch."))
     if name == "power_quant":
@@ -237,8 +269,10 @@ def kernel_form(name: str, *args) -> tuple:
         return form + (int(args[1].numel()), int(args[2]), bool(args[3]))
     if name == "egr_pack":
         return form + (int(args[1]),)
-    if name == "dequant":
+    if name in ("dequant", "tns_autocorr"):
         return form + (args[1] is not None,)
+    if name == "mask_thres":
+        return form + (int(args[3]), int(args[5]))
     return form
 
 
@@ -267,7 +301,9 @@ class FormTally:
 
         self.targets = [(mod, name) for mod, name in (
             (batch, "power_quant"), (batch, "overlap_add"), (tns, "tns_iir"),
-            (tns, "tns_levinson"), (pipeline, "egr_pack"), (batch, "dequant"))
+            (tns, "tns_levinson"), (pipeline, "egr_pack"), (batch, "dequant"),
+            (tns, "tns_autocorr"), (tns, "tns_fir_gate"), (batch, "mask_thres"),
+            (batch, "thres_expand"))
             if only is None or name in only]
         self.device_type = device_type
         self.seen: dict[tuple, int] = {}
@@ -1082,20 +1118,291 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
     return res
 
 
-def tns_lane_share(stream: bytes) -> tuple[int, int]:
-    """(lanes with a non-zero LPC row, lanes) over the Profile 2 payloads."""
+def ulp_report(torch, got, want) -> str:
+    """How far two float tensors of one dtype are apart: differing elements
+    and their largest distance in units of the last place."""
+    it = torch.int64 if got.element_size() == 8 else torch.int32
+    d = (got.contiguous().view(it).to(torch.int64)
+         - want.contiguous().view(it).to(torch.int64)).abs()
+    return (f"{int((d != 0).sum())} of {got.numel()} elements differ, by at most "
+            f"{int(d.max())} ulp")
+
+
+def max_abs(torch, a, b) -> float:
+    return float((a.double() - b.double()).abs().nan_to_num(0.0, posinf=float("inf")).max()) \
+        if a.numel() else 0.0
+
+
+def check_thres_kernels(torch, kernels, dev) -> dict:
+    """mask_thres at MASK_THRES_FORMS and thres_expand at THRES_EXPAND_FORMS
+    against their plain versions on the card, bit for bit (were they not,
+    the count of differing elements and their distance in ulps is in the
+    failure). mask_thres: band sums over 24 decades with zeros, at two loss
+    levels, so thresholds fall on both sides of the AHT floor and of the
+    clamp at 1; thres_expand: symbols of both signs, zeros included.
+    CUDA-event times at the main path's forms and at 4 frames, a call of
+    each there (`thunks`) and each one's bound."""
+    from frad_python_tpu_torch.ops import psycho
+
+    res = {"mt_err": 0.0, "te_err": 0.0, "thunks": {}, "bounds": {}}
+    rng = np.random.default_rng(700)
+    for fi, (dtype, rows, n) in enumerate(MASK_THRES_FORMS):
+        tdt = getattr(torch, dtype)
+        k = psycho.device_consts(n, SRATE, dev, tdt)
+        nbp = k["ind"].shape[1]
+        sums = np.exp(rng.uniform(-30.0, 25.0, (rows, nbp)))
+        sums[0, : min(4, nbp)] = 0.0
+        s_d = torch.from_numpy(sums.astype(dtype)).to(dev)
+        for loss in (0.5, 1.8329800000000002):
+            args = (s_d, k["inv_w"], k["aht"], k["nb"], loss, CHANNELS)
+            (th_k, tq_k), (th_p, tq_p) = held(kernels, "mask_thres", *args)
+            torch.cuda.synchronize()
+            res["mt_err"] = max(res["mt_err"], max_abs(torch, th_k, th_p),
+                                max_abs(torch, tq_k, tq_p))
+            if not (bits_equal(torch, th_k, th_p) and tq_k.dtype == tq_p.dtype
+                    and torch.equal(tq_k, tq_p)):
+                raise AssertionError(
+                    f"mask_thres {dtype} {(rows, nbp)} loss={loss} differs from its plain "
+                    f"version: th {ulp_report(torch, th_k, th_p)}, "
+                    f"{int((tq_k != tq_p).sum())} of {tq_k.numel()} symbols differ")
+            if fi == 0 and not (int(tq_k.max()) > 20 and bool((tq_k == 0).any())
+                                and bool((th_k[:, :k["nb"]] == k["aht"][:k["nb"]] * loss).any())
+                                and bool((th_k[:, k["nb"]:] == 0).all())):
+                raise AssertionError("mask_thres inputs miss a case: large symbols, zero "
+                                     "symbols, the AHT floor or the bands past the last")
+        if fi == 0 or (dtype, rows, n) == ("float32", 8, FSIZE):
+            key = "mt" if fi == 0 else "mt_4"
+            args = (s_d, k["inv_w"], k["aht"], k["nb"], 0.5, CHANNELS)
+            res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.mask_thres(*args))
+            res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.mask_thres_plain(*args))
+        if fi == 0:
+            res["thunks"]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
+            item = s_d.element_size()
+            res["bounds"]["mask_thres"] = bound(
+                rows * nbp * item + 2 * nbp * item + rows * psycho.SUBBANDS * 2 * item,
+                rows * psycho.SUBBANDS * 60)
+    print(f"kernel mask_thres at {len(MASK_THRES_FORMS)} forms {list(MASK_THRES_FORMS)}, two "
+          f"loss levels each: equal to plain bit for bit; {MASK_THRES_FORMS[0]} "
+          f"{res['mt_ms']:.4f} ms vs plain {res['mt_plain_ms']:.4f} ms; 4 frames "
+          f"{res['mt_4_ms']:.4f} vs {res['mt_4_plain_ms']:.4f} ms")
+
+    for fi, (dtype, b) in enumerate(THRES_EXPAND_FORMS):
+        sym = np.rint(rng.laplace(0, 6, (b, psycho.SUBBANDS, CHANNELS)))
+        sym[0, :4, 0] = (0, -0.0, 1, -1)
+        t_d = torch.from_numpy(sym.astype(dtype)).to(dev)
+        (got,), (want,) = held(kernels, "thres_expand", t_d)
+        torch.cuda.synchronize()
+        res["te_err"] = max(res["te_err"], max_abs(torch, got, want))
+        if not bits_equal(torch, got, want.contiguous()):
+            raise AssertionError(f"thres_expand {dtype} {tuple(t_d.shape)} differs from its "
+                                 f"plain version: {ulp_report(torch, got, want)}")
+        if (dtype, b) in (("float32", OVERLAP_SHAPE[0]), ("float32", 4)):
+            key = "te" if b == OVERLAP_SHAPE[0] else "te_4"
+            res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.thres_expand(t_d))
+            res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.thres_expand_plain(t_d))
+            if key == "te":
+                res["thunks"]["thres_expand_kernel"] = lambda t=t_d: kernels.thres_expand(t)
+                res["bounds"]["thres_expand"] = bound(2 * t_d.numel() * 4, t_d.numel() * 50)
+    print(f"kernel thres_expand at {len(THRES_EXPAND_FORMS)} forms {list(THRES_EXPAND_FORMS)} "
+          f"(frames of {CHANNELS} channels; zeros and both signs in each): equal to plain bit "
+          f"for bit; {OVERLAP_SHAPE[0]} frames {res['te_ms']:.4f} ms vs plain "
+          f"{res['te_plain_ms']:.4f} ms; 4 frames {res['te_4_ms']:.4f} vs "
+          f"{res['te_4_plain_ms']:.4f} ms")
+    return res
+
+
+#: kinds of lanes `analysis_inputs` cycles through
+ANALYSIS_KINDS = 14
+
+
+def analysis_inputs(lanes: int, n: int, dtype: str, seed: int):
+    """(freqs [lanes, n], div [lanes, n]) for the TNS analysis kernels; the
+    rows of freqs / div cycle through ANALYSIS_KINDS kinds: 0 a decaying
+    tone (TNS runs), 1 decaying noise, 2 white noise (the flatness gate),
+    3 the constant 1e-8 (the energy gate), 4 zeros, 5 a near-constant row
+    (the tiny-coefficient gate), 6-11 tone and noise mixed 0.2 to 0.8 (the
+    flatness gate's edge), 12 the tone at 5e6 (its residual passes 1e6),
+    13 the tone with one infinite bin. The divisors span two decades and
+    are 0 over the last sixteenth of the bins of the kinds without noise
+    at full scale (0, 1, 3, 4, 5, 12, 13)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64)
+    kind = np.arange(lanes) % ANALYSIS_KINDS
+    noise = rng.standard_normal((lanes, n))
+    amp = 1.0 + 0.1 * rng.random((lanes, 1))
+    tone = np.exp(-t / 40.0) * np.sin(t * 0.7) * 50 * amp
+    slow = np.exp(-t / 30.0) * np.sin(t * 0.3) * 30 * amp
+    x = noise.copy()
+    x[kind == 0] = tone[kind == 0]
+    x[kind == 1] = (np.exp(-t / 15.0) * noise * 20)[kind == 1]
+    x[kind == 3] = 1e-8
+    x[kind == 4] = 0.0
+    x[kind == 5] = (1.0 + 1e-4 * noise)[kind == 5]
+    for i, mix in enumerate((0.2, 0.4, 0.5, 0.55, 0.6, 0.8)):
+        x[kind == 6 + i] = ((1 - mix) * slow + mix * noise)[kind == 6 + i]
+    x[kind == 12] = tone[kind == 12] * 1e5
+    x[kind == 13] = tone[kind == 13]
+    div = np.exp(rng.standard_normal((lanes, n))) * 0.1
+    freqs = x * div
+    freqs[kind == 13, 5] = np.inf
+    # (zeros at the top of a noisy row would pull its flatness under the gate)
+    div[(kind < 2) | (kind > 11) | ((kind > 2) & (kind < 6)), n - n // 16:] = 0.0
+    return tuple(np.ascontiguousarray(a, dtype=dtype) for a in (freqs, div))
+
+
+#: kinds of rows of `fir_gate_inputs`
+FIR_KINDS = 7
+
+
+def fir_gate_inputs(torch, x, lpc_good):
+    """(x [L, N], lpc [L, 13], gate [L]) for tns_fir_gate on its own, the
+    gate true on every row, rows cycling through FIR_KINDS kinds: 0 and 6 a
+    tone row of `x` with `lpc_good` (TNS runs), 1 coefficients of 0.0005
+    (their sum under 0.01), 2 coefficients of 0.02 (each rounds to 0),
+    3 a smooth positive row with lpc[1] = 0.9 (the residual is larger than
+    the row: gain 0), 4 values near the dtype's largest (the residual
+    overflows), 5 a NaN in the row."""
+    lanes, n = x.shape
+    kind = torch.arange(lanes, device=x.device) % FIR_KINDS
+    xb = x[0].expand(lanes, n).clone()
+    lpc = lpc_good.expand(lanes, 13).clone()
+    lpc[kind == 1, 1:] = 0.0005
+    lpc[kind == 2, 1:] = 0.02
+    ramp = 1.0 + torch.arange(n, device=x.device, dtype=x.dtype) / n
+    xb[kind == 3] = ramp
+    lpc[kind == 3, 1:] = 0.0
+    lpc[kind == 3, 1] = 0.9
+    xb[kind == 4] = xb[kind == 4].sign() * (torch.finfo(x.dtype).max * 0.9)
+    lpc[kind == 4, 1:] = 0.0
+    lpc[kind == 4, 1] = 0.9
+    xb[kind == 5, 7] = float("nan")
+    return xb, lpc, torch.ones(lanes, dtype=torch.bool, device=x.device)
+
+
+def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
+    """tns_autocorr and tns_fir_gate against their plain versions on the
+    card, bit for bit, at TNS_SHAPES, float32 and float64: as the chain
+    tns_autocorr -> tns_levinson -> tns_fir_gate on `analysis_inputs`
+    (with a divisor, and at each dtype's first shape without), and
+    tns_fir_gate alone on `fir_gate_inputs`. From 14 lanes on, every gate
+    must be met from both sides. CUDA-event times of the kernels, of the
+    plain versions at each dtype's first shape and at 8 lanes of float32;
+    a call of each at the main path's shape (`thunks`) and each one's
+    bound, tns_fir_gate's from the rows that entered its filter."""
+    from frad_python_tpu_torch.ops import tns
+
+    res = {"ac_err": 0.0, "fg_err": 0.0, "thunks": {}, "bounds": {}}
+
+    def same(name, form, got, want):
+        names = {"tns_autocorr": ("x", "ac", "gate"), "tns_fir_gate": ("out", "lpc_out", "run")}
+        for what, g, w in zip(names[name], got, want):
+            ok = torch.equal(g, w) if g.dtype == torch.bool else bits_equal(torch, g, w)
+            if not ok:
+                detail = (f"{int((g != w).sum())} of {g.numel()} lanes" if g.dtype == torch.bool
+                          else ulp_report(torch, g, w))
+                raise AssertionError(f"{name} {form} differs from its plain version in "
+                                     f"{what}: {detail}")
+
+    for dtype, shapes in TNS_SHAPES.items():
+        window = tns._lag_window(getattr(torch, dtype), dev)
+        for si, (lanes, n) in enumerate(shapes):
+            form = f"{(lanes, n)} {dtype}"
+            freqs, div = (torch.from_numpy(a).to(dev)
+                          for a in analysis_inputs(lanes, n, dtype, 900 + lanes))
+            got, want = held(kernels, "tns_autocorr", freqs, div, window)
+            torch.cuda.synchronize()
+            same("tns_autocorr", form, got, want)
+            x, ac, gate = got
+            res["ac_err"] = max(res["ac_err"], max_abs(torch, ac, want[1]),
+                                max_abs(torch, x.nan_to_num(0.0, 0.0, 0.0),
+                                        want[0].nan_to_num(0.0, 0.0, 0.0)))
+            if si == 0:
+                got0, want0 = held(kernels, "tns_autocorr", x, None, window)
+                torch.cuda.synchronize()
+                same("tns_autocorr", form + " no divisor", got0, want0)
+                same("tns_autocorr", form + " with and without the divisor",
+                     (x,) + got0[1:], got)
+            lpc = kernels.tns_levinson(ac)
+            got_f, want_f = held(kernels, "tns_fir_gate", x, lpc, gate)
+            xb, lpc_b, gate_b = fir_gate_inputs(torch, x, lpc[0])
+            got_b, want_b = held(kernels, "tns_fir_gate", xb, lpc_b, gate_b)
+            torch.cuda.synchronize()
+            same("tns_fir_gate", form, got_f, want_f)
+            same("tns_fir_gate", form + " (gates)", got_b, want_b)
+            res["fg_err"] = max(res["fg_err"],
+                                max_abs(torch, got_f[0].nan_to_num(0.0, 0.0, 0.0),
+                                        want_f[0].nan_to_num(0.0, 0.0, 0.0)),
+                                max_abs(torch, got_f[1], want_f[1]))
+            run, run_b = got_f[2], got_b[2]
+            kind = torch.arange(lanes, device=dev) % ANALYSIS_KINDS
+            kind_b = torch.arange(lanes, device=dev) % FIR_KINDS
+            off = (kind == 2) | (kind == 3) | (kind == 4) | (kind == 12) | (kind == 13)
+            if lanes >= ANALYSIS_KINDS and not (
+                    bool(run[kind == 0].all()) and not bool(run[off].any())
+                    and bool(gate[kind == 12].all()) and not bool(gate[kind == 3].any())
+                    and not bool(gate[kind == 2].any())
+                    and bits_equal(torch, got_f[0][~run], x[~run])
+                    and not bool(got_f[1][~run].any()) and bool(got_f[1][run].any())
+                    and bool(run_b[(kind_b == 0) | (kind_b == 6)].all())
+                    and not bool(run_b[(kind_b > 0) & (kind_b < 6)].any())
+                    and bits_equal(torch, got_b[0][~run_b], xb[~run_b])):
+                raise AssertionError(
+                    f"TNS analysis inputs {form} miss a case: run by kind "
+                    f"{[int(run[kind == k].sum()) for k in range(ANALYSIS_KINDS)]}, gate by kind "
+                    f"{[int(gate[kind == k].sum()) for k in range(ANALYSIS_KINDS)]}, run of the "
+                    f"gate rows by kind "
+                    f"{[int(run_b[kind_b == k].sum()) for k in range(FIR_KINDS)]}")
+            t = {"ac": cuda_ms(torch, lambda: kernels.tns_autocorr(freqs, div, window)),
+                 "fg": cuda_ms(torch, lambda: kernels.tns_fir_gate(x, lpc, gate))}
+            line = (f"kernels tns_autocorr / tns_fir_gate {form}: equal bit for bit (chain and "
+                    f"gate rows; TNS runs on {int(run.sum())} of {lanes} rows, "
+                    f"{int(gate.sum())} pass the first gates), tns_autocorr {t['ac']:.4f} ms, "
+                    f"tns_fir_gate {t['fg']:.4f} ms")
+            if si == 0 or (lanes, dtype) == (8, "float32"):
+                t["ac_plain"] = cuda_ms(
+                    torch, lambda: kernels.tns_autocorr_plain(freqs, div, window), 3, 2)
+                t["fg_plain"] = cuda_ms(
+                    torch, lambda: kernels.tns_fir_gate_plain(x, lpc, gate), 3, 2)
+                line += f" vs plain {t['ac_plain']:.3f} / {t['fg_plain']:.3f} ms"
+            if si == 0 and dtype == "float32":
+                res["thunks"] = {
+                    "tns_autocorr_kernel":
+                        lambda f=freqs, d=div, w=window: kernels.tns_autocorr(f, d, w),
+                    "tns_fir_gate_kernel":
+                        lambda x=x, l=lpc, g=gate: kernels.tns_fir_gate(x, l, g)}
+                entered = int(gate.sum())
+                res["bounds"] = {
+                    "tns_autocorr": bound(3 * lanes * n * 4 + lanes * 14 * 4 + lanes,
+                                          lanes * n * 40),
+                    "tns_fir_gate": bound(2 * lanes * n * 4 + 2 * lanes * 13 * 4 + 2 * lanes,
+                                          entered * n * 34)}
+            res[(lanes, dtype)] = t
+            print(line)
+    return res
+
+
+def tns_lpc_rows(stream: bytes) -> np.ndarray:
+    """[lanes, 13] quantised LPC rows of the Profile 2 payloads, a lane per
+    (frame, channel)."""
     from frad_python_tpu_torch.models import profile2
     from frad_python_tpu_torch.parallel.pipeline import _parse_frames
 
     headers, payloads, _ = _parse_frames(stream)
-    active = lanes = 0
-    for h, p in zip(headers, payloads):
-        if p is None:
-            continue
-        lpc = profile2.untrim_streams(profile2.unpack_streams(p), h.fsize, h.channels)[2]
-        active += int((lpc.reshape(profile2.ORDER1, h.channels) != 0).any(axis=0).sum())
-        lanes += h.channels
-    return active, lanes
+    rows = [profile2.untrim_streams(profile2.unpack_streams(p), h.fsize, h.channels)[2]
+            .reshape(profile2.ORDER1, h.channels).T
+            for h, p in zip(headers, payloads) if p is not None]
+    return np.concatenate(rows) if rows else np.zeros((0, profile2.ORDER1))
+
+
+def tns_lane_share(stream: bytes) -> tuple[int, int]:
+    """(lanes with a non-zero LPC row, lanes) over the Profile 2 payloads."""
+    rows = tns_lpc_rows(stream)
+    return int((rows != 0).any(axis=1).sum()), len(rows)
+
+
+def stage_summary(timer) -> str:
+    """A StageTimer's summary on one line."""
+    return "; ".join(" ".join(line.split()) for line in timer.summary().splitlines())
 
 
 def tns_phase(ft, torch, kernels, native, dev) -> dict:
@@ -1105,8 +1412,11 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
     from frad_python_tpu_torch.models import profile2
     from frad_python_tpu_torch.parallel import pipeline
     from frad_python_tpu_torch.parallel.pipeline import _parse_frames
+    from frad_python_tpu_torch.utils.tracing import StageTimer
 
     res = check_tns_kernels(torch, kernels, dev)
+    res["analysis"] = check_tns_analysis_kernels(torch, kernels, dev)
+    res["thunks"].update(res["analysis"]["thunks"])
     pcm = make_audio(SECONDS, SRATE, CHANNELS)
     frames, terms = pipeline.plan_frames(len(pcm), FSIZE, 16, True)
     n = len(frames)
@@ -1118,6 +1428,7 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
     stream_decode(ft, torch, warm_s, PUSH, dev)
     torch.cuda.synchronize()
     forms = FormTally()
+    pipeline.STAGES = stages = StageTimer()
     kernels.reset_launches()
     native.reset_calls()
     with forms:
@@ -1125,6 +1436,7 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
                                                              device=dev))
         (out, sr), t_dec = timed(torch, lambda: ft.batch_decode(stream, device=dev))
     res["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    pipeline.STAGES = None
     calls = {w.__name__: w.calls for w in native.WRAPPERS}
     headers, payloads, tail = _parse_frames(stream)
     if (sum(p is not None for p in payloads), sum(p is None for p in payloads), tail,
@@ -1149,12 +1461,24 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
     if d_cpu > P2_CARD_VS_CPU_MAX_ABS:
         raise AssertionError(f"profile 2 card vs CPU decode differ by {d_cpu} > "
                              f"{P2_CARD_VS_CPU_MAX_ABS}")
+    # the same encode on the CPU (plain versions): the gates decide alike
+    lpc_card = tns_lpc_rows(stream)
+    lpc_cpu = tns_lpc_rows(ft.batch_encode(pcm, 2, SRATE, BITS, FSIZE, device="cpu"))
+    lpc_differ = int((lpc_card != lpc_cpu).any(axis=1).sum()) \
+        if lpc_card.shape == lpc_cpu.shape else lanes
+    if lpc_differ > TNS_CARD_VS_CPU_LANES:
+        raise AssertionError(f"profile 2: the card's quantised LPC differs from the CPU "
+                             f"encode's on {lpc_differ} of {lanes} lanes "
+                             f"(allowed {TNS_CARD_VS_CPU_LANES})")
     print(f"p2_stereo_44k1: {n} frames + {terms} terminators, {len(stream)} bytes, TNS ran on "
-          f"{active} of {lanes} lanes ({active / lanes:.4f}), SNR {snr:.4f} dB (floor "
+          f"{active} of {lanes} lanes ({active / lanes:.4f}; the CPU encode's "
+          f"{int((lpc_cpu != 0).any(axis=1).sum())}, LPC rows differing {lpc_differ}), SNR "
+          f"{snr:.4f} dB (floor "
           f"{P2_SNR_FLOOR_DB}), enc {n / t_enc:.1f} frames/s ({t_enc:.3f} s), dec "
           f"{n / t_dec:.1f} frames/s ({t_dec:.3f} s), card vs cpu decode max|d| {d_cpu} "
           f"(tolerance {P2_CARD_VS_CPU_MAX_ABS}), launches {res['launches']}, native calls "
           f"{calls}")
+    print(f"stages p2 batch encode + decode: {stage_summary(stages)}")
 
     # streaming: the Decoder in 32 KiB pushes over the same stream
     kernels.reset_launches()
@@ -1163,7 +1487,8 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
     res["stream_launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
     d_sb = float(np.abs(out_s - out).max()) if out_s.shape == out.shape else float("inf")
     if d_sb > STREAM_VS_BATCH_MAX_ABS or snr_db(pcm, out_s) < P2_SNR_FLOOR_DB \
-            or min(res["stream_launches"][k] for k in ("tns_iir", "overlap_add")) <= 0:
+            or min(res["stream_launches"][k]
+                   for k in ("tns_iir", "overlap_add", "thres_expand")) <= 0:
         raise AssertionError(f"profile 2 streaming decode: max|stream - batch| {d_sb}, SNR "
                              f"{snr_db(pcm, out_s):.4f} dB, launches {res['stream_launches']}")
     # the Encoder refuses profile 2 in its gauntlet, as the JAX package's
@@ -1174,19 +1499,21 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
     state["profile"] = 2
     enc.load_state_dict(state)
     raw = to_s16le(pcm)
+    pipeline.STAGES = stages = StageTimer()
     kernels.reset_launches()
     with forms:
         s_enc, t_se = timed(torch, lambda: b"".join(
             [enc.process(raw[i:i + PUSH]).buf for i in range(0, len(raw), PUSH)]
             + [enc.flush().buf]))
     l_enc = {k.__name__: k.launches for k in kernels.KERNELS}
+    pipeline.STAGES = None
     for k in l_enc:
         res["stream_launches"][k] += l_enc[k]
     out_e, _ = ft.batch_decode(s_enc, device=dev)
     h_e, p_e, _ = _parse_frames(s_enc)
     if {h.profile for h in h_e} != {2} or sum(p is not None for p in p_e) != n \
             or snr_db(pcm, out_e) < P2_SNR_FLOOR_DB \
-            or min(l_enc[k] for k in ("power_quant", "tns_levinson")) <= 0:
+            or min(l_enc[k] for k in P2_ENCODE_KERNELS) <= 0:
         raise AssertionError(f"profile 2 streaming encode: {len(h_e)} headers, SNR "
                              f"{snr_db(pcm, out_e):.4f} dB, launches {l_enc}")
     print(f"stream p2: dec {PUSH}-byte pushes {t_s:.3f} s ({n / t_s:.1f} frames/s, first audio "
@@ -1195,6 +1522,7 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
           f"{dec_tally.used()}; enc (state dict with profile 2) {t_se:.3f} s "
           f"({n / t_se:.1f} frames/s), SNR {snr_db(pcm, out_e):.4f} dB; launches "
           f"{res['stream_launches']}")
+    print(f"stages p2 Encoder, {PUSH}-byte pushes: {stage_summary(stages)}")
 
     # profiles 1 and 2 at float64 (the JAX package's default off the TPU)
     short = make_audio(F64_SECONDS, SRATE, CHANNELS)
@@ -1392,7 +1720,7 @@ def _frames_of(pcm: np.ndarray) -> list:
 
 
 def kernel_yardsticks(torch, thunks: dict, more_bounds: dict) -> dict:
-    """For the eight kernels at their main-path shapes (float32): the device
+    """For the twelve kernels at their main-path shapes (float32): the device
     time of one launch of each on its check's inputs (`thunks`, {kernel
     function name: call}; `egr_` sums egr_pack's three kernels) from one
     `torch.profiler` call, and each kernel's bound from the bytes it must
@@ -1438,8 +1766,10 @@ def main() -> int:
     from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
     from frad_python_tpu_torch.models.profiles import compact
     from frad_python_tpu_torch.native import build as native_build
+    from frad_python_tpu_torch.parallel import pipeline
     from frad_python_tpu_torch.parallel.pipeline import _parse_frames, plan_frames
     from frad_python_tpu_torch.utils.damage import damage_stream
+    from frad_python_tpu_torch.utils.tracing import StageTimer
 
     # 1. card
     smi = subprocess.run(
@@ -1507,11 +1837,14 @@ def main() -> int:
         print(f"kernel overlap_add {OVERLAP_SHAPE} i16={i16}: equal, max|d| {err}, "
               f"{oa[i16][0]:.4f} ms vs plain {oa[i16][1]:.4f} ms")
 
-    # 3b. egr_pack and dequant at every form the runs below launch them at;
-    # from here to the end a tally of their launches holds the runs to that
+    # 3b. egr_pack, dequant, mask_thres and thres_expand at every form the
+    # runs below launch them at; from here to the end a tally of their
+    # launches holds the runs to that
     new = check_egr_dequant(torch, kernels, dev)
+    thres = check_thres_kernels(torch, kernels, dev)
     tally_stack = contextlib.ExitStack()
-    new_forms = tally_stack.enter_context(FormTally(only=("egr_pack", "dequant")))
+    new_forms = tally_stack.enter_context(
+        FormTally(only=("egr_pack", "dequant", "mask_thres", "thres_expand")))
 
     # 4. the slice end to end on the card
     pcm = make_audio(SECONDS, SRATE, CHANNELS)
@@ -1520,6 +1853,7 @@ def main() -> int:
                     i16_transfer=True, device=dev)
     torch.cuda.synchronize()
 
+    pipeline.STAGES = stages = StageTimer()
     kernels.reset_launches()
     native.reset_calls()
     egr_words_before = new_forms.egr_words
@@ -1533,6 +1867,7 @@ def main() -> int:
     t_dec = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     calls = {w.__name__: w.calls for w in native.WRAPPERS}
+    pipeline.STAGES = None
     main_egr_words = new_forms.egr_words - egr_words_before
 
     frames, terms = plan_frames(len(pcm), FSIZE, 16, True)
@@ -1563,6 +1898,7 @@ def main() -> int:
           f"dec {len(frames) / t_dec:.1f} frames/s ({t_dec:.3f} s), launches {launches}, "
           f"native calls {calls}; egr_pack's compacted words copied back: {main_egr_words} "
           f"({main_egr_words * 4} bytes as int32)")
+    print(f"stages p1 batch encode + decode: {stage_summary(stages)}")
 
     # 5. the card's stream decoded on the CPU (plain versions)
     out_cpu, _ = ft.batch_decode(stream, i16_transfer=True, device="cpu")
@@ -1628,7 +1964,6 @@ def main() -> int:
     # 7. the streaming engines: kernels at their shapes, then the track as
     # s16le bytes through Encoder, Decoder and Repairer
     from frad_python_tpu_torch.models import profile1
-    from frad_python_tpu_torch.parallel import pipeline
 
     pq_s_err, oa_s_err = check_stream_shapes(torch, kernels, crossfade_window, dev)
     raw = to_s16le(pcm)
@@ -1726,24 +2061,27 @@ def main() -> int:
     p2 = tns_phase(ft, torch, kernels, native, dev)
     tns_lanes = TNS_SHAPES["float32"][0][0]
     big = p2[(tns_lanes, "float32")]
+    ana = p2["analysis"]
+    big_a = ana[(tns_lanes, "float32")]
 
     # 10. the command line, then the tally of egr_pack's and dequant's forms
     cli_phase(ft, torch, kernels, dev, pcm, smi)
     tally_stack.close()
     new_forms.require_held("the runs")
-    print("forms at which the runs launched egr_pack and dequant, each held against its plain "
-          "version above (form: launches): "
+    print("forms at which the runs launched egr_pack, dequant, mask_thres and thres_expand, each "
+          "held against its plain version above (form: launches): "
           + ", ".join(f"{f}: {c}" for f, c in sorted(new_forms.seen.items(), key=str)))
 
     yards = kernel_yardsticks(torch, {
         "power_quant_kernel": lambda: kernels.power_quant(f_d, d_d, factor),
         "overlap_add_kernel": lambda: kernels.overlap_add(pcm_k, w, CUT, True),
-        **lossless["thunks"], **p2["thunks"], **new["thunks"]}, new["bounds"])
+        **lossless["thunks"], **p2["thunks"], **new["thunks"], **thres["thunks"]},
+        {**new["bounds"], **thres["bounds"], **p2["analysis"]["bounds"]})
 
     def yard(name: str) -> dict:
         """The keys every kernel's entry carries beside its own times:
         its bound, `library_ms` (no single PyTorch call computes any of the
-        eight functions), `device_ms_synthetic` (one launch on the check's
+        twelve functions), `device_ms_synthetic` (one launch on the check's
         inputs under the profiler, not the runs' data), and for the four
         kernels of the Profile 2 path their launches there."""
         out = {"bound_ms": yards["bounds"][name][0], "bound_by": yards["bounds"][name][1],
@@ -1817,6 +2155,40 @@ def main() -> int:
          "ms": new["deq_ms"], "plain_ms": new["deq_plain_ms"],
          "ms_4_frames": new["deq_4_ms"], "plain_ms_4_frames": new["deq_4_plain_ms"],
          "streaming_launches": stream_launches["dequant"], **yard("dequant")},
+        {"name": "tns_autocorr", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/tns_autocorr.cu",
+         "replaces": "frad_python_tpu/ops/tns_jax.py:31",
+         "launches": p2["launches"]["tns_autocorr"], "max_abs_err": ana["ac_err"],
+         "ms": big_a["ac"], "plain_ms": big_a["ac_plain"],
+         "ms_f64": ana[(tns_lanes, "float64")]["ac"],
+         "plain_ms_f64": ana[(tns_lanes, "float64")]["ac_plain"],
+         "ms_8_lanes": ana[(8, "float32")]["ac"],
+         "plain_ms_8_lanes": ana[(8, "float32")]["ac_plain"], **yard("tns_autocorr")},
+        {"name": "tns_fir_gate", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/tns_fir_gate.cu",
+         "replaces": "frad_python_tpu/ops/tns_jax.py:87",
+         "launches": p2["launches"]["tns_fir_gate"], "max_abs_err": ana["fg_err"],
+         "ms": big_a["fg"], "plain_ms": big_a["fg_plain"],
+         "ms_f64": ana[(tns_lanes, "float64")]["fg"],
+         "plain_ms_f64": ana[(tns_lanes, "float64")]["fg_plain"],
+         "ms_8_lanes": ana[(8, "float32")]["fg"],
+         "plain_ms_8_lanes": ana[(8, "float32")]["fg_plain"], **yard("tns_fir_gate")},
+        {"name": "mask_thres", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/mask_thres.cu",
+         "replaces": "frad_python_tpu/ops/psycho.py:165",
+         "launches": p2["launches"]["mask_thres"], "max_abs_err": thres["mt_err"],
+         "ms": thres["mt_ms"], "plain_ms": thres["mt_plain_ms"],
+         "ms_4_frames": thres["mt_4_ms"], "plain_ms_4_frames": thres["mt_4_plain_ms"],
+         "launches_p1": launches["mask_thres"],
+         "streaming_launches": stream_launches["mask_thres"], **yard("mask_thres")},
+        {"name": "thres_expand", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/thres_expand.cu",
+         "replaces": "frad_python_tpu/models/batch.py:351",
+         "launches": p2["launches"]["thres_expand"], "max_abs_err": thres["te_err"],
+         "ms": thres["te_ms"], "plain_ms": thres["te_plain_ms"],
+         "ms_4_frames": thres["te_4_ms"], "plain_ms_4_frames": thres["te_4_plain_ms"],
+         "launches_p1": launches["thres_expand"],
+         "streaming_launches": stream_launches["thres_expand"], **yard("thres_expand")},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

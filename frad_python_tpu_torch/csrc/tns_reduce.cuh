@@ -1,0 +1,78 @@
+// The TNS analysis kernels' shared arithmetic: IEEE-rounded operations by
+// type, and the block reduction whose order is part of both functions.
+//
+// A block of SUM_T = 256 threads owns one row. Thread t adds the elements
+// t, t + 256, t + 512, ... of a row in ascending order, starting from +0 (the
+// row counts as padded with +0 to a multiple of 256), then `block_sum` adds
+// the 256 running sums as a fixed tree: inside each warp p[i] += p[i + s] for
+// s = 16, 8, 4, 2, 1 (shuffles), then over the 8 warp sums for s = 4, 2, 1.
+// kernels/tns_autocorr.py:row_sum is the same order in PyTorch. Every sum and
+// product is an _rn intrinsic, so nvcc contracts nothing into an FMA.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace tns {
+
+constexpr int SUM_T = 256;
+constexpr int WARPS = SUM_T / 32;
+constexpr int ORDER1 = 13;
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
+__device__ __forceinline__ double abs_t(double a) { return fabs(a); }
+__device__ __forceinline__ float log_t(float a) { return logf(a); }
+__device__ __forceinline__ double log_t(double a) { return log(a); }
+__device__ __forceinline__ float exp_t(float a) { return expf(a); }
+__device__ __forceinline__ double exp_t(double a) { return exp(a); }
+__device__ __forceinline__ float log10_t(float a) { return log10f(a); }
+__device__ __forceinline__ double log10_t(double a) { return log10(a); }
+__device__ __forceinline__ float rint_t(float a) { return rintf(a); }
+__device__ __forceinline__ double rint_t(double a) { return rint(a); }
+__device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
+
+// The K running sums of every thread -> the K row sums, in every thread.
+// `scratch` holds WARPS * K values of shared memory.
+template <typename T, int K>
+__device__ __forceinline__ void block_sum(T (&v)[K], T* scratch) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1)
+            v[k] = add_rn(v[k], __shfl_down_sync(0xffffffffu, v[k], s));
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    __syncthreads();                     // the scratch of an earlier sum is read
+    if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) scratch[warp * K + k] = v[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        T w[WARPS];
+#pragma unroll
+        for (int j = 0; j < WARPS; ++j) w[j] = scratch[j * K + k];
+#pragma unroll
+        for (int s = WARPS / 2; s > 0; s >>= 1) {
+#pragma unroll
+            for (int j = 0; j < s; ++j) w[j] = add_rn(w[j], w[j + s]);
+        }
+        v[k] = w[0];
+    }
+}
+
+}  // namespace tns

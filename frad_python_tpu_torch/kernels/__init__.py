@@ -4,8 +4,9 @@ version: the counterparts of the JAX package's Pallas kernels
 programs of the Profile 0 fast path (frad_python_tpu/ops/bitpack.py), of
 Profile 2's TNS (frad_python_tpu/ops/tns_jax.py), of Profile 1's
 Exp-Golomb-Rice packer (frad_python_tpu/ops/bitpack.py, parallel/
-pipeline.py) and of the lossy decoders' dequantiser
-(frad_python_tpu/models/batch.py).
+pipeline.py), of the lossy decoders' dequantiser and of the masking
+threshold chains of the lossy encoders and decoders
+(frad_python_tpu/models/batch.py, ops/psycho.py). Twelve kernels:
 
 * `power_quant.power_quant` — the lossy encoders' quantisation epilogue
   (Pallas `power_quant`), float32 -> int32 or float64 -> int64, with or
@@ -28,6 +29,20 @@ pipeline.py) and of the lossy decoders' dequantiser
 * `dequant.dequant` — the lossy decoders' dequantiser in the IDCT's
   layout (the pre-IDCT chain of XLA `_p1_decode_jit` / `_p2_decode_jit`),
   source csrc/dequant.cu.
+* `tns_autocorr.tns_autocorr` — the front of Profile 2's TNS analysis: the
+  masking divide, the windowed autocorrelation and the flatness and energy
+  gates (XLA `_autocorr`, `_flatness_gate`), source csrc/tns_autocorr.cu.
+* `tns_fir_gate.tns_fir_gate` — its back: coefficient quantisation, the
+  analysis FIR, the remaining gates and the selects (XLA `_quantise`,
+  `_fir`, `_predgain`, the tail of `tns_analysis`), source
+  csrc/tns_fir_gate.cu.
+* `mask_thres.mask_thres` — the lossy encoders' threshold chain after the
+  band-sum GEMM, with the threshold symbols (XLA `mask_thres_mos_jnp` and
+  the symbols of `_p1_encode_jit` / `_p2_encode_jit`), source
+  csrc/mask_thres.cu.
+* `thres_expand.thres_expand` — the lossy decoders' threshold expansion
+  before the interpolation GEMM (the head of XLA `_p1_decode_jit` /
+  `_p2_decode_jit`), source csrc/thres_expand.cu.
 
 A wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors, counting launches in its `launches` attribute. The
@@ -36,15 +51,19 @@ kernels are compiled at first launch (`build.py`).
 
 from .dequant import dequant, dequant_plain
 from .egr_pack import egr_pack, egr_pack_plain
+from .mask_thres import mask_thres, mask_thres_plain
 from .overlap_add import overlap_add, overlap_add_plain
 from .power_quant import power_quant, power_quant_plain
+from .thres_expand import thres_expand, thres_expand_plain
+from .tns_autocorr import tns_autocorr, tns_autocorr_plain
+from .tns_fir_gate import tns_fir_gate, tns_fir_gate_plain
 from .tns_iir import tns_iir, tns_iir_plain
 from .tns_levinson import tns_levinson, tns_levinson_plain
 from .trunc_pack import trunc_pack, trunc_pack_plain
 from .trunc_unpack import trunc_unpack, trunc_unpack_plain
 
 KERNELS = (power_quant, overlap_add, trunc_pack, trunc_unpack, tns_iir, tns_levinson,
-           egr_pack, dequant)
+           egr_pack, dequant, tns_autocorr, tns_fir_gate, mask_thres, thres_expand)
 
 
 def reset_launches() -> None:
@@ -53,7 +72,9 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "dequant", "dequant_plain", "egr_pack", "egr_pack_plain", "overlap_add",
-           "overlap_add_plain", "power_quant", "power_quant_plain", "reset_launches", "tns_iir",
+__all__ = ["KERNELS", "dequant", "dequant_plain", "egr_pack", "egr_pack_plain", "mask_thres",
+           "mask_thres_plain", "overlap_add", "overlap_add_plain", "power_quant",
+           "power_quant_plain", "reset_launches", "thres_expand", "thres_expand_plain",
+           "tns_autocorr", "tns_autocorr_plain", "tns_fir_gate", "tns_fir_gate_plain", "tns_iir",
            "tns_iir_plain", "tns_levinson", "tns_levinson_plain", "trunc_pack",
            "trunc_pack_plain", "trunc_unpack", "trunc_unpack_plain"]

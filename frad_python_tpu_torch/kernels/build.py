@@ -1,8 +1,8 @@
 """Build the CUDA kernels in `csrc/` into one plain-C shared library.
 
 `nvcc` compiles every `csrc/*.cu` for `sm_90a` (Hopper), in parallel, into
-`_build/<hash>/libfrad_kernels.so`, where the hash covers the sources and
-the flags, so an edited source rebuilds and an unchanged one loads the
+`_build/<hash>/libfrad_kernels.so`, where the hash covers the sources, the
+headers they share (`csrc/*.cuh`) and the flags, so an edited source rebuilds and an unchanged one loads the
 library already built. The build runs at the first kernel launch (or
 from `python -m frad_python_tpu_torch.kernels.build`); importing this
 module builds nothing. The library is loaded with ctypes: every pointer
@@ -39,6 +39,10 @@ SIGNATURES = {
     "frad_tns_iir": (_P, _P, _P, _I, _I, _I, _P),
     "frad_egr_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "frad_dequant": (_P, _P, _P, _I, _I, _I, _D, _D, _I, _P),
+    "frad_mask_thres": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D, _D, _I, _P),
+    "frad_thres_expand": (_P, _P, _I, _I, _D, _I, _P),
+    "frad_tns_autocorr": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "frad_tns_fir_gate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -63,7 +67,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME

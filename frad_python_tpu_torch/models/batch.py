@@ -6,17 +6,18 @@ FFT form at float64 and above N = 8192), and the fast path's fused
 pairs: DCT GEMM -> `trunc_pack` kernel (payload words and each frame's
 max|x|), and `trunc_unpack` kernel -> IDCT GEMM.
 
-Encode: PCM -> DCT-II GEMM -> masking thresholds (band-sum GEMM, RMS^0.8,
-AHT floor, x loss) -> interpolation GEMM -> `power_quant` kernel ->
-threshold log-compand. Decode: threshold expansion ->
+Encode: PCM -> DCT-II GEMM -> band-sum GEMM -> `mask_thres` kernel
+(RMS^0.8, AHT floor, x loss, and the log-companded threshold symbols) ->
+interpolation GEMM -> `power_quant` kernel. Decode: `thres_expand` kernel ->
 interpolation GEMM -> `dequant` kernel -> IDCT GEMM (`p1_decode_core`) ->
 `overlap_add` kernel (`p1_decode_oa_core`). The GEMMs are `torch.matmul`
 at full float32; the elementwise stages between them are the
 hand-written CUDA kernels of `kernels/`.
 
 Profile 2 is Profile 1's chain with Temporal Noise Shaping (`ops/tns.py`)
-between the masking divide and the quantiser: the encoder divides, runs
-the TNS analysis (`tns_levinson` kernel) and quantises the residual with
+between the masking divide and the quantiser: the encoder runs the TNS
+analysis (`tns_autocorr`, which divides, `tns_levinson` and `tns_fir_gate`
+kernels) and quantises the residual with
 the `power_quant` kernel's no-divisor form; the decoder dequantises, runs
 the TNS synthesis (`tns_iir` kernel), multiplies the divisors back and
 ends like Profile 1.
@@ -31,14 +32,14 @@ import numpy as np
 import torch
 
 from ..kernels.dequant import dequant
+from ..kernels.mask_thres import mask_thres
 from ..kernels.overlap_add import crossfade_window, overlap_add
 from ..kernels.power_quant import power_quant
+from ..kernels.thres_expand import thres_expand
 from ..kernels.trunc_pack import trunc_pack
 from ..kernels.trunc_unpack import trunc_unpack
 from ..ops import bitpack, psycho, tns
 from ..ops.dct import dct2, idct2
-
-_E_HALF = np.e / 2.0
 
 
 def p0_encode_core(frames: torch.Tensor) -> torch.Tensor:
@@ -81,20 +82,20 @@ def p0_unpack_decode_i24_core(words: torch.Tensor, bits: int, little: bool, n: i
     return bitpack.pcm_to_i24_words(p0_unpack_decode_core(words, bits, little, n, ch))
 
 
-def _thres_quant(thres: torch.Tensor) -> torch.Tensor:
-    """Masking thresholds -> log-companded integer symbols (int64 at
-    float64, else int32)."""
-    log_base = torch.log(torch.tensor(_E_HALF, dtype=thres.dtype, device=thres.device))
-    return torch.round(
-        psycho.dequant(torch.log(torch.clamp(thres, min=1.0)) / log_base)
-    ).to(torch.int64 if thres.dtype == torch.float64 else torch.int32)
+def _mask_thres(freqs: torch.Tensor, srate: int, loss_level: float, factor: float):
+    """[B, C, N] spectra -> (masking thresholds [B * C, 27], their
+    log-companded symbols [B, 27, C], int64 at float64, else int32): the
+    band-sum GEMM of |freqs| * factor, then the `mask_thres` kernel."""
+    b, c, n = freqs.shape
+    k = psycho.device_consts(n, srate, freqs.device, freqs.dtype)
+    sums = psycho.band_sums((torch.abs(freqs) * factor).reshape(b * c, n), k)
+    return mask_thres(sums, k["inv_w"], k["aht"], k["nb"], loss_level, c)
 
 
 def _thres_expand(thres_flat: torch.Tensor, n: int, srate: int) -> torch.Tensor:
-    """[B, 27, C] threshold symbols -> [B, C, N] per-bin divisors."""
-    e_half = torch.tensor(_E_HALF, dtype=thres_flat.dtype, device=thres_flat.device)
-    thres = torch.pow(e_half, psycho.quant(thres_flat.transpose(1, 2)))
-    return psycho.mapping_from_opus(thres, n, srate)
+    """[B, 27, C] threshold symbols -> [B, C, N] per-bin divisors: the
+    `thres_expand` kernel, then the interpolation GEMM."""
+    return psycho.mapping_from_opus(thres_expand(thres_flat.contiguous()), n, srate)
 
 
 def p1_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: float):
@@ -103,11 +104,11 @@ def p1_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: 
     b, n, c = frames.shape
     x = frames.transpose(1, 2)                                  # [B, C, N]
     freqs = dct2(x)
-    thres = psycho.mask_thres_mos(torch.abs(freqs) * factor, srate, loss_level)
-    div = psycho.mapping_from_opus(thres, n, srate)
-    freqs_q = power_quant(freqs.reshape(b * c, n).contiguous(),
-                          div.reshape(b * c, n).contiguous(), factor).reshape(b, c, n)
-    return freqs_q.transpose(1, 2), _thres_quant(thres).transpose(1, 2)
+    thres, thres_q = _mask_thres(freqs, srate, loss_level, factor)
+    div = psycho.mapping_from_opus(thres, n, srate)                 # [B * C, N]
+    freqs_q = power_quant(freqs.reshape(b * c, n).contiguous(), div.contiguous(),
+                          factor).reshape(b, c, n)
+    return freqs_q.transpose(1, 2), thres_q
 
 
 def p1_encode_core_i16(frames_i16: torch.Tensor, srate: int, loss_level: float, factor: float):
@@ -152,13 +153,12 @@ def p2_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: 
     float64."""
     b, n, c = frames.shape
     freqs = dct2(frames.transpose(1, 2))                        # [B, C, N]
-    thres = psycho.mask_thres_mos(torch.abs(freqs) * factor, srate, loss_level)
-    div = psycho.mapping_from_opus(thres, n, srate)
-    masked, lpc_q = tns.tns_analysis(freqs / torch.where(div == 0, torch.inf, div))
-    freqs_q = power_quant(masked.reshape(b * c, n).contiguous(), None,
-                          factor).reshape(b, c, n)
-    return (freqs_q.transpose(1, 2), _thres_quant(thres).transpose(1, 2),
-            lpc_q.to(freqs_q.dtype).transpose(1, 2))
+    thres, thres_q = _mask_thres(freqs, srate, loss_level, factor)
+    div = psycho.mapping_from_opus(thres, n, srate)                 # [B * C, N]
+    masked, lpc_q = tns.tns_analysis(freqs.reshape(b * c, n), div)
+    freqs_q = power_quant(masked, None, factor).reshape(b, c, n)
+    return (freqs_q.transpose(1, 2), thres_q,
+            lpc_q.reshape(b, c, -1).to(freqs_q.dtype).transpose(1, 2))
 
 
 def p2_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,

@@ -122,30 +122,48 @@ def device_consts(dlen: int, srate: int, device: torch.device,
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root on every backend (for
-    float64 input, the plain float64 square root).
+    """Correctly rounded square root on every backend, float32 or float64.
 
-    Torch's vectorised CPU sqrt can be an ulp off (measured: 0.7% of
-    float32 results on an AVX-512 host), while XLA, numpy and CUDA round
-    correctly. The square root taken in float64 and rounded to float32 is
-    the correctly rounded float32 result (53 >= 2*24 + 2 bits, so the
-    double rounding is innocuous even with an f64 result an ulp off)."""
+    Torch's vectorised CPU sqrt can be an ulp off (measured on an AVX-512
+    host: 0.7% of results, float32 and float64 alike), while XLA, numpy
+    and CUDA round correctly. float32: the square root taken in float64
+    and rounded to float32 is the correctly rounded float32 result
+    (53 >= 2*24 + 2 bits, so the double rounding is innocuous even with an
+    f64 result an ulp off). float64 on the CPU: numpy's square root (the
+    hardware instruction)."""
+    if x.dtype == torch.float64:
+        if x.device.type == "cpu":
+            return torch.from_numpy(np.sqrt(x.numpy()))
+        return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def band_sums(freqs: torch.Tensor, consts: dict) -> torch.Tensor:
+    """Sum of squares per active subband of [..., N] magnitude spectra ->
+    [..., nb'], as one GEMM against the band-indicator matrix."""
+    return matmul_rows(freqs * freqs, consts["ind"])
+
+
+def thres_from_sums(sums: torch.Tensor, inv_w: torch.Tensor, aht: torch.Tensor, nb: int,
+                    loss_level: float, alpha: float = SPREAD_ALPHA) -> torch.Tensor:
+    """Band sums [..., nb'] -> masking thresholds [..., SUBBANDS]:
+    RMS^alpha against the AHT floor, times `loss_level`, zeros from band
+    `nb` on."""
+    rms = sqrt_rn(sums * inv_w) ** alpha
+    th = torch.maximum(rms, aht) * loss_level
+    th = th[..., :nb]
+    pad = SUBBANDS - nb
+    if pad > 0:
+        th = torch.cat([th, th.new_zeros(th.shape[:-1] + (pad,))], dim=-1)
+    return th
 
 
 def mask_thres_mos(freqs: torch.Tensor, srate: int, loss_level: float,
                    alpha: float = SPREAD_ALPHA) -> torch.Tensor:
     """Masking thresholds for [..., N] magnitude spectra -> [..., SUBBANDS]."""
     c = device_consts(freqs.shape[-1], srate, freqs.device, freqs.dtype)
-    nb = c["nb"]
-    sums = matmul_rows(freqs * freqs, c["ind"])                 # [..., nb']
-    rms = sqrt_rn(sums * c["inv_w"]) ** alpha
-    th = torch.maximum(rms, c["aht"]) * loss_level
-    th = th[..., :nb]
-    pad = SUBBANDS - nb
-    if pad > 0:
-        th = torch.cat([th, th.new_zeros(th.shape[:-1] + (pad,))], dim=-1)
-    return th
+    return thres_from_sums(band_sums(freqs, c), c["inv_w"], c["aht"], c["nb"], loss_level,
+                           alpha)
 
 
 def mapping_from_opus(mapped_thres: torch.Tensor, freqs_len: int, srate: int) -> torch.Tensor:

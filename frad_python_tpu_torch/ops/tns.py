@@ -1,20 +1,24 @@
-"""Batched Temporal Noise Shaping (Profile 2's tensor domain), as torch ops
-on one device: the counterpart of the JAX package's `ops/tns_jax.py`.
+"""Batched Temporal Noise Shaping (Profile 2's tensor domain) on one
+device: the counterpart of the JAX package's `ops/tns_jax.py`.
 
-Over [..., N] spectra, one lane per (frame, channel), float32 or float64:
+Over [..., N] spectra, one lane per (frame, channel), float32 or float64.
+The analysis is three kernels:
 
-* autocorrelation lags 0..12 as 13 shifted reductions
-* Levinson-Durbin: the `tns_levinson` kernel
-* analysis FIR as 13 shifted multiply-adds
-* synthesis IIR: the `tns_iir` kernel
-* every bypass gate of the reference (spectral flatness, energy, tiny
-  coefficients, blow-up, prediction gain) as a per-lane mask that selects
-  the passthrough.
+* `tns_autocorr`: the masking divide, autocorrelation lags 0..12 and the
+  spectral-flatness and energy gates
+* `tns_levinson`: Levinson-Durbin
+* `tns_fir_gate`: coefficient quantisation, the analysis FIR, the
+  tiny-coefficient, blow-up and prediction-gain gates, and the selects of
+  the passthrough for bypassed lanes
 
-The gates are thresholds on float reductions, and a torch reduction sums
-in another order than XLA's: a lane that sits on a gate can decide
-differently from the JAX package (and then its whole frame's symbols
-differ). The tests count such lanes.
+and the synthesis IIR is the `tns_iir` kernel. On the CPU each runs its
+plain PyTorch version; `_autocorr`, `_fir`, `_flatness_gate`, `_predgain`,
+`_quantise` and `_dequantise` are those plain pieces by their JAX names.
+
+The gates are thresholds on float sums, taken in the order the kernels fix
+(`kernels/tns_autocorr.row_sum`), which is not XLA's: a lane that sits on
+a gate can decide differently from the JAX package (and then its whole
+frame's symbols differ). The tests count such lanes.
 """
 
 from __future__ import annotations
@@ -23,15 +27,18 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..kernels.tns_autocorr import autocorr_plain, tns_autocorr
+from ..kernels.tns_fir_gate import tns_fir_gate
 from ..kernels.tns_iir import tns_iir
-from ..kernels.tns_levinson import tns_levinson
-from .psycho import sqrt_rn
-
-MAX_ORDER = 12
-COEF_RES = 4
-MIN_PRED = 0.030102999566398118  # log10(2)/10
+# the plain pieces of the two analysis kernels, under the JAX module's names
+from ..kernels.tns_autocorr import flatness_gate_plain as _flatness_gate  # noqa: F401
+from ..kernels.tns_fir_gate import COEF_RES, MIN_PRED  # noqa: F401
+from ..kernels.tns_fir_gate import dequantise as _dequantise
+from ..kernels.tns_fir_gate import fir_plain as _fir  # noqa: F401
+from ..kernels.tns_fir_gate import predgain_plain as _predgain  # noqa: F401
+from ..kernels.tns_fir_gate import quantise as _quantise  # noqa: F401
+from ..kernels.tns_levinson import MAX_ORDER, tns_levinson
 
 
 @functools.lru_cache(maxsize=8)
@@ -44,38 +51,12 @@ def _lag_window(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def _autocorr(x: torch.Tensor) -> torch.Tensor:
     """[..., N] -> [..., 13] windowed, normalised autocorrelation."""
-    n = x.shape[-1]
-    sig = x - x.mean(dim=-1, keepdim=True)
-    norm = sqrt_rn((sig * sig).sum(dim=-1, keepdim=True))
-    sig = torch.where(norm > 1e-6, sig / torch.where(norm == 0, 1.0, norm), sig)
-    lags = [(sig[..., : n - l] * sig[..., l:]).sum(dim=-1) for l in range(MAX_ORDER + 1)]
-    return torch.stack(lags, dim=-1) * _lag_window(x.dtype, x.device)
+    return autocorr_plain(x, _lag_window(x.dtype, x.device))
 
 
 def _levinson(ac: torch.Tensor) -> torch.Tensor:
     """[..., 13] autocorrelation -> [..., 13] LPC (the `tns_levinson` kernel)."""
     return tns_levinson(ac.reshape(-1, MAX_ORDER + 1).contiguous()).reshape(ac.shape)
-
-
-def _quantise(lpc: torch.Tensor) -> torch.Tensor:
-    scale = (1 << COEF_RES) - 1
-    q = torch.round(torch.clamp(lpc[..., 1:] * scale, -scale, scale - 1))
-    return torch.cat([torch.zeros_like(lpc[..., :1]), q], dim=-1)
-
-
-def _dequantise(lpc_q: torch.Tensor) -> torch.Tensor:
-    scale = (1 << COEF_RES) - 1
-    deq = lpc_q / scale
-    deq[..., 0] = 1.0
-    return deq
-
-
-def _fir(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
-    """Causal FIR: y[t] = sum_j c[..., j] * x[..., t-j] (13 taps)."""
-    y = coeffs[..., 0:1] * x
-    for j in range(1, MAX_ORDER + 1):
-        y = y + coeffs[..., j:j + 1] * F.pad(x[..., :-j], (j, 0))
-    return y
 
 
 def _iir(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
@@ -86,47 +67,18 @@ def _iir(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
-def _flatness_gate(freqs: torch.Tensor) -> torch.Tensor:
-    """Spectral-flatness gate: True = run TNS."""
-    mag = torch.abs(freqs)
-    geo = torch.exp(torch.log(mag + 1e-10).mean(dim=-1))
-    ari = mag.mean(dim=-1)
-    return geo / (ari + 1e-10) < 0.5
-
-
-def _predgain(orig: torch.Tensor, resid: torch.Tensor) -> torch.Tensor:
-    oc = orig - orig.mean(dim=-1, keepdim=True)
-    rc = resid - resid.mean(dim=-1, keepdim=True)
-    oe = (oc * oc).sum(dim=-1)
-    re = (rc * rc).sum(dim=-1)
-    gain = 20.0 * torch.log10(torch.where(re == 0, 1.0, oe / torch.where(re == 0, 1.0, re)))
-    return torch.where((oe < 1e-10) | (re < 1e-10) | (re >= oe), 0.0, gain)
-
-
-def tns_analysis(freqs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[..., N] -> (residual, quantised LPC [..., 13]); bypassed lanes
-    return (freqs, zeros)."""
+def tns_analysis(freqs: torch.Tensor, div: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., N] spectra, divided first by the per-bin divisors `div`
+    [..., N] where given (a divisor of 0 reads as infinity) -> (residual,
+    quantised LPC [..., 13]); bypassed lanes return (the divided spectra,
+    zeros). Three kernel launches on a CUDA tensor."""
     n = freqs.shape[-1]
-    if n >= MAX_ORDER * 2:
-        run = _flatness_gate(freqs)
-    else:
-        run = torch.zeros(freqs.shape[:-1], dtype=torch.bool, device=freqs.device)
-    run = run & ((freqs * freqs).sum(dim=-1) >= 1e-10)
-
-    lpc = _levinson(_autocorr(freqs))
-    run = run & (torch.abs(lpc[..., 1:]).sum(dim=-1) >= 0.01)
-    lpc_q = _quantise(lpc)
-    run = run & (lpc_q[..., 1:] != 0).any(dim=-1)
-    lpc_deq = _dequantise(lpc_q)
-
-    resid = _fir(freqs, lpc_deq)
-    finite = torch.isfinite(resid).all(dim=-1) & (torch.abs(resid).amax(dim=-1) <= 1e6)
-    run = run & finite
-    run = run & (_predgain(freqs, resid) >= MIN_PRED)
-
-    out = torch.where(run[..., None], resid, freqs)
-    lpc_out = torch.where(run[..., None], lpc_q, torch.zeros_like(lpc_q))
-    return out, lpc_out
+    rows = freqs.reshape(-1, n).contiguous()
+    div_rows = None if div is None else div.reshape(-1, n).contiguous()
+    x, ac, gate = tns_autocorr(rows, div_rows, _lag_window(freqs.dtype, freqs.device))
+    out, lpc_out, _ = tns_fir_gate(x, tns_levinson(ac), gate)
+    return out.reshape(freqs.shape), lpc_out.reshape(freqs.shape[:-1] + (MAX_ORDER + 1,))
 
 
 def tns_synthesis(tns_freqs: torch.Tensor, lpc_q: torch.Tensor) -> torch.Tensor:

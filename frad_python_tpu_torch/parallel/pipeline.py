@@ -39,10 +39,19 @@ upload or transfer. The JAX package's TPU transfer machinery (`_spans`,
 `_put_concurrent`, `_fetch`, the upload thread pool) and its emulated-f64
 routing (`_deep_transform_batch`) are not ported: each run is one device
 call with pinned, non-blocking copies, and float64 runs on the device.
+
+`STAGES` is the JAX pipeline's stage timer: None by default; set to a
+`utils.tracing.StageTimer`, `batch_encode` and `batch_decode` (and the
+engines, which call them) add each stage's host wall and the bytes copied
+each way under the JAX package's stage names. A stage's wall is host time:
+CUDA launches are asynchronous and the timer adds no synchronisation, so
+the device time of `enc:core` / `dec:core` shows in the copy-back stage
+that waits for it (`enc:d2h`, `dec:d2h`), as with XLA's dispatch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import struct
 import zlib
 
@@ -59,6 +68,35 @@ from ..models.profiles import COMPACT, compact
 from ..ops import bitpack, golomb, packing, policy, psycho
 from ..ops.window import hanning_in_overlap
 from ..repairer import DEFAULT_ECC_RATIO, sanitize_ecc_ratio
+from ..utils.tracing import StageTimer
+
+#: when set, the pipeline's stages add their host wall and link bytes here
+STAGES: StageTimer | None = None
+_NO_STAGE = contextlib.nullcontext()
+
+
+def _stage(name: str):
+    return _NO_STAGE if STAGES is None else STAGES.stage(name)
+
+
+def _meter(direction: str, nbytes: int) -> None:
+    """Record `nbytes` copied to ('h2d') or from ('d2h') the device."""
+    if STAGES is not None:
+        STAGES.add_bytes(direction, nbytes)
+
+
+def _up(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """`policy.to_device`, metered."""
+    _meter("h2d", arr.nbytes)
+    return policy.to_device(arr, device)
+
+
+def _down(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """`policy.to_host`, metered."""
+    outs = policy.to_host(*tensors)
+    _meter("d2h", sum(o.nbytes for o in outs))
+    return outs
+
 
 def plan_frames(total: int, fsize: int, overlap_ratio: int, is_compact: bool
                 ) -> tuple[list[tuple[int, int]], int]:
@@ -158,7 +196,8 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
         return []
     channels = pcm.shape[1]
     flen = frs[0][1]
-    arr = _gather(pcm, frs, flen)
+    with _stage("enc:gather"):
+        arr = _gather(pcm, frs, flen)
     arr_p, srate_v, ll = profile1.prepare_frame(arr[0], srate, loss_level)
     dlen = arr_p.shape[0]
     if dlen != flen:
@@ -173,18 +212,20 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
 
     if profile == 2:
         # one core call, then the host EGR coder and DEFLATE per frame
-        fq, tq, lq = batch.p2_encode_core(
-            policy.to_device(arr.astype(dtype), device), srate_v, ll, factor)
-        fqh, tqh, lqh = policy.to_host(fq, tq, lq)
-        return [(profile2.pack_streams(fqh[i].ravel(), tqh[i].ravel(), lqh[i].ravel()),
-                 bdi, frs[i][1]) for i in range(b)]
+        with _stage("enc:core"):
+            fq, tq, lq = batch.p2_encode_core(_up(arr.astype(dtype), device), srate_v, ll,
+                                              factor)
+        with _stage("enc:d2h"):
+            fqh, tqh, lqh = _down(fq, tq, lq)
+        with _stage("enc:pack"):
+            return [(profile2.pack_streams(fqh[i].ravel(), tqh[i].ravel(), lqh[i].ravel()),
+                     bdi, frs[i][1]) for i in range(b)]
 
-    if i16_upload and dtype == "float32":
-        fq, tq = batch.p1_encode_core_i16(
-            policy.to_device(_to_i16(arr), device), srate_v, ll, factor)
-    else:
-        fq, tq = batch.p1_encode_core(
-            policy.to_device(arr.astype(dtype), device), srate_v, ll, factor)
+    with _stage("enc:core"):
+        if i16_upload and dtype == "float32":
+            fq, tq = batch.p1_encode_core_i16(_up(_to_i16(arr), device), srate_v, ll, factor)
+        else:
+            fq, tq = batch.p1_encode_core(_up(arr.astype(dtype), device), srate_v, ll, factor)
     m = dlen * channels
     fq = fq.reshape(b, m)                   # [B, N, C] -> interleaved rows
     tq = tq.reshape(b, psycho.SUBBANDS * channels)
@@ -194,46 +235,51 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
     # on the device, so the fetch carries the stream's own bytes instead
     # of int32 symbols
     if bits > 24 or b == 1 or dtype != "float32":
-        fqh, tqh = policy.to_host(fq, tq)
-        return [(profile1.pack_streams(fqh[i], tqh[i]), bdi, frs[i][1])
-                for i in range(b)]
+        with _stage("enc:d2h"):
+            fqh, tqh = _down(fq, tq)
+        with _stage("enc:pack"):
+            return [(profile1.pack_streams(fqh[i], tqh[i]), bdi, frs[i][1])
+                    for i in range(b)]
 
     max_words = max(m * 12 // 32, 16)
-    flat, used, nbits, ks, ovf = egr_pack(fq.contiguous(), max_words)
-    flat_h, used_h, nbits_h, ks_h, ovf_h, tqh = policy.to_host(
-        flat, used, nbits, ks, ovf, tq)
+    with _stage("enc:egr-pack"):
+        flat, used, nbits, ks, ovf = egr_pack(fq.contiguous(), max_words)
+    with _stage("enc:d2h"):
+        flat_h, used_h, nbits_h, ks_h, ovf_h, tqh = _down(flat, used, nbits, ks, ovf, tq)
     flat_h = flat_h.view(np.uint32)         # int32 words hold the uint32 bit pattern
     offs = np.cumsum(used_h, dtype=np.int64) - used_h
     ovf_rows = np.flatnonzero(ovf_h)
     fq_ovf: dict[int, np.ndarray] = {}
     if ovf_rows.size:
         # (rare) frames whose stream overflowed max_words: host EGR
-        (rows,) = policy.to_host(fq[torch.as_tensor(ovf_rows, device=fq.device)])
+        with _stage("enc:d2h"):
+            (rows,) = _down(fq[torch.as_tensor(ovf_rows, device=fq.device)])
         fq_ovf = dict(zip(ovf_rows.tolist(), rows))
 
-    if native.enabled():
-        # one threaded C++ pass: threshold EGR, word serialisation and
-        # DEFLATE of every frame, over the compacted words rebuilt into
-        # rows padded to the widest frame
-        w = max(int(used_h.max()), 1)
-        flat_pad = np.concatenate([flat_h, np.zeros(w, dtype=np.uint32)])
-        payloads = native.p1_pack_batch(flat_pad[offs[:, None] + np.arange(w)],
-                                        nbits_h, ks_h, ovf_h, tqh)
-        return [(p if p is not None else profile1.pack_streams(fq_ovf[i], tqh[i]),
-                 bdi, frs[i][1]) for i, p in enumerate(payloads)]
+    with _stage("enc:pack"):
+        if native.enabled():
+            # one threaded C++ pass: threshold EGR, word serialisation and
+            # DEFLATE of every frame, over the compacted words rebuilt into
+            # rows padded to the widest frame
+            w = max(int(used_h.max()), 1)
+            flat_pad = np.concatenate([flat_h, np.zeros(w, dtype=np.uint32)])
+            payloads = native.p1_pack_batch(flat_pad[offs[:, None] + np.arange(w)],
+                                            nbits_h, ks_h, ovf_h, tqh)
+            return [(p if p is not None else profile1.pack_streams(fq_ovf[i], tqh[i]),
+                     bdi, frs[i][1]) for i, p in enumerate(payloads)]
 
-    results = []
-    for i in range(b):
-        if i in fq_ovf:
-            freqs_gol = golomb.encode(fq_ovf[i])
-        else:
-            o = int(offs[i])
-            freqs_gol = bitpack.words_to_stream(flat_h[o:o + int(used_h[i])],
-                                                nbits_h[i], ks_h[i])
-        thres_gol = golomb.encode(tqh[i])
-        frad = struct.pack(">I", len(thres_gol)) + thres_gol + freqs_gol
-        results.append((zlib.compress(frad, wbits=-15), bdi, frs[i][1]))
-    return results
+        results = []
+        for i in range(b):
+            if i in fq_ovf:
+                freqs_gol = golomb.encode(fq_ovf[i])
+            else:
+                o = int(offs[i])
+                freqs_gol = bitpack.words_to_stream(flat_h[o:o + int(used_h[i])],
+                                                    nbits_h[i], ks_h[i])
+            thres_gol = golomb.encode(tqh[i])
+            frad = struct.pack(">I", len(thres_gol)) + thres_gol + freqs_gol
+            results.append((zlib.compress(frad, wbits=-15), bdi, frs[i][1]))
+        return results
 
 
 def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
@@ -246,7 +292,8 @@ def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
     channels = pcm.shape[1]
     flen = frs[0][1]
     b = len(frs)
-    arr = _gather(pcm, frs, flen)
+    with _stage("enc:gather"):
+        arr = _gather(pcm, frs, flen)
     base_bits = bit_depth if bit_depth in packing.DEPTHS else 16
     limit = packing.FLOAT_MAX[packing.DEPTHS.index(base_bits)]
 
@@ -256,42 +303,47 @@ def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
             # fast path: the DCT and the truncated-float pack on the
             # device, so both copies carry payload-sized bytes; a frame
             # that escalates sends the batch down the general path
-            if i24_upload and base_bits == 24:
-                words_d, maxabs_d = batch.p0_encode_pack_core_i24(
-                    policy.to_device(bitpack.pcm_to_i24_words_host(arr).reshape(b, -1)
-                                     .view(np.int32), device),
-                    base_bits, little_endian, flen, channels)
-            else:
-                words_d, maxabs_d = batch.p0_encode_pack_core(
-                    policy.to_device(arr.astype(np.float32), device), base_bits,
-                    little_endian)
-            (maxabs,) = policy.to_host(maxabs_d)
+            use_i24 = i24_upload and base_bits == 24
+            with _stage("enc:h2d"):
+                up_d = _up(bitpack.pcm_to_i24_words_host(arr).reshape(b, -1).view(np.int32)
+                           if use_i24 else arr.astype(np.float32), device)
+            with _stage("enc:core"):
+                if use_i24:
+                    words_d, maxabs_d = batch.p0_encode_pack_core_i24(
+                        up_d, base_bits, little_endian, flen, channels)
+                else:
+                    words_d, maxabs_d = batch.p0_encode_pack_core(up_d, base_bits,
+                                                                  little_endian)
+            with _stage("enc:d2h"):
+                (maxabs,) = _down(maxabs_d)
             if np.all(maxabs <= limit):
-                (words,) = policy.to_host(words_d)
+                with _stage("enc:d2h"):
+                    (words,) = _down(words_d)
                 return _BlobParts(words.tobytes(), words.shape[1] * words.itemsize,
                                   packing.DEPTHS.index(base_bits), flen, b)
         dt = "float64" if base_bits >= policy.DEEP_BITS else dtype
-        (coeffs,) = policy.to_host(batch.p0_encode_core(policy.to_device(arr.astype(dt),
-                                                                          device)))
+        with _stage("enc:core"):
+            (coeffs,) = _down(batch.p0_encode_core(_up(arr.astype(dt), device)))
     else:
         coeffs = arr
     flat = coeffs.reshape(b, -1)
     fused_blob = None
-    if not flat.size:
-        maxabs = np.zeros(b)
-    elif coeffs.dtype == np.float64 and base_bits != 12 and native.enabled():
-        # one pass packs at the stream depth and takes each row's max; the
-        # blob is used unless a row escalates
-        fused_blob, maxabs = native.pack_floats_maxabs(flat, base_bits, little_endian)
-    elif coeffs.dtype == np.float64 and native.enabled():
-        maxabs = native.maxabs_rows(flat)
-    else:
-        maxabs = np.maximum(flat.max(axis=1), -flat.min(axis=1))
+    with _stage("enc:maxabs"):
+        if not flat.size:
+            maxabs = np.zeros(b)
+        elif coeffs.dtype == np.float64 and base_bits != 12 and native.enabled():
+            # one pass packs at the stream depth and takes each row's max; the
+            # blob is used unless a row escalates
+            fused_blob, maxabs = native.pack_floats_maxabs(flat, base_bits, little_endian)
+        elif coeffs.dtype == np.float64 and native.enabled():
+            maxabs = native.maxabs_rows(flat)
+        else:
+            maxabs = np.maximum(flat.max(axis=1), -flat.min(axis=1))
     if profile == 0 and coeffs.dtype != np.float64 and any(
             profile0._escalates_deep(float(m), base_bits) for m in maxabs):
         # escalation reaches a container deeper than float32 (perhaps
         # through an f32 overflow to inf): the whole batch again at float64
-        (coeffs,) = policy.to_host(batch.p0_encode_core(policy.to_device(arr, device)))
+        (coeffs,) = _down(batch.p0_encode_core(_up(arr, device)))
         maxabs = np.max(np.abs(coeffs.reshape(b, -1)), axis=1)
     depths = [packing.needed_depth(float(m), base_bits) for m in maxabs]
     if fused_blob is not None and all(d == base_bits for d in depths):
@@ -309,7 +361,8 @@ def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
                               frs[i][1])
             continue
         group = coeffs if len(idxs) == b else coeffs[idxs]
-        blob = packing.pack_floats(group.reshape(-1), d, little_endian)
+        with _stage("enc:host-pack"):
+            blob = packing.pack_floats(group.reshape(-1), d, little_endian)
         per = len(blob) // len(idxs)
         if len(idxs) == b:
             return _BlobParts(blob, per, bdi, flen, b)
@@ -414,28 +467,29 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
     # carries it as the JAX package does
     use_native = native.enabled() and not (enable_ecc and ecc_ratio[0] <= 0)
     framed: list[bytes] = []
-    for g in groups:
-        if isinstance(g, _BlobParts) and not use_native:
-            g = g.as_parts()
-        if isinstance(g, _BlobParts):
-            framed.append(_frame_batch(
-                (g.blob, np.arange(g.n + 1, dtype=np.int64) * g.per),
-                np.full(g.n, g.bdi, np.uint8), np.full(g.n, g.flen, np.uint32),
-                profile=profile, channels=channels, srate=srate,
-                overlap_ratio=overlap_ratio, little_endian=little_endian,
-                ecc_ratio=ecc_ratio if enable_ecc else None))
-        elif use_native:
-            framed.append(_frame_batch(
-                [p for p, _, _ in g], np.array([b for _, b, _ in g], dtype=np.uint8),
-                np.array([f for _, _, f in g], dtype=np.uint32), profile=profile,
-                channels=channels, srate=srate, overlap_ratio=overlap_ratio,
-                little_endian=little_endian, ecc_ratio=ecc_ratio if enable_ecc else None))
-        else:
-            for payload, bdi, flen in g:
-                if enable_ecc:
-                    payload = ecc_mod.encode(payload, *ecc_ratio)
-                framed.append(_asfh_for(profile, bdi, channels, srate, flen,
-                                        **header).write(payload))
+    with _stage("enc:frame"):
+        for g in groups:
+            if isinstance(g, _BlobParts) and not use_native:
+                g = g.as_parts()
+            if isinstance(g, _BlobParts):
+                framed.append(_frame_batch(
+                    (g.blob, np.arange(g.n + 1, dtype=np.int64) * g.per),
+                    np.full(g.n, g.bdi, np.uint8), np.full(g.n, g.flen, np.uint32),
+                    profile=profile, channels=channels, srate=srate,
+                    overlap_ratio=overlap_ratio, little_endian=little_endian,
+                    ecc_ratio=ecc_ratio if enable_ecc else None))
+            elif use_native:
+                framed.append(_frame_batch(
+                    [p for p, _, _ in g], np.array([b for _, b, _ in g], dtype=np.uint8),
+                    np.array([f for _, _, f in g], dtype=np.uint32), profile=profile,
+                    channels=channels, srate=srate, overlap_ratio=overlap_ratio,
+                    little_endian=little_endian, ecc_ratio=ecc_ratio if enable_ecc else None))
+            else:
+                for payload, bdi, flen in g:
+                    if enable_ecc:
+                        payload = ecc_mod.encode(payload, *ecc_ratio)
+                    framed.append(_asfh_for(profile, bdi, channels, srate, flen,
+                                            **header).write(payload))
     if terms:
         _, last_bdi, last_flen = groups[-1][-1]
         framed.append(_asfh_for(profile, last_bdi, channels, srate, last_flen,
@@ -595,28 +649,33 @@ def _decode_lossless(hs: list[ASFH], ps: list[bytes], dtype: str, i24_transfer: 
             and sizes == {n * ch * bits // 8} and (n * ch) % 4 == 0):
         # fast path: the payload bytes go up as words; the trunc_unpack
         # kernel and the IDCT GEMM run on the device
-        words = np.frombuffer(b"".join(ps), dtype="<i2" if bits == 16 else "<i4")
-        words_d = policy.to_device(words.reshape(run, -1), device)
-        if i24_transfer and bits == 24:
-            (w,) = policy.to_host(batch.p0_unpack_decode_i24_core(
-                words_d, bits, h0.endian, n, ch))
-            return bitpack.i24_words_to_pcm(w).reshape(run, n, ch)
-        (out,) = policy.to_host(batch.p0_unpack_decode_core(words_d, bits, h0.endian, n, ch))
-        return out
-    if bits != 12 and len(sizes) == 1:
-        # equal byte-aligned payloads: one vectorised unpack
-        flat = packing.unpack_floats(b"".join(ps), bits, h0.endian)
-        coeffs = flat.reshape(run, -1, ch)[:, :n, :]
-    else:
-        coeffs = np.zeros((run, n, ch))
-        for i, p in enumerate(ps):
-            flat = packing.unpack_floats(p, bits, h0.endian)
-            rows = flat[: (len(flat) // ch) * ch].reshape(-1, ch)[:n]
-            coeffs[i, :len(rows)] = rows
+        with _stage("dec:unpack"):
+            words = np.frombuffer(b"".join(ps), dtype="<i2" if bits == 16 else "<i4")
+        with _stage("dec:h2d"):
+            words_d = _up(words.reshape(run, -1), device)
+        i24 = i24_transfer and bits == 24
+        with _stage("dec:core"):
+            out_d = (batch.p0_unpack_decode_i24_core if i24 else batch.p0_unpack_decode_core)(
+                words_d, bits, h0.endian, n, ch)
+        with _stage("dec:d2h"):
+            (out,) = _down(out_d)
+            return bitpack.i24_words_to_pcm(out).reshape(run, n, ch) if i24 else out
+    with _stage("dec:unpack"):
+        if bits != 12 and len(sizes) == 1:
+            # equal byte-aligned payloads: one vectorised unpack
+            flat = packing.unpack_floats(b"".join(ps), bits, h0.endian)
+            coeffs = flat.reshape(run, -1, ch)[:, :n, :]
+        else:
+            coeffs = np.zeros((run, n, ch))
+            for i, p in enumerate(ps):
+                flat = packing.unpack_floats(p, bits, h0.endian)
+                rows = flat[: (len(flat) // ch) * ch].reshape(-1, ch)[:n]
+                coeffs[i, :len(rows)] = rows
     if h0.profile == 4:
         return coeffs
     dt = "float64" if bits >= policy.DEEP_BITS else dtype
-    (out,) = policy.to_host(batch.p0_decode_core(policy.to_device(coeffs.astype(dt), device)))
+    with _stage("dec:core"):
+        (out,) = _down(batch.p0_decode_core(_up(coeffs.astype(dt), device)))
     return out
 
 
@@ -638,7 +697,8 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     n = h0.fsize
     dtype = policy.check_compute_dtype(compute_dtype)
     if h0.ecc:
-        ps = _unarmor(hs, ps, fix_error)
+        with _stage("dec:ecc"):
+            ps = _unarmor(hs, ps, fix_error)
     if h0.profile in (0, 4):
         if h0.bit_depth_index >= len(packing.DEPTHS) or not _batch_splits(
                 ps, packing.DEPTHS[h0.bit_depth_index], ch):
@@ -653,28 +713,33 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     olap = n - cut
     factor = profile1._scale_factor(depths[h0.bit_depth_index])
 
-    fq, tq, lq = _unpack_run(ps, n, ch, h0.profile, dtype)
-    fq = fq.reshape(run, n, ch)
-    tq = tq.reshape(run, psycho.SUBBANDS, ch)
-    if dtype == "float32" and float(np.abs(fq).max(initial=0.0)) <= 32767.0:
-        # EGR symbols are small exact integers: int16 halves the upload,
-        # and the cast back on the device is exact
-        fq = fq.astype(np.int16)
+    with _stage("dec:unpack"):
+        fq, tq, lq = _unpack_run(ps, n, ch, h0.profile, dtype)
+        fq = fq.reshape(run, n, ch)
+        tq = tq.reshape(run, psycho.SUBBANDS, ch)
+        if dtype == "float32" and float(np.abs(fq).max(initial=0.0)) <= 32767.0:
+            # EGR symbols are small exact integers: int16 halves the upload,
+            # and the cast back on the device is exact
+            fq = fq.astype(np.int16)
     # the int16 emit is Profile 1's at float32; the JAX package fetches
     # Profile 2's frames as floats
     i16 = i16_transfer and dtype == "float32" and h0.profile == 1
 
-    fq_d, tq_d = policy.to_device(fq, device), policy.to_device(tq, device)
-    if h0.profile == 2:
-        out_d, frag_d = batch.p2_decode_oa_core(
-            fq_d, tq_d, policy.to_device(lq.reshape(run, profile2.ORDER1, ch), device),
-            h0.srate, factor, olap, cut, i16)
-    else:
-        out_d, frag_d = batch.p1_decode_oa_core(fq_d, tq_d, h0.srate, factor, olap, cut, i16)
-    out_h, frag = policy.to_host(out_d, frag_d)
-    if i16:
-        out_h = (native.i16_to_f64(out_h) if native.enabled()
-                 else out_h.astype(np.float64) / 32768.0)
+    with _stage("dec:core"):
+        fq_d, tq_d = _up(fq, device), _up(tq, device)
+        if h0.profile == 2:
+            out_d, frag_d = batch.p2_decode_oa_core(
+                fq_d, tq_d, _up(lq.reshape(run, profile2.ORDER1, ch), device),
+                h0.srate, factor, olap, cut, i16)
+        else:
+            out_d, frag_d = batch.p1_decode_oa_core(fq_d, tq_d, h0.srate, factor, olap, cut,
+                                                    i16)
+    with _stage("dec:d2h"):
+        out_h, frag = _down(out_d, frag_d)
+    with _stage("dec:host-conv"):
+        if i16:
+            out_h = (native.i16_to_f64(out_h) if native.enabled()
+                     else out_h.astype(np.float64) / 32768.0)
     return out_h.reshape(-1, ch), frag.astype(np.float64)
 
 
@@ -725,7 +790,8 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
 
     policy.check_compute_dtype(compute_dtype)
     dev = policy.resolve_device(device)
-    headers, payloads, tail_bytes = _parse_frames(stream)
+    with _stage("dec:parse"):
+        headers, payloads, tail_bytes = _parse_frames(stream)
     if not any(p is not None for p in payloads):
         dec = Decoder(fix_error=fix_error, device=dev)
         parts = [p for p in (dec.process(stream).pcm, dec.flush().pcm) if p.size]

@@ -139,6 +139,16 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
         kernels.egr_pack(torch.empty((4, 8), dtype=torch.int32, device="meta"), 16)
     with pytest.raises(ValueError):
         kernels.dequant(torch.empty((2, 8, 2), device="meta"), None, FACTOR)
+    with pytest.raises(ValueError):
+        kernels.tns_autocorr(meta, None, torch.empty(13, device="meta"))
+    with pytest.raises(ValueError):
+        kernels.tns_fir_gate(meta, torch.empty((4, 13), device="meta"),
+                             torch.empty(4, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError):
+        kernels.mask_thres(meta, torch.empty(8, device="meta"), torch.empty(8, device="meta"),
+                           8, 0.5, 2)
+    with pytest.raises(ValueError):
+        kernels.thres_expand(torch.empty((2, 27, 2), device="meta"))
     assert all(k.launches == 0 for k in kernels.KERNELS)
 
 
@@ -148,11 +158,15 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert {p.name for p in build.sources()} == {"power_quant.cu", "overlap_add.cu",
                                                  "trunc_pack.cu", "trunc_unpack.cu",
                                                  "tns_iir.cu", "tns_levinson.cu",
-                                                 "egr_pack.cu", "dequant.cu"}
+                                                 "egr_pack.cu", "dequant.cu",
+                                                 "tns_autocorr.cu", "tns_fir_gate.cu",
+                                                 "mask_thres.cu", "thres_expand.cu"}
     assert set(build.SIGNATURES) == {"frad_power_quant", "frad_overlap_add",
                                      "frad_trunc_pack", "frad_trunc_unpack",
                                      "frad_tns_iir", "frad_tns_levinson",
-                                     "frad_egr_pack", "frad_dequant"}
+                                     "frad_egr_pack", "frad_dequant",
+                                     "frad_tns_autocorr", "frad_tns_fir_gate",
+                                     "frad_mask_thres", "frad_thres_expand"}
     assert len(kernels.KERNELS) == len(build.SIGNATURES)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -33,6 +33,7 @@ from frad_python_tpu_torch import native as tnative
 from frad_python_tpu_torch.container.asfh import ASFH as TASFH
 from frad_python_tpu_torch.models import batch as tbatch
 from frad_python_tpu_torch.models import profile2 as tprofile2
+from frad_python_tpu_torch.ops import psycho as tpsycho
 from frad_python_tpu_torch.ops import tns as ttns
 from frad_python_tpu_torch.parallel import pipeline as tpipeline
 
@@ -450,6 +451,16 @@ def smoke_form_tables() -> set:
         forms.add(("overlap_add", shape, dtype, olap, shape[2] - olap, i16))
     forms |= {("dequant", shape, dtype, with_div)
               for dtype, shape, with_div in chip_smoke.DEQUANT_FORMS}
+    # the TNS analysis kernels are held at the TNS shapes, with a divisor
+    for dtype, shapes in chip_smoke.TNS_SHAPES.items():
+        for lanes, n in shapes:
+            forms |= {("tns_autocorr", (lanes, n), dtype, True),
+                      ("tns_fir_gate", (lanes, n), dtype)}
+    for dtype, rows, n in chip_smoke.MASK_THRES_FORMS:
+        k = tpsycho.device_consts(n, chip_smoke.SRATE, CPU, getattr(torch, dtype))
+        forms.add(("mask_thres", (rows, k["ind"].shape[1]), dtype, k["nb"], chip_smoke.CHANNELS))
+    forms |= {("thres_expand", (b, tpsycho.SUBBANDS, chip_smoke.CHANNELS), dtype)
+              for dtype, b in chip_smoke.THRES_EXPAND_FORMS}
     return forms
 
 

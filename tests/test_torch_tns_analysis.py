@@ -1,0 +1,265 @@
+"""The TNS analysis kernels' plain versions (`tns_autocorr`,
+`tns_fir_gate`) and `ops/tns.tns_analysis` built from them, on the CPU at
+small sizes: against scalar numpy loops of the same order (the kernels'
+one written definition), and against the JAX package. The function-by-
+function comparisons with `ops/tns_jax.py` are in tests/test_torch_tns.py.
+
+Tolerances, each with its reason:
+
+* against the scalar loops: equal bit for bit (`ac`, the residual, the
+  quantised LPC); the gates are compared as booleans (numpy's `log` and
+  torch's may differ in the last ulp, which moves a gate only for a row on
+  its edge: none on these seeds).
+* `tns_autocorr` with a divisor against the JAX chain: 5e-6 absolute at
+  float32 (13 sums of up to 2048 products of a unit-norm signal in another
+  order than XLA's), 1e-13 at float64; the divided spectra equal but for
+  subnormal values, which XLA's CPU code flushes to zero (within 1000 times
+  the smallest normal number: a subnormal over a divisor of 0.001 or more).
+* `tns_analysis`: `lpc_q` and the run mask equal lane for lane on the
+  seeded spectra (0 differing lanes); residuals 1e-5 of max|y| at float32,
+  1e-12 at float64.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from frad_python_tpu.ops import tns_jax
+from frad_python_tpu_torch import kernels
+from frad_python_tpu_torch.kernels.tns_autocorr import SUM_T, row_mean, row_sum
+from frad_python_tpu_torch.ops import tns
+from test_torch_tns import spectra
+
+DTYPES = ["float32", "float64"]
+
+
+def t_(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ----------------------------------------------------------------------
+# the order of the sums, spelled out with scalars
+# ----------------------------------------------------------------------
+def scalar_row_sum(v: np.ndarray, n: int):
+    """`row_sum` of one row with scalar additions in the row's dtype."""
+    ft = v.dtype.type
+    steps = -(-n // SUM_T)
+    acc = [ft(0)] * SUM_T
+    for i in range(steps):
+        for t in range(SUM_T):
+            idx = i * SUM_T + t
+            acc[t] = ft(acc[t] + (v[idx] if idx < len(v) else ft(0)))
+    warps = []
+    for w in range(SUM_T // 32):
+        p = acc[w * 32:(w + 1) * 32]
+        s = 16
+        while s:
+            p = [ft(p[i] + p[i + s]) for i in range(s)]
+            s //= 2
+        warps.append(p[0])
+    s = len(warps) // 2
+    while s:
+        warps = [ft(warps[i] + warps[i + s]) for i in range(s)]
+        s //= 2
+    return warps[0]
+
+
+def scalar_autocorr(x: np.ndarray, window: np.ndarray):
+    """(ac [13], gate) of one row, as `tns_autocorr_plain` defines them."""
+    ft = x.dtype.type
+    n = len(x)
+    mean = ft(scalar_row_sum(x, n) / ft(n))
+    sig = (x - mean).astype(x.dtype)
+    norm = ft(np.sqrt(np.float64(scalar_row_sum((sig * sig).astype(x.dtype), n))))
+    if norm > ft(1e-6):
+        sig = (sig / norm).astype(x.dtype)
+    ac = np.array([ft(scalar_row_sum((sig[:n - l] * sig[l:]).astype(x.dtype), n) * window[l])
+                   for l in range(13)], dtype=x.dtype)
+    mag = np.abs(x)
+    geo = np.exp(ft(scalar_row_sum(np.log((mag + ft(1e-10)).astype(x.dtype)), n) / ft(n)))
+    ari = ft(scalar_row_sum(mag, n) / ft(n))
+    flat = ft(geo / ft(ari + ft(1e-10))) < 0.5
+    energy = scalar_row_sum((x * x).astype(x.dtype), n) >= ft(1e-10)
+    return ac, bool(n >= 24 and flat and energy)
+
+
+def scalar_fir_gate(x: np.ndarray, lpc: np.ndarray, gate: bool):
+    """(out, lpc_out, run) of one row, as `tns_fir_gate_plain` defines them."""
+    ft = x.dtype.type
+    n = len(x)
+    total = abs(lpc[1])
+    for j in range(2, 13):
+        total = ft(total + abs(lpc[j]))
+    q = np.zeros(13, dtype=x.dtype)
+    q[1:] = np.rint(np.clip((lpc[1:] * ft(15)).astype(x.dtype), -15, 14))
+    run = bool(gate and total >= ft(0.01) and (q[1:] != 0).any())
+    c = (q / ft(15)).astype(x.dtype)
+    c[0] = 1
+    y = np.empty_like(x)
+    for t in range(n):
+        acc = ft(c[0] * x[t])
+        for j in range(1, 13):
+            acc = ft(acc + ft(c[j] * (x[t - j] if t >= j else ft(0))))
+        y[t] = acc
+    run = run and bool(np.isfinite(y).all() and np.abs(y).max() <= ft(1e6))
+    oc = (x - ft(scalar_row_sum(x, n) / ft(n))).astype(x.dtype)
+    rc = (y - ft(scalar_row_sum(y, n) / ft(n))).astype(x.dtype)
+    oe = scalar_row_sum((oc * oc).astype(x.dtype), n)
+    re = scalar_row_sum((rc * rc).astype(x.dtype), n)
+    gain = ft(0)
+    if not (oe < ft(1e-10) or re < ft(1e-10) or re >= oe):
+        gain = ft(ft(20) * np.log10(ft(oe / re)))
+    run = run and bool(gain >= ft(0.030102999566398118))
+    return (y if run else x), (q if run else np.zeros(13, dtype=x.dtype)), run
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m", [(24, 24), (256, 256), (300, 300), (300, 288), (1792, 1780),
+                                 (2048, 2048)])
+def test_row_sum_order_is_the_scalar_loops(n, m, dtype):
+    v = (np.random.default_rng(n + m).standard_normal((3, m))
+         * np.exp(np.random.default_rng(m).standard_normal((3, m)) * 4)).astype(dtype)
+    got = row_sum(t_(v), n).numpy()
+    want = np.array([scalar_row_sum(row, n) for row in v])
+    assert got.dtype == v.dtype
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    assert not np.array_equal(got, v.sum(axis=1)) or dtype == "float64" or n < 64
+    if m == n:
+        np.testing.assert_array_equal(row_mean(t_(v)).numpy(), (want / v.dtype.type(n)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [256, 300])
+def test_tns_autocorr_plain_is_the_scalar_definition(n, dtype):
+    x = spectra(n, dtype).reshape(12, n)
+    window = tns._lag_window(getattr(torch, dtype), torch.device("cpu"))
+    same, ac, gate = kernels.tns_autocorr_plain(t_(x), None, window)
+    assert same.data_ptr() == t_(x).data_ptr() or torch.equal(same, t_(x))
+    for i, row in enumerate(x):
+        want_ac, want_gate = scalar_autocorr(row, window.numpy())
+        np.testing.assert_array_equal(ac[i].numpy().view(np.uint8), want_ac.view(np.uint8))
+        assert bool(gate[i]) == want_gate, i
+    assert gate[:2].all() and not gate[2:5].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tns_fir_gate_plain_is_the_scalar_definition(dtype):
+    n = 300
+    x = spectra(n, dtype).reshape(12, n)
+    window = tns._lag_window(getattr(torch, dtype), torch.device("cpu"))
+    _, ac, gate = kernels.tns_autocorr(t_(x), None, window)
+    lpc = kernels.tns_levinson(ac)
+    out, lpc_out, run = kernels.tns_fir_gate_plain(t_(x), lpc, gate)
+    for i, row in enumerate(x):
+        w_out, w_lpc, w_run = scalar_fir_gate(row, lpc[i].numpy(), bool(gate[i]))
+        assert bool(run[i]) == w_run, i
+        np.testing.assert_array_equal(out[i].numpy().view(np.uint8), w_out.view(np.uint8))
+        np.testing.assert_array_equal(lpc_out[i].numpy().view(np.uint8), w_lpc.view(np.uint8))
+    assert run[:2].all() and not run[2:5].any()
+
+
+# ----------------------------------------------------------------------
+# against the JAX package
+# ----------------------------------------------------------------------
+def divided(n: int, dtype: str):
+    """(freqs, div) [12, n] whose quotient is `spectra` up to rounding, the
+    divisor 0 over the last sixteenth of the bins."""
+    x = spectra(n, "float64").reshape(12, n)
+    div = np.exp(np.random.default_rng(n).standard_normal((12, n))) * 0.1
+    freqs = x * div
+    div[:, n - n // 16:] = 0.0
+    return freqs.astype(dtype), div.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [256, 1792, 2048])
+def test_tns_autocorr_with_divisor_matches_jax(n, dtype):
+    freqs, div = divided(n, dtype)
+    jx = jnp.asarray(freqs) / jnp.where(jnp.asarray(div) == 0, jnp.inf, jnp.asarray(div))
+    window = tns._lag_window(getattr(torch, dtype), torch.device("cpu"))
+    kernels.reset_launches()
+    x, ac, gate = kernels.tns_autocorr(t_(freqs), t_(div), window)
+    assert kernels.tns_autocorr.launches == 0
+    # XLA's CPU code flushes subnormals to zero, a spectrum value before the division too
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0,
+                               atol=1e3 * np.finfo(dtype).tiny)
+    assert not x[:, n - n // 16:].any()
+    np.testing.assert_allclose(ac.numpy(), np.asarray(tns_jax._autocorr(jx)), rtol=0,
+                               atol=5e-6 if dtype == "float32" else 1e-13)
+    want_gate = np.asarray(tns_jax._flatness_gate(jx) & (jnp.sum(jx * jx, axis=-1) >= 1e-10))
+    np.testing.assert_array_equal(gate.numpy(), want_gate)
+    plain = kernels.tns_autocorr_plain(t_(freqs), t_(div), window)
+    assert all(torch.equal(a, b) for a, b in zip((x, ac, gate), plain))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [256, 1792, 2048])
+def test_tns_analysis_with_divisor_matches_jax(n, dtype):
+    freqs, div = divided(n, dtype)
+    jx = jnp.asarray(freqs) / jnp.where(jnp.asarray(div) == 0, jnp.inf, jnp.asarray(div))
+    want_res, want_lpc = (np.asarray(a) for a in tns_jax.tns_analysis(jx))
+    got_res, got_lpc = (a.numpy() for a in tns.tns_analysis(
+        t_(freqs).reshape(6, 2, n), t_(div).reshape(6, 2, n)))
+    assert got_res.shape == (6, 2, n) and got_lpc.shape == (6, 2, 13)
+    got_res, got_lpc = got_res.reshape(12, n), got_lpc.reshape(12, 13)
+    differing = int((got_lpc != want_lpc).any(axis=-1).sum())
+    assert differing == 0, f"{differing} of 12 lanes decide differently"
+    ran = want_lpc.any(axis=-1)
+    assert 3 <= ran.sum() <= 10
+    np.testing.assert_allclose(got_res, want_res, rtol=0, atol=(
+        1e-5 if dtype == "float32" else 1e-12) * np.abs(want_res).max())
+    np.testing.assert_array_equal(got_res[~ran], (t_(freqs) / torch.where(
+        t_(div) == 0, torch.inf, t_(div))).numpy()[~ran])                 # bypass: untouched
+    # the run mask is tns_fir_gate's third output
+    window = tns._lag_window(getattr(torch, dtype), torch.device("cpu"))
+    x, ac, gate = kernels.tns_autocorr(t_(freqs), t_(div), window)
+    out, lpc_out, run = kernels.tns_fir_gate(x, kernels.tns_levinson(ac), gate)
+    np.testing.assert_array_equal(run.numpy(), ran)
+    np.testing.assert_array_equal(out.numpy(), got_res)
+    np.testing.assert_array_equal(lpc_out.numpy(), got_lpc)
+
+
+def test_tns_analysis_is_three_wrapper_calls_and_no_launch_on_the_cpu():
+    x = spectra(256, "float32")
+    kernels.reset_launches()
+    with chip_smoke.FormTally(device_type="cpu") as tally:
+        tns.tns_analysis(t_(x))
+    assert tally.seen == {("tns_autocorr", (12, 256), "float32", False): 1,
+                          ("tns_levinson", (12, 13), "float32"): 1,
+                          ("tns_fir_gate", (12, 256), "float32"): 1}
+    assert all(k.launches == 0 for k in kernels.KERNELS)
+    assert tns._fir is kernels.tns_fir_gate.__globals__["fir_plain"]
+    assert tns._flatness_gate is kernels.tns_autocorr.__globals__["flatness_gate_plain"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chip_smoke_analysis_inputs_cover_every_gate(dtype):
+    """The card check's inputs, through the plain versions: every gate is
+    met from both sides, and bypassed rows come back bit for bit."""
+    lanes, n = 28, 512
+    freqs, div = (t_(a) for a in chip_smoke.analysis_inputs(lanes, n, dtype, 5))
+    window = tns._lag_window(freqs.dtype, torch.device("cpu"))
+    x, ac, gate = kernels.tns_autocorr(freqs, div, window)
+    lpc = kernels.tns_levinson(ac)
+    out, lpc_out, run = kernels.tns_fir_gate(x, lpc, gate)
+    kind = torch.arange(lanes) % chip_smoke.ANALYSIS_KINDS
+    assert run[kind == 0].all() and gate[kind == 12].all() and not run[kind == 12].any()
+    for k in (2, 3, 4, 13):
+        assert not gate[kind == k].any(), k
+    assert torch.isinf(x[kind == 13]).any() and chip_smoke.bits_equal(torch, out[~run], x[~run])
+    assert not lpc_out[~run].any() and lpc_out[run].any()
+    assert 0 < int(gate[(kind >= 6) & (kind < 12)].sum()) < 12       # the flatness edge
+    xb, lpc_b, gate_b = chip_smoke.fir_gate_inputs(torch, x, lpc[0])
+    out_b, lpc_out_b, run_b = kernels.tns_fir_gate(xb, lpc_b, gate_b)
+    kind_b = torch.arange(lanes) % chip_smoke.FIR_KINDS
+    assert run_b[(kind_b == 0) | (kind_b == 6)].all()
+    assert not run_b[(kind_b > 0) & (kind_b < 6)].any()
+    assert chip_smoke.bits_equal(torch, out_b[~run_b], xb[~run_b])
+    assert torch.isnan(out_b[kind_b == 5]).any() and not lpc_out_b[~run_b].any()
+    # kind 4 overflows in the filter, kind 3 fails on the gain alone
+    resid = tns._fir(xb, tns._dequantise(tns._quantise(lpc_b)))
+    assert not torch.isfinite(resid[kind_b == 4]).all()
+    assert torch.isfinite(resid[kind_b == 3]).all() and (tns._predgain(xb, resid)[kind_b == 3]
+                                                         == 0).all()

@@ -39,7 +39,9 @@ After a warm-up of each call:
   call, the device idle share 1 - busy / wall, and the device launches
   (kernels and copies) of the traced call beside its calls of
   `pipeline.batch_encode` and `pipeline._decode_run`, which gives the
-  streaming engines' launches per call.
+  streaming engines' launches per call;
+* stages: one call of each traced call with `pipeline.STAGES` set to a
+  `StageTimer`: host wall and count per stage, bytes copied each way.
 
 `--ksplit` replaces the three with the probe behind `ops/dct.py`'s
 K_SPLIT_ABOVE / K_CHUNK: the float32 DCT GEMM at the `hires_96k_8ch` and
@@ -345,6 +347,19 @@ def main() -> int:
               f"idle share {1 - busy_us / 1e6 / wall:.5f}; top: "
               + "; ".join(f"{e.key[:60]} {e.self_device_time_total:.1f} us x{e.count}"
                           for e in top))
+    from frad_python_tpu_torch.utils.tracing import StageTimer
+
+    for name in traced:
+        pipeline.STAGES = timer = StageTimer()
+        try:
+            calls[name][0]()
+            torch.cuda.synchronize()
+        finally:
+            pipeline.STAGES = None
+        print(f"stages {name}: " + "; ".join(
+            f"{stage} {timer.totals[stage]:.4f} s x{timer.counts[stage]}"
+            for stage in sorted(timer.totals, key=timer.totals.get, reverse=True))
+            + f"; h2d {timer.bytes['h2d']} bytes, d2h {timer.bytes['d2h']} bytes")
     print(f"native calls since load: {({w.__name__: w.calls for w in native.WRAPPERS})}")
     return 0
 
