@@ -18,7 +18,9 @@ against their plain versions at the streaming shapes first. Last, the
 lossless phase: `trunc_pack` and `trunc_unpack` held byte for byte against
 their plain versions at its shapes and on the truncation edges, then
 `p0_stereo_44k1` (profile 0, 24-bit, the float32 fast path, and its int24
-transfer variant, the card's stream decoded again on the CPU),
+transfer variant, whose `i24_pack` and `i24_unpack` kernels are held bit
+for bit against their plain versions first, on NaN, infinities, +-1 and
+values past +-1 too; the card's stream decoded again on the CPU),
 `p4_mono_44k1` (profile 4, 16-bit: the card's stream equals the CPU's),
 `p0_stereo_48b` and `p0_stereo_64b` (the float64 FFT form on the card
 against the CPU), `hires_96k_8ch` (96 kHz, 8 channels, 8192-sample frames,
@@ -48,7 +50,9 @@ s16le file through `frad_python_tpu_torch.app.main` on the card: `encode`
 of a damaged armored file, the `meta` actions, and one
 `python3 -m frad_python_tpu_torch encode` subprocess.
 Every phase prints one line; any failure exits non-zero. The
-second-to-last line is a JSON object with one entry per kernel, the last
+second-to-last line is a JSON object with one entry per kernel (fourteen,
+each with its device time at the main path's shape and at the streaming
+engines' shape), the last
 line `{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++,
 and refuses to run with FRAD_TORCH_NO_NATIVE set; imports neither jax
 nor the JAX package.
@@ -168,6 +172,21 @@ HIRES_SNR_FLOOR_DB = 97.393
 #: frames and its 2040-sample tail frame, the streaming run's
 #: micro-batches of 2, and the hires run's frames and 1536-sample tail
 TRUNC_SHAPES = ((645, 2, 2048), (1, 2, 2040), (2, 2, 2048), (117, 8, 8192), (1, 8, 1536))
+#: the int24 transfer kernels' shapes, PCM [B, N, C]: the p0_stereo_44k1 i24
+#: run's uniform frames, its 2040-sample tail frame and its warm-up's 4
+#: frames. i24_unpack takes the words [B, N * C * 3 / 4]; i24_pack is handed
+#: the IDCT's [B, C, N] output as a transposed view
+I24_SHAPES = ((645, 2048, 2), (1, 2040, 2), (4, 2048, 2))
+#: the shape at which each kernel's device time is also taken: what the
+#: engines hand it in 32 KiB pushes (micro-batches of 4 frames, 2 for profile
+#: 0), and for the int24 forms, which only the batch calls use, their smallest
+STREAMING_SHAPES = {
+    "power_quant": "[8, 2048]", "overlap_add": "[4, 2, 2048] f32 emit",
+    "trunc_pack": "[2, 2, 2048] 24-bit", "trunc_unpack": "[2, 2, 2048] 24-bit",
+    "tns_iir": "[8, 2048]", "tns_levinson": "[8, 13]", "egr_pack": "[4, 4096]",
+    "dequant": "[4, 2048, 2] i16 + divisor", "tns_autocorr": "[8, 2048] + divisor",
+    "tns_fir_gate": "[8, 2048]", "mask_thres": "[8, 22]", "thres_expand": "[4, 27, 2]",
+    "i24_pack": "[4, 2048, 2] transposed view", "i24_unpack": "[4, 3072]"}
 # the main path's shapes for 30 s: 688 uniform frames + a tail frame
 # padded to 2048, encoded as two batches and decoded as one run
 POWER_QUANT_SHAPE = (1376, 2048)         # R = uniform frames * channels, N bins
@@ -207,6 +226,12 @@ STREAM_VS_BATCH_MAX_ABS = 2e-6
 #: warm-ups' 4; max_words is symbols * 12 // 32
 EGR_FORMS = ((688, 4096), (2, 4096), (4, 4096), (16, 4096), (22, 4096), (32, 4096),
              (128, 4096), (256, 4096), (172, 16384), (4, 16384), (86, 32768), (4, 32768))
+#: max_words of egr_pack's extra check on [4, 200] full-range symbols (36
+#: bits a symbol hold any code)
+EGR_WIDE_WORDS = 200 * 36 // 32 + 1
+#: and of its check above 2048 rows, where the rows' offsets come from a
+#: scan launch instead of each pack block's own sum
+EGR_MANY_ROWS = (2304, 64)
 #: dequant's forms, (symbol dtype, [B, N, C], with a divisor): Profile 1
 #: has a divisor, Profile 2 none. int16 symbols in batches, runs and
 #: micro-batches (689 frames, the warm-ups' 23, runs of 1, 2, 4 and 8; at
@@ -260,7 +285,8 @@ def kernel_form(name: str, *args) -> tuple:
     wrapper's name, its first tensor's shape and dtype, and for power_quant
     dequant and tns_autocorr whether it has a divisor, for overlap_add the
     overlap, cut and emit, for egr_pack max_words, for mask_thres the
-    active bands and the channels."""
+    active bands and the channels, for i24_pack whether the PCM is
+    contiguous (the kernel reads a view through its strides)."""
     x = args[0]
     form = (name, tuple(x.shape), str(x.dtype).removeprefix("torch."))
     if name == "power_quant":
@@ -273,6 +299,8 @@ def kernel_form(name: str, *args) -> tuple:
         return form + (args[1] is not None,)
     if name == "mask_thres":
         return form + (int(args[3]), int(args[5]))
+    if name == "i24_pack":
+        return form + (bool(x.is_contiguous()),)
     return form
 
 
@@ -303,7 +331,7 @@ class FormTally:
             (batch, "power_quant"), (batch, "overlap_add"), (tns, "tns_iir"),
             (tns, "tns_levinson"), (pipeline, "egr_pack"), (batch, "dequant"),
             (tns, "tns_autocorr"), (tns, "tns_fir_gate"), (batch, "mask_thres"),
-            (batch, "thres_expand"))
+            (batch, "thres_expand"), (batch, "i24_pack"), (batch, "i24_unpack"))
             if only is None or name in only]
         self.device_type = device_type
         self.seen: dict[tuple, int] = {}
@@ -641,6 +669,12 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
                 "trunc_pack_kernel": lambda y=y: kernels.trunc_pack(y, P0_BITS, False),
                 "trunc_unpack_kernel": lambda w=w, n=n, c=c: kernels.trunc_unpack(
                     w, P0_BITS, False, n, c)}
+        elif si == 2:
+            w, _ = kernels.trunc_pack(y, P0_BITS, False)
+            out["stream_thunks"] = {
+                "trunc_pack_kernel": lambda y=y: kernels.trunc_pack(y, P0_BITS, False),
+                "trunc_unpack_kernel": lambda w=w, n=n, c=c: kernels.trunc_unpack(
+                    w, P0_BITS, False, n, c)}
     print(f"kernels trunc_pack / trunc_unpack at {list(TRUNC_SHAPES)}, bits 16/24/32, both "
           f"byte orders: equal to plain (max|d| {out['pack_err']} / {out['unpack_err']}); "
           f"at {TRUNC_SHAPES[0]} {P0_BITS}-bit: trunc_pack {out['pack_ms']:.4f} ms vs plain "
@@ -649,10 +683,82 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
     return out
 
 
+def i24_inputs(shape: tuple[int, int, int], seed: int) -> np.ndarray:
+    """[B, C, N] float32 PCM as the IDCT leaves it, with the values whose
+    handling `i24_pack_plain` spells out at the start of frame 0: a NaN,
+    both infinities, +-1.0, values past +-1, the largest float32 under 1,
+    signed zeros, ties of the rounding and the float32 extremes."""
+    b, n, ch = shape
+    x = (np.random.default_rng(seed).standard_normal((b, ch, n)) * 0.4).astype(np.float32)
+    step = 2.0 ** -23
+    edges = [np.nan, np.inf, -np.inf, 1.0, -1.0, 1.5, -1.5, 0.99999994, -0.99999994, 0.0, -0.0,
+             0.5 * step, 1.5 * step, 2.5 * step, -0.5 * step, -1.5 * step, 3e38, -3e38]
+    x[0, 0, :len(edges)] = edges
+    return x
+
+
+def check_i24_kernels(torch, kernels, dev) -> dict:
+    """i24_pack and i24_unpack against their plain versions on the card at
+    I24_SHAPES, bit for bit: i24_pack on the transposed view the decoder
+    hands it and on a contiguous copy, i24_unpack on i24_pack's words (the
+    edge values' among them) and on random words. CUDA-event times of both
+    and of their plain versions at the main run's shape, a call of each
+    there (`thunks`) and at the smallest shape (`stream_thunks`), and each
+    one's bound: 7 bytes a sample."""
+    res = {"pack_err": 0, "unpack_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
+    rng = np.random.default_rng(2424)
+    for si, shape in enumerate(I24_SHAPES):
+        b, n, ch = shape
+        view = torch.from_numpy(i24_inputs(shape, 240 + si)).to(dev).transpose(1, 2)
+        for pcm in (view, view.contiguous()):
+            (w_k,), (w_p,) = held(kernels, "i24_pack", pcm)
+            torch.cuda.synchronize()
+            if w_k.dtype != w_p.dtype or not torch.equal(w_k, w_p):
+                res["pack_err"] = int((w_k != w_p).sum())
+                raise AssertionError(
+                    f"i24_pack {shape} contiguous={pcm.is_contiguous()} differs from its "
+                    f"plain version in {res['pack_err']} of {w_k.numel()} words")
+        if pcm.is_contiguous() == view.is_contiguous():
+            raise AssertionError(f"i24_pack {shape}: the view and its copy are one form")
+        # NaN -> 0, +Inf -> 2^23 - 1, -Inf -> -2^23 at the start of frame 0
+        first = kernels.i24_unpack_plain(w_k).reshape(b, n, ch)[0, :3, 0].tolist()
+        if first != [0.0, 1.0 - 2.0 ** -23, -1.0]:
+            raise AssertionError(f"i24_pack {shape}: NaN, +Inf, -Inf gave {first}")
+        rand = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, tuple(w_k.shape), dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+        for words in (w_k, rand):
+            (p_k,), (p_p,) = held(kernels, "i24_unpack", words)
+            torch.cuda.synchronize()
+            res["unpack_err"] = max(res["unpack_err"], max_abs(torch, p_k, p_p))
+            if not bits_equal(torch, p_k, p_p):
+                raise AssertionError(f"i24_unpack {tuple(words.shape)} differs from its plain "
+                                     f"version: {ulp_report(torch, p_k, p_p)}")
+        calls = {"i24_pack_kernel": lambda v=view: kernels.i24_pack(v),
+                 "i24_unpack_kernel": lambda w=w_k: kernels.i24_unpack(w)}
+        if si == 0:
+            res["pack_ms"] = cuda_ms(torch, calls["i24_pack_kernel"])
+            res["pack_plain_ms"] = cuda_ms(torch, lambda: kernels.i24_pack_plain(view), 5, 5)
+            res["unpack_ms"] = cuda_ms(torch, calls["i24_unpack_kernel"])
+            res["unpack_plain_ms"] = cuda_ms(torch, lambda: kernels.i24_unpack_plain(w_k), 5, 5)
+            res["thunks"] = calls
+            n_el = b * n * ch
+            res["bounds"] = {"i24_pack": bound(n_el * 7, n_el * 6),
+                             "i24_unpack": bound(n_el * 7, n_el * 4)}
+        elif shape == I24_SHAPES[-1]:
+            res["stream_thunks"] = calls
+    print(f"kernels i24_pack (transposed view and contiguous) / i24_unpack at {list(I24_SHAPES)} "
+          f"(NaN, +-Inf, +-1.0, values past +-1 and rounding ties in each): equal to plain bit "
+          f"for bit; at {I24_SHAPES[0]}: i24_pack {res['pack_ms']:.4f} ms vs plain "
+          f"{res['pack_plain_ms']:.4f} ms, i24_unpack {res['unpack_ms']:.4f} ms vs plain "
+          f"{res['unpack_plain_ms']:.4f} ms")
+    return res
+
+
 def run_batch(ft, torch, name: str, pcm: np.ndarray, profile: int, srate: int, bits: int,
-                 fsize: int, dev, **kw) -> tuple[bytes, np.ndarray, float, float]:
+                 fsize: int, dev, after_warm=None, **kw) -> tuple[bytes, np.ndarray, float, float]:
     """Warm-up on a cut of the same track with the same tail frame, then
-    one timed batch_encode and batch_decode on the card. Returns (stream,
+    (after `after_warm()`, where given: the launch counts' reset) one timed
+    batch_encode and batch_decode on the card. Returns (stream,
     decoded PCM, encode wall, decode wall); the decode holds every sample
     (Profile 1 pads the last frame)."""
     enc_kw = {k: v for k, v in kw.items() if k != "i24_transfer"}
@@ -661,6 +767,8 @@ def run_batch(ft, torch, name: str, pcm: np.ndarray, profile: int, srate: int, b
     ft.batch_decode(ft.batch_encode(warm, profile, srate, bits, fsize, device=dev, **enc_kw),
                     device=dev, **dec_kw)
     torch.cuda.synchronize()
+    if after_warm is not None:
+        after_warm()
     stream, t_enc = timed(torch, lambda: ft.batch_encode(pcm, profile, srate, bits, fsize,
                                                          device=dev, **enc_kw))
     (out, sr), t_dec = timed(torch, lambda: ft.batch_decode(stream, device=dev, **dec_kw))
@@ -687,6 +795,7 @@ def lossless_phase(ft, torch, kernels, native, dev) -> dict:
     from frad_python_tpu_torch.parallel.pipeline import _parse_frames
 
     res = check_trunc_kernels(torch, kernels, dev)
+    res["i24"] = check_i24_kernels(torch, kernels, dev)
     pcm = make_audio(SECONDS, SRATE, CHANNELS)
     n_frames = -(-len(pcm) // FSIZE)
 
@@ -721,17 +830,24 @@ def lossless_phase(ft, torch, kernels, native, dev) -> dict:
     d_cpu = float(np.abs(out_cpu - out).max())
     if d_cpu > LOSSLESS_CARD_VS_CPU_MAX_ABS:
         raise AssertionError(f"p0_stereo_44k1 card vs CPU decode {d_cpu}")
-    s24, out24, t_enc24, t_dec24 = run_batch(ft, torch, "p0_stereo_44k1 i24", pcm, 0, SRATE,
-                                                P0_BITS, FSIZE, dev, i24_upload=True,
-                                                i24_transfer=True)
+    with FormTally(only=("i24_pack", "i24_unpack")) as i24_forms:
+        s24, out24, t_enc24, t_dec24 = run_batch(
+            ft, torch, "p0_stereo_44k1 i24", pcm, 0, SRATE, P0_BITS, FSIZE, dev,
+            after_warm=kernels.reset_launches, i24_upload=True, i24_transfer=True)
+    res["i24"]["launches"] = {k.__name__: k.launches for k in kernels.KERNELS}
+    i24_forms.require_held("the p0_stereo_44k1 i24 run")
     snr24 = snr_db(pcm, out24)
-    if snr24 < P0_SNR_FLOOR_DB:
-        raise AssertionError(f"p0_stereo_44k1 i24 SNR {snr24:.4f} dB below {P0_SNR_FLOOR_DB}")
+    d24 = float(np.abs(out24 - out).max())
+    if snr24 < P0_SNR_FLOOR_DB \
+            or min(res["i24"]["launches"][k] for k in ("i24_pack", "i24_unpack")) <= 0:
+        raise AssertionError(f"p0_stereo_44k1 i24: SNR {snr24:.4f} dB (floor {P0_SNR_FLOOR_DB}), "
+                             f"max|i24 - f32 run| {d24}, launches {res['i24']['launches']}")
     print(f"{lossless_walls('p0_stereo_44k1', n_frames, t_enc, t_dec)}, {len(stream)} bytes, "
           f"SNR {snr:.4f} dB (floor {P0_SNR_FLOOR_DB}), card vs cpu decode max|d| {d_cpu} "
           f"(tolerance {LOSSLESS_CARD_VS_CPU_MAX_ABS}); i24 upload/transfer: enc "
-          f"{t_enc24:.4f} s, dec {t_dec24:.4f} s, SNR {snr24:.4f} dB; launches "
-          f"{res['launches']}, native calls {calls}")
+          f"{t_enc24:.4f} s, dec {t_dec24:.4f} s, SNR {snr24:.4f} dB, max|i24 - f32 run| {d24}, "
+          f"launches {res['i24']['launches']}, forms {sorted(i24_forms.seen.items(), key=str)}; "
+          f"launches {res['launches']}, native calls {calls}")
 
     # p4_mono_44k1: host work only, so the card's stream is the CPU's
     mono = make_audio(SECONDS, SRATE, 1)
@@ -923,7 +1039,8 @@ def check_tns_kernels(torch, kernels, dev) -> dict:
     IIR, a Python loop over time, with one call, at float32 only)."""
     from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
 
-    res = {"iir_err": 0.0, "lev_err": 0.0, "pq_err": 0.0, "oa_err": 0.0, "thunks": {}}
+    res = {"iir_err": 0.0, "lev_err": 0.0, "pq_err": 0.0, "oa_err": 0.0, "thunks": {},
+           "stream_thunks": {}}
     for dtype, shapes in TNS_SHAPES.items():
         for si, (lanes, n) in enumerate(shapes):
             x, coeffs, ac = (torch.from_numpy(a).to(dev)
@@ -965,6 +1082,10 @@ def check_tns_kernels(torch, kernels, dev) -> dict:
                     res["thunks"] = {
                         "tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c),
                         "tns_levinson_kernel": lambda ac=ac: kernels.tns_levinson(ac)}
+            if (lanes, dtype) == (8, "float32"):
+                res["stream_thunks"] = {
+                    "tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c),
+                    "tns_levinson_kernel": lambda ac=ac: kernels.tns_levinson(ac)}
             res[(lanes, dtype)] = t
             print(line)
 
@@ -1042,7 +1163,7 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
     printed before the failure. CUDA-event times of both at the main
     path's forms, a call of each there (`thunks`), and each one's bound
     from the sizes of those inputs."""
-    res = {"egr_err": 0, "deq_err": 0.0, "thunks": {}, "bounds": {}}
+    res = {"egr_err": 0, "deq_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
     for fi, (rows, m) in enumerate(EGR_FORMS):
         max_words = max(m * 12 // 32, 16)
         sym = torch.from_numpy(egr_inputs(rows, m, 500 + fi)).to(dev)
@@ -1069,9 +1190,35 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
             res["bounds"]["egr_pack"] = bound(nbytes, sym.numel() * 14, "int32")
             res["egr_words"] = int(got[0].numel())
         elif (rows, m) == (4, 4096):
+            res["stream_thunks"]["egr_"] = lambda sym=sym, mw=max_words: kernels.egr_pack(sym, mw)
             res["egr_ms_4"] = cuda_ms(torch, lambda: kernels.egr_pack(sym, max_words))
             res["egr_plain_ms_4"] = cuda_ms(
                 torch, lambda: kernels.egr_pack_plain(sym, max_words), 5, 5)
+    # rows of k = 31, 30, 29 and 28: the kernels code a row of k > 29 with
+    # 64-bit values. At 12 bits a symbol such rows overflow and are not
+    # packed, so this form gives them the words they need
+    wide = np.random.default_rng(555).integers(-2 ** 31, 2 ** 31, (4, 200), dtype=np.int64)
+    wide[0, 0] = -2 ** 31
+    wide >>= np.arange(4)[:, None]
+    sym = torch.from_numpy(wide.astype(np.int32)).to(dev)
+    got, want = (kernels.egr_pack(sym, EGR_WIDE_WORDS, True),
+                 kernels.egr_pack_plain(sym, EGR_WIDE_WORDS, True))
+    torch.cuda.synchronize()
+    if want[3].tolist() != [31, 30, 29, 28] or bool(want[4].any()) \
+            or not all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)):
+        res["egr_err"] = 1
+        raise AssertionError(f"egr_pack {tuple(sym.shape)} of full-range symbols differs from "
+                             f"its plain version; k {want[3].tolist()}")
+    # more rows than a pack block sums `used` over: the scan launch's path
+    rows, m = EGR_MANY_ROWS
+    sym = torch.from_numpy(egr_inputs(rows, m, 556)).to(dev)
+    got, want = kernels.egr_pack(sym, 24, True), kernels.egr_pack_plain(sym, 24, True)
+    torch.cuda.synchronize()
+    keep = want[4] == 0
+    if not all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got[:5], want[:5])) \
+            or not torch.equal(got[5][keep], want[5][keep]):
+        res["egr_err"] = 1
+        raise AssertionError(f"egr_pack {EGR_MANY_ROWS} differs from its plain version")
     print(f"kernel egr_pack at {list(EGR_FORMS)} (zero, dmax = 1, extreme and overflowing rows "
           f"in each): equal to plain word for word; {EGR_FORMS[0]} {res['egr_ms']:.4f} ms vs "
           f"plain {res['egr_plain_ms']:.4f} ms ({res['egr_words']} words compacted: "
@@ -1107,6 +1254,9 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
             res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.dequant(s_d, d_d, 2.0 ** 15))
             res[f"{key}_plain_ms"] = cuda_ms(
                 torch, lambda: kernels.dequant_plain(s_d, d_d, 2.0 ** 15))
+        if (dtype, shape) == ("int16", (4, 2048, 2)) and with_div:
+            res["stream_thunks"]["dequant_kernel"] = \
+                lambda s=s_d, d=d_d: kernels.dequant(s, d, 2.0 ** 15)
         if fi == 0:
             res["thunks"]["dequant_kernel"] = lambda s=s_d, d=d_d: kernels.dequant(s, d, 2.0 ** 15)
             n_el = s_d.numel()
@@ -1144,7 +1294,7 @@ def check_thres_kernels(torch, kernels, dev) -> dict:
     each there (`thunks`) and each one's bound."""
     from frad_python_tpu_torch.ops import psycho
 
-    res = {"mt_err": 0.0, "te_err": 0.0, "thunks": {}, "bounds": {}}
+    res = {"mt_err": 0.0, "te_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
     rng = np.random.default_rng(700)
     for fi, (dtype, rows, n) in enumerate(MASK_THRES_FORMS):
         tdt = getattr(torch, dtype)
@@ -1175,6 +1325,8 @@ def check_thres_kernels(torch, kernels, dev) -> dict:
             args = (s_d, k["inv_w"], k["aht"], k["nb"], 0.5, CHANNELS)
             res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.mask_thres(*args))
             res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.mask_thres_plain(*args))
+        if (dtype, rows, n) == ("float32", 8, FSIZE):
+            res["stream_thunks"]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
         if fi == 0:
             res["thunks"]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
             item = s_d.element_size()
@@ -1200,6 +1352,8 @@ def check_thres_kernels(torch, kernels, dev) -> dict:
             key = "te" if b == OVERLAP_SHAPE[0] else "te_4"
             res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.thres_expand(t_d))
             res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.thres_expand_plain(t_d))
+            if key == "te_4":
+                res["stream_thunks"]["thres_expand_kernel"] = lambda t=t_d: kernels.thres_expand(t)
             if key == "te":
                 res["thunks"]["thres_expand_kernel"] = lambda t=t_d: kernels.thres_expand(t)
                 res["bounds"]["thres_expand"] = bound(2 * t_d.numel() * 4, t_d.numel() * 50)
@@ -1291,7 +1445,7 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
     bound, tns_fir_gate's from the rows that entered its filter."""
     from frad_python_tpu_torch.ops import tns
 
-    res = {"ac_err": 0.0, "fg_err": 0.0, "thunks": {}, "bounds": {}}
+    res = {"ac_err": 0.0, "fg_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
 
     def same(name, form, got, want):
         names = {"tns_autocorr": ("x", "ac", "gate"), "tns_fir_gate": ("out", "lpc_out", "run")}
@@ -1364,12 +1518,13 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
                 t["fg_plain"] = cuda_ms(
                     torch, lambda: kernels.tns_fir_gate_plain(x, lpc, gate), 3, 2)
                 line += f" vs plain {t['ac_plain']:.3f} / {t['fg_plain']:.3f} ms"
-            if si == 0 and dtype == "float32":
-                res["thunks"] = {
+            if dtype == "float32" and (si == 0 or lanes == 8):
+                res["thunks" if si == 0 else "stream_thunks"] = {
                     "tns_autocorr_kernel":
                         lambda f=freqs, d=div, w=window: kernels.tns_autocorr(f, d, w),
                     "tns_fir_gate_kernel":
                         lambda x=x, l=lpc, g=gate: kernels.tns_fir_gate(x, l, g)}
+            if si == 0 and dtype == "float32":
                 entered = int(gate.sum())
                 res["bounds"] = {
                     "tns_autocorr": bound(3 * lanes * n * 4 + lanes * 14 * 4 + lanes,
@@ -1417,6 +1572,7 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
     res = check_tns_kernels(torch, kernels, dev)
     res["analysis"] = check_tns_analysis_kernels(torch, kernels, dev)
     res["thunks"].update(res["analysis"]["thunks"])
+    res["stream_thunks"].update(res["analysis"]["stream_thunks"])
     pcm = make_audio(SECONDS, SRATE, CHANNELS)
     frames, terms = pipeline.plan_frames(len(pcm), FSIZE, 16, True)
     n = len(frames)
@@ -1719,14 +1875,24 @@ def _frames_of(pcm: np.ndarray) -> list:
     return plan_frames(len(pcm), FSIZE, 16, True)[0]
 
 
-def kernel_yardsticks(torch, thunks: dict, more_bounds: dict) -> dict:
-    """For the twelve kernels at their main-path shapes (float32): the device
+def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, more_bounds: dict) -> dict:
+    """For the fourteen kernels at their main-path shapes (float32): the device
     time of one launch of each on its check's inputs (`thunks`, {kernel
     function name: call}; `egr_` sums egr_pack's three kernels) from one
-    `torch.profiler` call, and each kernel's bound from the bytes it must
+    `torch.profiler` call, the same at STREAMING_SHAPES (`stream_thunks`)
+    from a second, and each kernel's bound from the bytes it must
     move and the operations it does (`more_bounds`: those worked out
     beside the checks)."""
+    if set(stream_thunks) != set(thunks) or len(thunks) != len(STREAMING_SHAPES):
+        raise AssertionError(f"yardsticks: calls at the main shapes {sorted(thunks)}, at the "
+                             f"streaming shapes {sorted(stream_thunks)}")
+
+    def named(ms: dict) -> dict:
+        return {("egr_pack" if k == "egr_" else k.removesuffix("_kernel")): v
+                for k, v in ms.items()}
+
     device_ms = profiled_device_ms(torch, thunks)
+    stream_ms = named(profiled_device_ms(torch, stream_thunks))
     device_ms = {("egr_pack_kernel" if k == "egr_" else k): v for k, v in device_ms.items()}
     b, c, nn = OVERLAP_SHAPE
     tb, tc, tn = TRUNC_SHAPES[0]
@@ -1749,8 +1915,12 @@ def kernel_yardsticks(torch, thunks: dict, more_bounds: dict) -> dict:
                       else f"{k.removesuffix('_kernel')} not in the trace"
                       for k, v in device_ms.items())
           + "; bounds (ms): " + ", ".join(f"{k} {v[0]:.5f} by {v[1]}" for k, v in bounds.items()))
+    print("device time of one launch each at the streaming shapes, one torch.profiler call "
+          "(ms): " + ", ".join(f"{k} {STREAMING_SHAPES[k]} "
+                               + (f"{v:.4f}" if v is not None else "not in the trace")
+                               for k, v in stream_ms.items()))
     return {"device_ms": {k.removesuffix("_kernel"): v for k, v in device_ms.items()},
-            "bounds": bounds}
+            "stream_ms": stream_ms, "bounds": bounds}
 
 
 def main() -> int:
@@ -2072,20 +2242,30 @@ def main() -> int:
           "held against its plain version above (form: launches): "
           + ", ".join(f"{f}: {c}" for f, c in sorted(new_forms.seen.items(), key=str)))
 
+    i24 = lossless["i24"]
+    f_s, d_s, pcm_s = f_d[:8].contiguous(), d_d[:8].contiguous(), pcm_k[:4].contiguous()
     yards = kernel_yardsticks(torch, {
         "power_quant_kernel": lambda: kernels.power_quant(f_d, d_d, factor),
         "overlap_add_kernel": lambda: kernels.overlap_add(pcm_k, w, CUT, True),
-        **lossless["thunks"], **p2["thunks"], **new["thunks"], **thres["thunks"]},
-        {**new["bounds"], **thres["bounds"], **p2["analysis"]["bounds"]})
+        **lossless["thunks"], **p2["thunks"], **new["thunks"], **thres["thunks"],
+        **i24["thunks"]}, {
+        "power_quant_kernel": lambda: kernels.power_quant(f_s, d_s, factor),
+        "overlap_add_kernel": lambda: kernels.overlap_add(pcm_s, w, CUT, False),
+        **lossless["stream_thunks"], **p2["stream_thunks"], **new["stream_thunks"],
+        **thres["stream_thunks"], **i24["stream_thunks"]},
+        {**new["bounds"], **thres["bounds"], **p2["analysis"]["bounds"], **i24["bounds"]})
 
     def yard(name: str) -> dict:
         """The keys every kernel's entry carries beside its own times:
         its bound, `library_ms` (no single PyTorch call computes any of the
-        twelve functions), `device_ms_synthetic` (one launch on the check's
-        inputs under the profiler, not the runs' data), and for the four
+        fourteen functions), `device_ms_synthetic` (one launch on the check's
+        inputs under the profiler, not the runs' data), `device_ms_streaming`
+        (the same at `streaming_shape`), and for the
         kernels of the Profile 2 path their launches there."""
         out = {"bound_ms": yards["bounds"][name][0], "bound_by": yards["bounds"][name][1],
-               "library_ms": None, "device_ms_synthetic": yards["device_ms"][name]}
+               "library_ms": None, "device_ms_synthetic": yards["device_ms"][name],
+               "device_ms_streaming": yards["stream_ms"][name],
+               "streaming_shape": STREAMING_SHAPES[name]}
         if name in P2_KERNELS:
             out.update(launches_p2=p2["launches"][name],
                        streaming_launches_p2=p2["stream_launches"][name])
@@ -2189,6 +2369,16 @@ def main() -> int:
          "ms_4_frames": thres["te_4_ms"], "plain_ms_4_frames": thres["te_4_plain_ms"],
          "launches_p1": launches["thres_expand"],
          "streaming_launches": stream_launches["thres_expand"], **yard("thres_expand")},
+        {"name": "i24_pack", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/i24_pack.cu",
+         "replaces": "frad_python_tpu/ops/bitpack.py:124",
+         "launches": i24["launches"]["i24_pack"], "max_abs_err": i24["pack_err"],
+         "ms": i24["pack_ms"], "plain_ms": i24["pack_plain_ms"], **yard("i24_pack")},
+        {"name": "i24_unpack", "route": "cuda",
+         "source": "frad_python_tpu_torch/csrc/i24_unpack.cu",
+         "replaces": "frad_python_tpu/ops/bitpack.py:137",
+         "launches": i24["launches"]["i24_unpack"], "max_abs_err": i24["unpack_err"],
+         "ms": i24["unpack_ms"], "plain_ms": i24["unpack_plain_ms"], **yard("i24_unpack")},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ Profile 2's TNS (frad_python_tpu/ops/tns_jax.py), of Profile 1's
 Exp-Golomb-Rice packer (frad_python_tpu/ops/bitpack.py, parallel/
 pipeline.py), of the lossy decoders' dequantiser and of the masking
 threshold chains of the lossy encoders and decoders
-(frad_python_tpu/models/batch.py, ops/psycho.py). Twelve kernels:
+(frad_python_tpu/models/batch.py, ops/psycho.py), and of the lossless
+profiles' int24 transfer forms (frad_python_tpu/ops/bitpack.py). Fourteen
+kernels:
 
 * `power_quant.power_quant` — the lossy encoders' quantisation epilogue
   (Pallas `power_quant`), float32 -> int32 or float64 -> int64, with or
@@ -43,6 +45,12 @@ threshold chains of the lossy encoders and decoders
 * `thres_expand.thres_expand` — the lossy decoders' threshold expansion
   before the interpolation GEMM (the head of XLA `_p1_decode_jit` /
   `_p2_decode_jit`), source csrc/thres_expand.cu.
+* `i24_pack.i24_pack` — the Profile 0 decoder's PCM as int24 fixed-point
+  words for the copy back (XLA `pcm_to_i24_words`), source
+  csrc/i24_pack.cu.
+* `i24_unpack.i24_unpack` — the Profile 0 encoder's uploaded int24 words
+  as float32 PCM (XLA `i24_words_to_pcm_device`), source
+  csrc/i24_unpack.cu.
 
 A wrapper runs the plain version for CPU tensors and launches its kernel
 for CUDA tensors, counting launches in its `launches` attribute. The
@@ -51,6 +59,8 @@ kernels are compiled at first launch (`build.py`).
 
 from .dequant import dequant, dequant_plain
 from .egr_pack import egr_pack, egr_pack_plain
+from .i24_pack import i24_pack, i24_pack_plain
+from .i24_unpack import i24_unpack, i24_unpack_plain
 from .mask_thres import mask_thres, mask_thres_plain
 from .overlap_add import overlap_add, overlap_add_plain
 from .power_quant import power_quant, power_quant_plain
@@ -63,7 +73,8 @@ from .trunc_pack import trunc_pack, trunc_pack_plain
 from .trunc_unpack import trunc_unpack, trunc_unpack_plain
 
 KERNELS = (power_quant, overlap_add, trunc_pack, trunc_unpack, tns_iir, tns_levinson,
-           egr_pack, dequant, tns_autocorr, tns_fir_gate, mask_thres, thres_expand)
+           egr_pack, dequant, tns_autocorr, tns_fir_gate, mask_thres, thres_expand,
+           i24_pack, i24_unpack)
 
 
 def reset_launches() -> None:
@@ -72,7 +83,8 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "dequant", "dequant_plain", "egr_pack", "egr_pack_plain", "mask_thres",
+__all__ = ["KERNELS", "dequant", "dequant_plain", "egr_pack", "egr_pack_plain", "i24_pack",
+           "i24_pack_plain", "i24_unpack", "i24_unpack_plain", "mask_thres",
            "mask_thres_plain", "overlap_add", "overlap_add_plain", "power_quant",
            "power_quant_plain", "reset_launches", "thres_expand", "thres_expand_plain",
            "tns_autocorr", "tns_autocorr_plain", "tns_fir_gate", "tns_fir_gate_plain", "tns_iir",

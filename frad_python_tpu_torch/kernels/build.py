@@ -43,6 +43,8 @@ SIGNATURES = {
     "frad_thres_expand": (_P, _P, _I, _I, _D, _I, _P),
     "frad_tns_autocorr": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "frad_tns_fir_gate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "frad_i24_pack": (_P, _P, _LL, _I, _I, _LL, _LL, _LL, _P),
+    "frad_i24_unpack": (_P, _P, _LL, _P),
 }
 
 _lock = threading.Lock()

@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from ..ops import bitpack
+from ..ops import bitpack, policy
 from . import build
 
 
@@ -35,16 +36,31 @@ def egr_pack_plain(symbols: torch.Tensor, max_words: int, padded: bool = False):
     return out + (bitpack._wrap(words, 32, torch.int32),) if padded else out
 
 
-def egr_pack(symbols: torch.Tensor, max_words: int, padded: bool = False):
-    """See `egr_pack_plain`; one call of the kernels' C entry (pack, scan
-    of `used`, copy) for CUDA tensors.
+def _rows_to_host(meta: torch.Tensor, to_host):
+    """The four per-row sums [4, B] as numpy rows of one copy."""
+    (m,) = (to_host or policy.to_host)(meta)
+    return m[0], m[1], m[2], m[3]
 
-    `flat` is a slice of a [B * max_words] buffer whose length, the sum of
-    `used`, is read back from the device: one synchronisation, which the
-    plain version's mask indexing pays too, and the copy to the host then
-    carries the stream's words only."""
+
+def egr_pack(symbols: torch.Tensor, max_words: int, padded: bool = False, to_host=None):
+    """See `egr_pack_plain`; one call of the kernels' C entry (code lengths,
+    then the pack at each row's offset) for CUDA tensors.
+
+    `flat` is a slice of a [B * max_words] buffer, so the host must know
+    its length, the sum of `used`, before the stream's words can be copied
+    back alone. The four per-row sums therefore come to the host here, as
+    one [4, B] tensor through `policy.to_host` (a pinned, non-blocking
+    copy and one wait for the stream), and the length is their first
+    row's sum. A caller that needs them on the host anyway passes its own
+    `to_host` (the pipeline's metered one) and gets `used`, `total_bits`,
+    `k` and `overflow` back as the numpy rows of that copy instead of
+    device tensors: nothing is copied twice, and no more bytes than the
+    five results hold."""
     if symbols.device.type == "cpu":
-        return egr_pack_plain(symbols, max_words, padded)
+        out = egr_pack_plain(symbols, max_words, padded)
+        if to_host is not None:
+            out = out[:1] + _rows_to_host(torch.stack(out[1:5]), to_host) + out[5:]
+        return out
     if symbols.device.type != "cuda":
         raise ValueError(f"egr_pack: tensor on {symbols.device}")
     if symbols.dtype != torch.int32 or symbols.dim() != 2 or not symbols.is_contiguous() \
@@ -53,19 +69,22 @@ def egr_pack(symbols: torch.Tensor, max_words: int, padded: bool = False):
                          f"required, got {tuple(symbols.shape)} {symbols.dtype}, {max_words}")
     b, m = symbols.shape
     dev = symbols.device
-    words = torch.empty((b, max_words), dtype=torch.int32, device=dev)
+    words = torch.empty((b, max_words), dtype=torch.int32, device=dev) if padded else None
     flat = torch.empty(b * max_words, dtype=torch.int32, device=dev)
     meta = torch.empty((4, b), dtype=torch.int32, device=dev)
     offs = torch.empty(b + 1, dtype=torch.int64, device=dev)
     lib = build.library()
     err = lib.frad_egr_pack(
-        ctypes.c_void_p(symbols.data_ptr()), ctypes.c_void_p(words.data_ptr()),
+        ctypes.c_void_p(symbols.data_ptr()),
+        ctypes.c_void_p(words.data_ptr() if padded else None),
         ctypes.c_void_p(meta.data_ptr()), ctypes.c_void_p(offs.data_ptr()),
         ctypes.c_void_p(flat.data_ptr()), b, m, int(max_words),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     build.check("frad_egr_pack", err)
     egr_pack.launches += 1
-    out = (flat[: int(offs[b])], meta[0], meta[1], meta[2], meta[3])
+    rows = _rows_to_host(meta, to_host)
+    flat = flat[: int(rows[0].sum(dtype=np.int64))]
+    out = (flat,) + (rows if to_host is not None else (meta[0], meta[1], meta[2], meta[3]))
     return out + (words,) if padded else out
 
 

@@ -22,9 +22,11 @@ def tns_iir_plain(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     """x [L, N], coeffs [L, 13] -> y [L, N], a Python loop over time.
 
     The order of each step's sum is fixed (the kernel copies it): the 12
-    products, then acc = 0 and the adds j = 1 .. 12 in order, then
-    x[t] - acc. A lane with coefficients [1, 0, ...] returns x bit for
-    bit. The JAX scan leaves the order of its sum to XLA, so the two
+    products, then acc = +0 and the adds j = 12, 11, .. 1 (the oldest
+    output first), then x[t] - acc. Only c[1] * y[t-1], the last add and
+    the subtract then wait for the step before, which is what lets the
+    kernel run ahead. A lane with coefficients [1, 0, ...] returns x bit
+    for bit. The JAX scan leaves the order of its sum to XLA, so the two
     agree to a tolerance, not exactly."""
     lanes, n = x.shape
     # y with 12 leading zeros: the window y[t-12 .. t-1] is buf[:, t : t+12]
@@ -33,7 +35,7 @@ def tns_iir_plain(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     for t in range(n):
         p = a_rev * buf[:, t:t + MAX_ORDER]           # p[:, 12 - j] = c[j] * y[t-j]
         acc = torch.zeros_like(p[:, 0])
-        for j in range(1, MAX_ORDER + 1):
+        for j in range(MAX_ORDER, 0, -1):
             acc = acc + p[:, MAX_ORDER - j]
         buf[:, t + MAX_ORDER] = x[:, t] - acc
     return buf[:, MAX_ORDER:].contiguous()

@@ -4,7 +4,9 @@ ops on one device.
 Profile 0: the DCT-II / IDCT of `ops/dct.py` (the float32 GEMM, or the
 FFT form at float64 and above N = 8192), and the fast path's fused
 pairs: DCT GEMM -> `trunc_pack` kernel (payload words and each frame's
-max|x|), and `trunc_unpack` kernel -> IDCT GEMM.
+max|x|), and `trunc_unpack` kernel -> IDCT GEMM; with the int24 transfer
+forms the `i24_unpack` kernel comes before the first and the `i24_pack`
+kernel after the second.
 
 Encode: PCM -> DCT-II GEMM -> band-sum GEMM -> `mask_thres` kernel
 (RMS^0.8, AHT floor, x loss, and the log-companded threshold symbols) ->
@@ -32,13 +34,15 @@ import numpy as np
 import torch
 
 from ..kernels.dequant import dequant
+from ..kernels.i24_pack import i24_pack
+from ..kernels.i24_unpack import i24_unpack
 from ..kernels.mask_thres import mask_thres
 from ..kernels.overlap_add import crossfade_window, overlap_add
 from ..kernels.power_quant import power_quant
 from ..kernels.thres_expand import thres_expand
 from ..kernels.trunc_pack import trunc_pack
 from ..kernels.trunc_unpack import trunc_unpack
-from ..ops import bitpack, psycho, tns
+from ..ops import psycho, tns
 from ..ops.dct import dct2, idct2
 
 
@@ -62,9 +66,9 @@ def p0_encode_pack_core(frames: torch.Tensor, bits: int, little: bool):
 
 
 def p0_encode_pack_core_i24(words: torch.Tensor, bits: int, little: bool, n: int, ch: int):
-    """`p0_encode_pack_core` of int24 PCM words [B, n*ch*3//4]: the upload
-    carries 3 bytes a sample."""
-    frames = bitpack.i24_words_to_pcm_device(words).reshape(words.shape[0], n, ch)
+    """`p0_encode_pack_core` of int24 PCM words [B, n*ch*3//4] (the
+    `i24_unpack` kernel first): the upload carries 3 bytes a sample."""
+    frames = i24_unpack(words).reshape(words.shape[0], n, ch)
     return p0_encode_pack_core(frames, bits, little)
 
 
@@ -77,9 +81,10 @@ def p0_unpack_decode_core(words: torch.Tensor, bits: int, little: bool, n: int,
 
 def p0_unpack_decode_i24_core(words: torch.Tensor, bits: int, little: bool, n: int,
                               ch: int) -> torch.Tensor:
-    """`p0_unpack_decode_core` returning int24 PCM words [B, n*ch*3//4]:
-    the copy to the host carries 3 bytes a sample."""
-    return bitpack.pcm_to_i24_words(p0_unpack_decode_core(words, bits, little, n, ch))
+    """`p0_unpack_decode_core` returning int24 PCM words [B, n*ch*3//4]
+    (the `i24_pack` kernel on the IDCT's transposed output): the copy to
+    the host carries 3 bytes a sample."""
+    return i24_pack(p0_unpack_decode_core(words, bits, little, n, ch))
 
 
 def _mask_thres(freqs: torch.Tensor, srate: int, loss_level: float, factor: float):

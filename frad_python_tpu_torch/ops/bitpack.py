@@ -1,6 +1,6 @@
 """Bit-packing on the device, as plain torch ops: the Exp-Golomb-Rice
-packer of Profile 1, and the truncated-float packing and int24 transfer
-forms of the lossless profiles (below).
+packer of Profile 1, and the truncated-float packing of the lossless
+profiles (below) with the host forms of their int24 transfer.
 
 The emitted words reproduce the host EGR codec (`ops/golomb.py`) bit for
 bit: same k, same signed mapping, same unary+binary codes, zero padding.
@@ -94,7 +94,9 @@ def words_to_stream(words: np.ndarray, total_bits: int, k: int) -> bytes:
 # int24 fixed-point PCM transfer forms. The plain versions below run as
 # torch ops on any device; `kernels/trunc_pack.py` and
 # `kernels/trunc_unpack.py` fuse the packing with the DCT's layout as
-# CUDA kernels. Words are int16 (16 bits) or int32 (24 and 32 bits)
+# CUDA kernels, and `kernels/i24_pack.py` / `kernels/i24_unpack.py` hold
+# the int24 forms' kernels with their plain versions. Words are int16
+# (16 bits) or int32 (24 and 32 bits)
 # tensors whose little-endian byte stream is the payload: the host views
 # them as '<u2' / '<u4'. torch has no shifts on uint16 / uint32, so the
 # bit work runs on int32 / int64 values with explicit masks.
@@ -186,21 +188,20 @@ def trunc_unpack_plain(words: torch.Tensor, bits: int, little: bool) -> torch.Te
 def pcm_to_i24_words(pcm: torch.Tensor) -> torch.Tensor:
     """[B, N, C] float PCM -> int24 fixed-point words [B, N*C*3//4] int32
     (rint(x * 2^23) clamped, little-endian triples): 3 bytes a sample over
-    the link, a -138 dB quantisation floor."""
-    b = pcm.shape[0]
-    v = torch.clamp(torch.round(pcm.to(torch.float32) * float(1 << 23)),
-                    -(1 << 23), (1 << 23) - 1)
-    t = v.to(torch.int64) & 0xFFFFFF
-    return _pack_byte_triples(t.reshape(b, -1), msb_first=False)
+    the link, a -138 dB quantisation floor. The `i24_pack` kernel for a
+    CUDA tensor, its plain version for a CPU tensor."""
+    from ..kernels.i24_pack import i24_pack      # (that module imports this one)
+
+    return i24_pack(pcm)
 
 
 def i24_words_to_pcm_device(words: torch.Tensor) -> torch.Tensor:
     """Inverse of `pcm_to_i24_words` on the device: [B, W] int32 words ->
-    [B, W*4//3] float32 PCM."""
-    c = _word_bytes(words)
-    t = c[..., 0] | (c[..., 1] << 8) | (c[..., 2] << 16)
-    v = (t ^ 0x800000) - 0x800000
-    return v.to(torch.float32) * (1.0 / (1 << 23))
+    [B, W*4//3] float32 PCM. The `i24_unpack` kernel for a CUDA tensor,
+    its plain version for a CPU tensor."""
+    from ..kernels.i24_unpack import i24_unpack
+
+    return i24_unpack(words)
 
 
 def pcm_to_i24_words_host(pcm: np.ndarray) -> np.ndarray:

@@ -243,9 +243,10 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
 
     max_words = max(m * 12 // 32, 16)
     with _stage("enc:egr-pack"):
-        flat, used, nbits, ks, ovf = egr_pack(fq.contiguous(), max_words)
+        # the per-row sums come back with the stream's length (one wait)
+        flat, used_h, nbits_h, ks_h, ovf_h = egr_pack(fq.contiguous(), max_words, False, _down)
     with _stage("enc:d2h"):
-        flat_h, used_h, nbits_h, ks_h, ovf_h, tqh = _down(flat, used, nbits, ks, ovf, tq)
+        flat_h, tqh = _down(flat, tq)
     flat_h = flat_h.view(np.uint32)         # int32 words hold the uint32 bit pattern
     offs = np.cumsum(used_h, dtype=np.int64) - used_h
     ovf_rows = np.flatnonzero(ovf_h)

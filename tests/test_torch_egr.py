@@ -66,6 +66,30 @@ def jax_packed(sym: np.ndarray, max_words: int):
     return np.asarray(flat)[: used.sum()], used, nbits, ks, ovf, np.asarray(words)
 
 
+@pytest.mark.parametrize("padded", [False, True])
+def test_egr_pack_hands_the_row_sums_to_the_host_in_one_copy(padded):
+    """With `to_host` the four per-row sums come back as the numpy rows of
+    one [4, B] copy (the pipeline passes its metered copy), the words
+    unchanged, and no more bytes than the four tensors held."""
+    sym = symbol_rows(5, 256, 77)
+    max_words = max(256 * 12 // 32, 16)
+    want = kernels.egr_pack(torch.from_numpy(sym), max_words, padded)
+    seen = []
+
+    def to_host(*tensors):
+        seen.append([tuple(t.shape) for t in tensors])
+        return [t.numpy() for t in tensors]
+
+    got = kernels.egr_pack(torch.from_numpy(sym), max_words, padded, to_host)
+    assert seen == [[(4, 5)]] and len(got) == len(want) == (6 if padded else 5)
+    assert torch.equal(got[0], want[0]) and (not padded or torch.equal(got[5], want[5]))
+    for g, w in zip(got[1:5], want[1:5]):
+        assert isinstance(g, np.ndarray) and g.dtype == np.int32
+        np.testing.assert_array_equal(g, w.numpy())
+    assert sum(g.nbytes for g in got[1:5]) == sum(w.numel() * 4 for w in want[1:5])
+    assert int(got[1].sum()) == got[0].numel() and kernels.egr_pack.launches == 0
+
+
 @pytest.mark.parametrize("m", [64, 4080, 4096])
 @pytest.mark.parametrize("b", [1, 2, 5, 64])
 def test_egr_pack_plain_equals_the_jax_packer_and_the_host_coder(b, m):

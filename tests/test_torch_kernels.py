@@ -149,6 +149,10 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
                            8, 0.5, 2)
     with pytest.raises(ValueError):
         kernels.thres_expand(torch.empty((2, 27, 2), device="meta"))
+    with pytest.raises(ValueError):
+        kernels.i24_pack(torch.empty((2, 8, 2), device="meta"))
+    with pytest.raises(ValueError):
+        kernels.i24_unpack(torch.empty((2, 6), dtype=torch.int32, device="meta"))
     assert all(k.launches == 0 for k in kernels.KERNELS)
 
 
@@ -160,14 +164,19 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
                                                  "tns_iir.cu", "tns_levinson.cu",
                                                  "egr_pack.cu", "dequant.cu",
                                                  "tns_autocorr.cu", "tns_fir_gate.cu",
-                                                 "mask_thres.cu", "thres_expand.cu"}
+                                                 "mask_thres.cu", "thres_expand.cu",
+                                                 "i24_pack.cu", "i24_unpack.cu"}
     assert set(build.SIGNATURES) == {"frad_power_quant", "frad_overlap_add",
                                      "frad_trunc_pack", "frad_trunc_unpack",
                                      "frad_tns_iir", "frad_tns_levinson",
                                      "frad_egr_pack", "frad_dequant",
                                      "frad_tns_autocorr", "frad_tns_fir_gate",
-                                     "frad_mask_thres", "frad_thres_expand"}
-    assert len(kernels.KERNELS) == len(build.SIGNATURES)
+                                     "frad_mask_thres", "frad_thres_expand",
+                                     "frad_i24_pack", "frad_i24_unpack"}
+    assert len(kernels.KERNELS) == len(build.SIGNATURES) == 14
+    # every kernel has its plain version beside it and a launch count
+    for k in kernels.KERNELS:
+        assert callable(getattr(kernels, k.__name__ + "_plain")) and k.launches == 0
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):

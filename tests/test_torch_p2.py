@@ -475,6 +475,11 @@ def test_chip_smoke_forms_cover_the_float64_runs():
             s64 = ft.batch_encode(short, profile, chip_smoke.SRATE, chip_smoke.BITS,
                                   chip_smoke.FSIZE, compute_dtype="float64", device=CPU)
             ft.batch_decode(s64, compute_dtype="float64", device=CPU)
+    # the tally watches every kernel that a module calls by name: all
+    # fourteen but the two trunc kernels, which are held at TRUNC_SHAPES
+    assert {name for _, name in tally.targets} == \
+        {k.__name__ for k in tkernels.KERNELS} - {"trunc_pack", "trunc_unpack"}
+    assert len(tkernels.KERNELS) == 14
     assert tally.seen and all(f[2] == "float64" for f in tally.seen)
     assert {f[0] for f in tally.seen} == set(chip_smoke.P2_KERNELS)
     assert set(tally.seen) <= smoke_form_tables()

@@ -16,7 +16,9 @@ Tolerances, each with its reason:
 * `_fir`: 13 multiply-adds in the same order: 1e-5 of max|y| at float32,
   1e-13 at float64. `_iir` (`tns_iir_plain`): the JAX scan leaves the
   order of its 12-term sum to XLA and the filter feeds errors back: 1e-4
-  of max|y| at float32, 1e-11 at float64.
+  of max|y| at float32, 1e-11 at float64. The plain version's own order
+  (the 12 products, then from +0 the adds j = 12 .. 1, oldest output
+  first, then x[t] - acc) is held against a scalar numpy loop bit for bit.
 * `tns_analysis`: `lpc_q` must be equal lane for lane on these seeds (the
   count of differing lanes is asserted to be 0: they are wire bytes and a
   gate flip changes a whole frame); residuals like `_fir`.
@@ -161,6 +163,44 @@ def test_iir_plain_matches_jax(n, dtype):
     assert torch.equal(tns._iir(t_(x).reshape(6, 2, n), t_(c).reshape(6, 2, 13)).reshape(12, n),
                        got)
     assert kernels.tns_iir.launches == 0
+
+
+def scalar_iir(x: np.ndarray, c: np.ndarray, newest_first: bool = False) -> np.ndarray:
+    """One lane of `tns_iir_plain` with scalar operations in the lane's
+    dtype: the 12 products, acc = +0, the adds j = 12, 11, .. 1 (with
+    `newest_first` j = 1 .. 12, the order before the redesign), then
+    x[t] - acc."""
+    ft = x.dtype.type
+    y = np.zeros(len(x) + 12, dtype=x.dtype)              # y[t + 12] is step t
+    order = range(1, 13) if newest_first else range(12, 0, -1)
+    for t in range(len(x)):
+        p = {j: ft(c[j] * y[t + 12 - j]) for j in range(1, 13)}
+        acc = ft(0)
+        for j in order:
+            acc = ft(acc + p[j])
+        y[t + 12] = ft(x[t] - acc)
+    return y[12:]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_iir_plain_order_is_the_scalar_loops(dtype):
+    n = 160
+    x = spectra(n, dtype).reshape(12, n)
+    c = stable_coeffs(12, dtype, 4)
+    c[1, 1:] = np.random.default_rng(9).uniform(-0.08, 0.08, 12)     # all 12 taps in use
+    x[2, 5], x[2, 6] = -0.0, 0.0                                     # lane 0 is a bypass lane
+    x[0, 3] = -0.0
+    got = kernels.tns_iir_plain(t_(x), t_(c)).numpy()
+    want = np.stack([scalar_iir(x[i], c[i]) for i in range(12)])
+    assert got.dtype == x.dtype
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+    # a bypassed lane returns x bit for bit, signed zeros included
+    np.testing.assert_array_equal(got[::3].view(np.uint8), x[::3].view(np.uint8))
+    # the order is part of the function: newest first rounds elsewhere
+    other = np.stack([scalar_iir(x[i], c[i], newest_first=True) for i in range(12)])
+    assert not np.array_equal(other, want)
+    tol = (1e-5 if dtype == "float32" else 1e-13) * np.abs(want).max()
+    np.testing.assert_allclose(other, want, rtol=0, atol=tol)
 
 
 def _alike(got_lpc: np.ndarray, want_lpc: np.ndarray) -> np.ndarray:
@@ -311,6 +351,43 @@ def test_p2_decode_cores_match_jax(dtype):
         out16, _ = tbatch.p2_decode_oa_core(t_(fq.astype(np.int16)), t_(tq), t_(lq), 44100,
                                             factor, olap, cut, False)
         assert torch.equal(out16, out)
+
+
+def _iir_newest_first(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """`tns_iir_plain` as it was before the sum's order changed: the adds
+    j = 1 .. 12, the newest output first."""
+    lanes, n = x.shape
+    buf = torch.zeros((lanes, n + 12), dtype=x.dtype)
+    a_rev = coeffs[:, 1:].flip(-1).contiguous()
+    for t in range(n):
+        p = a_rev * buf[:, t:t + 12]
+        acc = torch.zeros_like(p[:, 0])
+        for j in range(1, 13):
+            acc = acc + p[:, 12 - j]
+        buf[:, t + 12] = x[:, t] - acc
+    return buf[:, 12:].contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_p2_decode_moves_only_in_its_last_bits_with_the_sums_order(dtype, monkeypatch):
+    """The Profile 2 decode with the synthesis filter's sum taken oldest
+    first against the same decode with the earlier order (newest first)
+    and against the JAX package: the two orders differ (the change is
+    real), by less than either differs from the JAX package's bound."""
+    frames = _frames(dtype, seed=1)
+    factor = 2.0 ** 15
+    fq, tq, lq = (np.asarray(a).astype(dtype)
+                  for a in jbatch.p2_encode_core(frames, 44100, 0.5, factor))
+    want = np.asarray(jbatch.p2_decode_core(fq, tq, lq, 44100, factor))
+    new = tbatch.p2_decode_core(t_(fq), t_(tq), t_(lq), 44100, factor).numpy()
+    monkeypatch.setattr(tns, "tns_iir", _iir_newest_first)
+    old = tbatch.p2_decode_core(t_(fq), t_(tq), t_(lq), 44100, factor).numpy()
+    d_order, d_new, d_old = (float(np.abs(a - b).max())
+                             for a, b in ((new, old), (new, want), (old, want)))
+    print(f"p2_decode_core {dtype}: max|oldest first - newest first| {d_order}, against the JAX "
+          f"package: oldest first {d_new}, newest first {d_old}")
+    assert 0 < d_order <= ATOL_PCM[dtype]
+    assert d_new <= ATOL_PCM[dtype] and d_old <= ATOL_PCM[dtype]
 
 
 # ----------------------------------------------------------------------
