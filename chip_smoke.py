@@ -172,6 +172,11 @@ HIRES_SNR_FLOOR_DB = 97.393
 #: frames and its 2040-sample tail frame, the streaming run's
 #: micro-batches of 2, and the hires run's frames and 1536-sample tail
 TRUNC_SHAPES = ((645, 2, 2048), (1, 2, 2040), (2, 2, 2048), (117, 8, 8192), (1, 8, 1536))
+#: trunc_pack's other paths, which no run here takes (a mono Profile 0
+#: stream would take the first): C = 1 in 16-byte pieces, and rows of C * N
+#: not a multiple of 16 (value-by-value loads, byte stores); the last at 16
+#: and 32 bits only
+TRUNC_ODD_SHAPES = ((2, 1, 2048), (3, 3, 1004), (2, 1, 1001))
 #: the int24 transfer kernels' shapes, PCM [B, N, C]: the p0_stereo_44k1 i24
 #: run's uniform frames, its 2040-sample tail frame and its warm-up's 4
 #: frames. i24_unpack takes the words [B, N * C * 3 / 4]; i24_pack is handed
@@ -423,7 +428,9 @@ def profiled_device_ms(torch, calls: dict) -> dict:
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
+    lead = torch.zeros(1, device=DEVICE)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead.add_(1)         # a trace can miss its first kernel: let that be this one
         for fn in calls.values():
             fn()
         torch.cuda.synchronize()
@@ -622,19 +629,30 @@ def nan_words(torch, y, bits: int):
     return nan
 
 
+def trunc_bounds(b: int, c: int, n: int) -> dict:
+    """The trunc kernels' bounds at [b, c, n], P0_BITS."""
+    m = b * c * n
+    return {"trunc_pack": bound(m * 4 + m * P0_BITS // 8 + b * 4, m * 2),
+            "trunc_unpack": bound(m * P0_BITS // 8 + m * 4, m)}
+
+
 def check_trunc_kernels(torch, kernels, dev) -> dict:
     """trunc_pack and trunc_unpack against their plain versions on the card
     at TRUNC_SHAPES, every depth and byte order: every payload word equal
     but the one (16, 32 bits) or three (24 bits) that hold the NaN (its f16
     bits are the converter's own, and its frame leaves the fast path on its
     NaN max|x|), max|x| equal with the NaN in place, unpacked floats
-    equal. Returns the max |d| and the CUDA-event times of kernel and plain
-    at the p0_stereo_44k1 shape, with a call of each there (`thunks`)."""
+    equal; at TRUNC_ODD_SHAPES too. Returns the max |d| and the CUDA-event
+    times of kernel and plain at the p0_stereo_44k1 shape, with a call of
+    each there (`thunks`) and at the streaming shape (`stream_thunks`), and
+    the bounds of those calls (`bounds`, `stream_bounds`)."""
     out = {"pack_err": 0.0, "unpack_err": 0.0}
-    for si, shape in enumerate(TRUNC_SHAPES):
+    for si, shape in enumerate(TRUNC_SHAPES + TRUNC_ODD_SHAPES):
         b, c, n = shape
         y = torch.from_numpy(trunc_inputs(shape, 99 + si)).to(dev)
         for bits in (16, 24, 32):
+            if bits == 24 and (c * n) % 4:
+                continue
             keep = ~nan_words(torch, y, bits)
             if int((~keep).sum()) != (0 if b == 1 else 3 if bits == 24 else 1):
                 raise AssertionError(f"trunc check {shape}: NaN words {int((~keep).sum())}")
@@ -669,13 +687,16 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
                 "trunc_pack_kernel": lambda y=y: kernels.trunc_pack(y, P0_BITS, False),
                 "trunc_unpack_kernel": lambda w=w, n=n, c=c: kernels.trunc_unpack(
                     w, P0_BITS, False, n, c)}
+            out["bounds"] = trunc_bounds(b, c, n)
         elif si == 2:
             w, _ = kernels.trunc_pack(y, P0_BITS, False)
             out["stream_thunks"] = {
                 "trunc_pack_kernel": lambda y=y: kernels.trunc_pack(y, P0_BITS, False),
                 "trunc_unpack_kernel": lambda w=w, n=n, c=c: kernels.trunc_unpack(
                     w, P0_BITS, False, n, c)}
-    print(f"kernels trunc_pack / trunc_unpack at {list(TRUNC_SHAPES)}, bits 16/24/32, both "
+            out["stream_bounds"] = trunc_bounds(b, c, n)
+    print(f"kernels trunc_pack / trunc_unpack at {list(TRUNC_SHAPES + TRUNC_ODD_SHAPES)}, bits "
+          f"16/24/32 (24 where C * N % 4 == 0), both "
           f"byte orders: equal to plain (max|d| {out['pack_err']} / {out['unpack_err']}); "
           f"at {TRUNC_SHAPES[0]} {P0_BITS}-bit: trunc_pack {out['pack_ms']:.4f} ms vs plain "
           f"{out['pack_plain_ms']:.4f} ms, trunc_unpack {out['unpack_ms']:.4f} ms vs plain "
@@ -705,7 +726,8 @@ def check_i24_kernels(torch, kernels, dev) -> dict:
     and of their plain versions at the main run's shape, a call of each
     there (`thunks`) and at the smallest shape (`stream_thunks`), and each
     one's bound: 7 bytes a sample."""
-    res = {"pack_err": 0, "unpack_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
+    res = {"pack_err": 0, "unpack_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {},
+           "stream_bounds": {}}
     rng = np.random.default_rng(2424)
     for si, shape in enumerate(I24_SHAPES):
         b, n, ch = shape
@@ -746,6 +768,9 @@ def check_i24_kernels(torch, kernels, dev) -> dict:
                              "i24_unpack": bound(n_el * 7, n_el * 4)}
         elif shape == I24_SHAPES[-1]:
             res["stream_thunks"] = calls
+            n_el = b * n * ch
+            res["stream_bounds"] = {"i24_pack": bound(n_el * 7, n_el * 6),
+                                    "i24_unpack": bound(n_el * 7, n_el * 4)}
     print(f"kernels i24_pack (transposed view and contiguous) / i24_unpack at {list(I24_SHAPES)} "
           f"(NaN, +-Inf, +-1.0, values past +-1 and rounding ties in each): equal to plain bit "
           f"for bit; at {I24_SHAPES[0]}: i24_pack {res['pack_ms']:.4f} ms vs plain "
@@ -1040,7 +1065,7 @@ def check_tns_kernels(torch, kernels, dev) -> dict:
     from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
 
     res = {"iir_err": 0.0, "lev_err": 0.0, "pq_err": 0.0, "oa_err": 0.0, "thunks": {},
-           "stream_thunks": {}}
+           "stream_thunks": {}, "bounds": {}, "stream_bounds": {}}
     for dtype, shapes in TNS_SHAPES.items():
         for si, (lanes, n) in enumerate(shapes):
             x, coeffs, ac = (torch.from_numpy(a).to(dev)
@@ -1082,10 +1107,12 @@ def check_tns_kernels(torch, kernels, dev) -> dict:
                     res["thunks"] = {
                         "tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c),
                         "tns_levinson_kernel": lambda ac=ac: kernels.tns_levinson(ac)}
+                    res["bounds"] = tns_bounds(lanes, n)
             if (lanes, dtype) == (8, "float32"):
                 res["stream_thunks"] = {
                     "tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c),
                     "tns_levinson_kernel": lambda ac=ac: kernels.tns_levinson(ac)}
+                res["stream_bounds"] = tns_bounds(lanes, n)
             res[(lanes, dtype)] = t
             print(line)
 
@@ -1163,7 +1190,8 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
     printed before the failure. CUDA-event times of both at the main
     path's forms, a call of each there (`thunks`), and each one's bound
     from the sizes of those inputs."""
-    res = {"egr_err": 0, "deq_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
+    res = {"egr_err": 0, "deq_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {},
+           "stream_bounds": {}}
     for fi, (rows, m) in enumerate(EGR_FORMS):
         max_words = max(m * 12 // 32, 16)
         sym = torch.from_numpy(egr_inputs(rows, m, 500 + fi)).to(dev)
@@ -1181,16 +1209,18 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
             res["egr_err"] = 1
             raise AssertionError(f"egr_pack {(rows, m)} differs from its plain version in "
                                  f"{bad}; overflow rows {int((~keep).sum())}")
+        egr_bound = bound(sym.numel() * 4 + got[0].numel() * 4 + 4 * rows * 4,
+                          sym.numel() * 14, "int32")
         if fi == 0:
             res["egr_ms"] = cuda_ms(torch, lambda: kernels.egr_pack(sym, max_words))
             res["egr_plain_ms"] = cuda_ms(torch, lambda: kernels.egr_pack_plain(sym, max_words),
                                           5, 5)
             res["thunks"]["egr_"] = lambda sym=sym, mw=max_words: kernels.egr_pack(sym, mw)
-            nbytes = sym.numel() * 4 + got[0].numel() * 4 + 4 * rows * 4
-            res["bounds"]["egr_pack"] = bound(nbytes, sym.numel() * 14, "int32")
+            res["bounds"]["egr_pack"] = egr_bound
             res["egr_words"] = int(got[0].numel())
         elif (rows, m) == (4, 4096):
             res["stream_thunks"]["egr_"] = lambda sym=sym, mw=max_words: kernels.egr_pack(sym, mw)
+            res["stream_bounds"]["egr_pack"] = egr_bound
             res["egr_ms_4"] = cuda_ms(torch, lambda: kernels.egr_pack(sym, max_words))
             res["egr_plain_ms_4"] = cuda_ms(
                 torch, lambda: kernels.egr_pack_plain(sym, max_words), 5, 5)
@@ -1257,6 +1287,7 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
         if (dtype, shape) == ("int16", (4, 2048, 2)) and with_div:
             res["stream_thunks"]["dequant_kernel"] = \
                 lambda s=s_d, d=d_d: kernels.dequant(s, d, 2.0 ** 15)
+            res["stream_bounds"]["dequant"] = bound(s_d.numel() * (2 + 4 + 4), s_d.numel() * 40)
         if fi == 0:
             res["thunks"]["dequant_kernel"] = lambda s=s_d, d=d_d: kernels.dequant(s, d, 2.0 ** 15)
             n_el = s_d.numel()
@@ -1294,7 +1325,8 @@ def check_thres_kernels(torch, kernels, dev) -> dict:
     each there (`thunks`) and each one's bound."""
     from frad_python_tpu_torch.ops import psycho
 
-    res = {"mt_err": 0.0, "te_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
+    res = {"mt_err": 0.0, "te_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {},
+           "stream_bounds": {}}
     rng = np.random.default_rng(700)
     for fi, (dtype, rows, n) in enumerate(MASK_THRES_FORMS):
         tdt = getattr(torch, dtype)
@@ -1325,14 +1357,15 @@ def check_thres_kernels(torch, kernels, dev) -> dict:
             args = (s_d, k["inv_w"], k["aht"], k["nb"], 0.5, CHANNELS)
             res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.mask_thres(*args))
             res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.mask_thres_plain(*args))
+        item = s_d.element_size()
+        mt_bound = bound(rows * nbp * item + 2 * nbp * item + rows * psycho.SUBBANDS * 2 * item,
+                         rows * psycho.SUBBANDS * 60)
         if (dtype, rows, n) == ("float32", 8, FSIZE):
             res["stream_thunks"]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
+            res["stream_bounds"]["mask_thres"] = mt_bound
         if fi == 0:
             res["thunks"]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
-            item = s_d.element_size()
-            res["bounds"]["mask_thres"] = bound(
-                rows * nbp * item + 2 * nbp * item + rows * psycho.SUBBANDS * 2 * item,
-                rows * psycho.SUBBANDS * 60)
+            res["bounds"]["mask_thres"] = mt_bound
     print(f"kernel mask_thres at {len(MASK_THRES_FORMS)} forms {list(MASK_THRES_FORMS)}, two "
           f"loss levels each: equal to plain bit for bit; {MASK_THRES_FORMS[0]} "
           f"{res['mt_ms']:.4f} ms vs plain {res['mt_plain_ms']:.4f} ms; 4 frames "
@@ -1352,11 +1385,13 @@ def check_thres_kernels(torch, kernels, dev) -> dict:
             key = "te" if b == OVERLAP_SHAPE[0] else "te_4"
             res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.thres_expand(t_d))
             res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.thres_expand_plain(t_d))
+            te_bound = bound(2 * t_d.numel() * 4, t_d.numel() * 50)
             if key == "te_4":
                 res["stream_thunks"]["thres_expand_kernel"] = lambda t=t_d: kernels.thres_expand(t)
+                res["stream_bounds"]["thres_expand"] = te_bound
             if key == "te":
                 res["thunks"]["thres_expand_kernel"] = lambda t=t_d: kernels.thres_expand(t)
-                res["bounds"]["thres_expand"] = bound(2 * t_d.numel() * 4, t_d.numel() * 50)
+                res["bounds"]["thres_expand"] = te_bound
     print(f"kernel thres_expand at {len(THRES_EXPAND_FORMS)} forms {list(THRES_EXPAND_FORMS)} "
           f"(frames of {CHANNELS} channels; zeros and both signs in each): equal to plain bit "
           f"for bit; {OVERLAP_SHAPE[0]} frames {res['te_ms']:.4f} ms vs plain "
@@ -1433,11 +1468,21 @@ def fir_gate_inputs(torch, x, lpc_good):
     return xb, lpc, torch.ones(lanes, dtype=torch.bool, device=x.device)
 
 
+def offset_view(torch, a):
+    """A copy of `a` in a buffer one element longer, starting at its second
+    element: contiguous, but its rows are not 16-byte aligned."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
 def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
     """tns_autocorr and tns_fir_gate against their plain versions on the
     card, bit for bit, at TNS_SHAPES, float32 and float64: as the chain
     tns_autocorr -> tns_levinson -> tns_fir_gate on `analysis_inputs`
-    (with a divisor, and at each dtype's first shape without), and
+    (with a divisor, and at each dtype's first shape without; there and at 8
+    lanes also on `offset_view`s, rows that are not 16-byte aligned), and
     tns_fir_gate alone on `fir_gate_inputs`. From 14 lanes on, every gate
     must be met from both sides. CUDA-event times of the kernels, of the
     plain versions at each dtype's first shape and at 8 lanes of float32;
@@ -1445,7 +1490,8 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
     bound, tns_fir_gate's from the rows that entered its filter."""
     from frad_python_tpu_torch.ops import tns
 
-    res = {"ac_err": 0.0, "fg_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {}}
+    res = {"ac_err": 0.0, "fg_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {},
+           "stream_bounds": {}}
 
     def same(name, form, got, want):
         names = {"tns_autocorr": ("x", "ac", "gate"), "tns_fir_gate": ("out", "lpc_out", "run")}
@@ -1476,6 +1522,13 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
                 same("tns_autocorr", form + " no divisor", got0, want0)
                 same("tns_autocorr", form + " with and without the divisor",
                      (x,) + got0[1:], got)
+            if si == 0 or lanes == 8:
+                # rows one element past a 16-byte boundary
+                got_o, want_o = held(kernels, "tns_autocorr", offset_view(torch, freqs),
+                                     offset_view(torch, div), window)
+                torch.cuda.synchronize()
+                same("tns_autocorr", form + " offset views", got_o, want_o)
+                same("tns_autocorr", form + " offset views against aligned rows", got_o, got)
             lpc = kernels.tns_levinson(ac)
             got_f, want_f = held(kernels, "tns_fir_gate", x, lpc, gate)
             xb, lpc_b, gate_b = fir_gate_inputs(torch, x, lpc[0])
@@ -1524,9 +1577,9 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
                         lambda f=freqs, d=div, w=window: kernels.tns_autocorr(f, d, w),
                     "tns_fir_gate_kernel":
                         lambda x=x, l=lpc, g=gate: kernels.tns_fir_gate(x, l, g)}
-            if si == 0 and dtype == "float32":
+            if dtype == "float32" and (si == 0 or lanes == 8):
                 entered = int(gate.sum())
-                res["bounds"] = {
+                res["bounds" if si == 0 else "stream_bounds"] = {
                     "tns_autocorr": bound(3 * lanes * n * 4 + lanes * 14 * 4 + lanes,
                                           lanes * n * 40),
                     "tns_fir_gate": bound(2 * lanes * n * 4 + 2 * lanes * 13 * 4 + 2 * lanes,
@@ -1573,6 +1626,8 @@ def tns_phase(ft, torch, kernels, native, dev) -> dict:
     res["analysis"] = check_tns_analysis_kernels(torch, kernels, dev)
     res["thunks"].update(res["analysis"]["thunks"])
     res["stream_thunks"].update(res["analysis"]["stream_thunks"])
+    res["bounds"].update(res["analysis"]["bounds"])
+    res["stream_bounds"].update(res["analysis"]["stream_bounds"])
     pcm = make_audio(SECONDS, SRATE, CHANNELS)
     frames, terms = pipeline.plan_frames(len(pcm), FSIZE, 16, True)
     n = len(frames)
@@ -1875,14 +1930,33 @@ def _frames_of(pcm: np.ndarray) -> list:
     return plan_frames(len(pcm), FSIZE, 16, True)[0]
 
 
-def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, more_bounds: dict) -> dict:
+def early_bounds(freqs, pcm, i16_emit: bool) -> dict:
+    """The bounds of power_quant on the float32 spectra `freqs` [rows, bins]
+    with a divisor and of overlap_add on the IDCT output `pcm` [b, c, nn]
+    (int16 or float32 emit), at the shapes of the tensors timed."""
+    rows, bins = freqs.shape
+    b, c, nn = pcm.shape
+    return {
+        "power_quant": bound(rows * bins * 12, rows * bins * 8),
+        "overlap_add": bound(b * c * nn * 4 + OLAP * 4 + b * CUT * c * (2 if i16_emit else 4)
+                             + OLAP * c * 4, b * c * CUT * 2 + (b - 1) * c * OLAP * 3)}
+
+
+def tns_bounds(lanes: int, n: int) -> dict:
+    """The bounds of tns_iir and tns_levinson at [lanes, n], float32."""
+    return {"tns_iir": bound(2 * lanes * n * 4 + lanes * 13 * 4, lanes * n * 25),
+            "tns_levinson": bound(2 * lanes * 13 * 4, lanes * 360)}
+
+
+def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, bounds: dict,
+                      stream_bounds: dict) -> dict:
     """For the fourteen kernels at their main-path shapes (float32): the device
     time of one launch of each on its check's inputs (`thunks`, {kernel
     function name: call}; `egr_` sums egr_pack's three kernels) from one
     `torch.profiler` call, the same at STREAMING_SHAPES (`stream_thunks`)
-    from a second, and each kernel's bound from the bytes it must
-    move and the operations it does (`more_bounds`: those worked out
-    beside the checks)."""
+    from a second, and each kernel's bound at both from the bytes it must
+    move and the operations it does (`bounds`, `stream_bounds`: worked out
+    beside the checks, from the inputs of those same calls)."""
     if set(stream_thunks) != set(thunks) or len(thunks) != len(STREAMING_SHAPES):
         raise AssertionError(f"yardsticks: calls at the main shapes {sorted(thunks)}, at the "
                              f"streaming shapes {sorted(stream_thunks)}")
@@ -1894,33 +1968,22 @@ def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, more_bounds: dic
     device_ms = profiled_device_ms(torch, thunks)
     stream_ms = named(profiled_device_ms(torch, stream_thunks))
     device_ms = {("egr_pack_kernel" if k == "egr_" else k): v for k, v in device_ms.items()}
-    b, c, nn = OVERLAP_SHAPE
-    tb, tc, tn = TRUNC_SHAPES[0]
-    lanes, n = TNS_SHAPES["float32"][0]
-    pq_n = POWER_QUANT_SHAPE[0] * POWER_QUANT_SHAPE[1]
-    tr_n = tb * tc * tn
-    bounds = {
-        "power_quant": bound(pq_n * 12, pq_n * 8),
-        "overlap_add": bound(b * c * nn * 4 + OLAP * 4 + b * CUT * c * 2 + OLAP * c * 4,
-                             b * c * CUT * 2 + (b - 1) * c * OLAP * 3),
-        "trunc_pack": bound(tr_n * 4 + tr_n * P0_BITS // 8 + tb * 4, tr_n * 2),
-        "trunc_unpack": bound(tr_n * P0_BITS // 8 + tr_n * 4, tr_n),
-        "tns_iir": bound(2 * lanes * n * 4 + lanes * 13 * 4, lanes * n * 25),
-        "tns_levinson": bound(2 * lanes * 13 * 4, lanes * 360),
-        **more_bounds,
-    }
+    if set(bounds) != set(STREAMING_SHAPES) or set(stream_bounds) != set(STREAMING_SHAPES):
+        raise AssertionError(f"yardsticks: bounds of {sorted(bounds)} and {sorted(stream_bounds)}")
     print("device time of one launch each on its check's inputs, not the runs' data, one "
           "torch.profiler call (ms): "
           + ", ".join(f"{k.removesuffix('_kernel')} {v:.4f}" if v is not None
                       else f"{k.removesuffix('_kernel')} not in the trace"
                       for k, v in device_ms.items())
           + "; bounds (ms): " + ", ".join(f"{k} {v[0]:.5f} by {v[1]}" for k, v in bounds.items()))
+    print("bounds at the streaming shapes (µs): "
+          + ", ".join(f"{k} {v[0] * 1e3:.5g} by {v[1]}" for k, v in stream_bounds.items()))
     print("device time of one launch each at the streaming shapes, one torch.profiler call "
           "(ms): " + ", ".join(f"{k} {STREAMING_SHAPES[k]} "
                                + (f"{v:.4f}" if v is not None else "not in the trace")
                                for k, v in stream_ms.items()))
     return {"device_ms": {k.removesuffix("_kernel"): v for k, v in device_ms.items()},
-            "stream_ms": stream_ms, "bounds": bounds}
+            "stream_ms": stream_ms, "bounds": bounds, "stream_bounds": stream_bounds}
 
 
 def main() -> int:
@@ -2253,16 +2316,21 @@ def main() -> int:
         "overlap_add_kernel": lambda: kernels.overlap_add(pcm_s, w, CUT, False),
         **lossless["stream_thunks"], **p2["stream_thunks"], **new["stream_thunks"],
         **thres["stream_thunks"], **i24["stream_thunks"]},
-        {**new["bounds"], **thres["bounds"], **p2["analysis"]["bounds"], **i24["bounds"]})
+        {**early_bounds(f_d, pcm_k, True), **lossless["bounds"], **p2["bounds"],
+         **new["bounds"], **thres["bounds"], **i24["bounds"]},
+        {**early_bounds(f_s, pcm_s, False), **lossless["stream_bounds"], **p2["stream_bounds"],
+         **new["stream_bounds"], **thres["stream_bounds"], **i24["stream_bounds"]})
 
     def yard(name: str) -> dict:
         """The keys every kernel's entry carries beside its own times:
-        its bound, `library_ms` (no single PyTorch call computes any of the
-        fourteen functions), `device_ms_synthetic` (one launch on the check's
+        its bound, `bound_ms_streaming` (the same at `streaming_shape`),
+        `library_ms` (no single PyTorch call computes any of the fourteen
+        functions), `device_ms_synthetic` (one launch on the check's
         inputs under the profiler, not the runs' data), `device_ms_streaming`
         (the same at `streaming_shape`), and for the
         kernels of the Profile 2 path their launches there."""
         out = {"bound_ms": yards["bounds"][name][0], "bound_by": yards["bounds"][name][1],
+               "bound_ms_streaming": yards["stream_bounds"][name][0],
                "library_ms": None, "device_ms_synthetic": yards["device_ms"][name],
                "device_ms_streaming": yards["stream_ms"][name],
                "streaming_shape": STREAMING_SHAPES[name]}

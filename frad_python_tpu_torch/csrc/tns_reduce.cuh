@@ -44,35 +44,49 @@ __device__ __forceinline__ double rint_t(double a) { return rint(a); }
 __device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
 
-// The K running sums of every thread -> the K row sums, in every thread.
-// `scratch` holds WARPS * K values of shared memory.
+// `block_sum` in two halves, for blocks in which several threads hold
+// running sums of one owner: the K running sums of every thread of a warp
+// -> their warp sums (the shuffle tree), which lane 0 writes to
+// scratch[(warp % WARPS) * KT + first + k]: a warp w of a larger block
+// holds sums of the owners 32 (w % WARPS) .. + 31. After a barrier,
+// `tree_sum` of a slot is the row sum, in every thread.
 template <typename T, int K>
-__device__ __forceinline__ void block_sum(T (&v)[K], T* scratch) {
+__device__ __forceinline__ void warp_sums(T (&v)[K], T* scratch, int kt, int first) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
 #pragma unroll
         for (int s = 16; s > 0; s >>= 1)
             v[k] = add_rn(v[k], __shfl_down_sync(0xffffffffu, v[k], s));
     }
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();                     // the scratch of an earlier sum is read
-    if (lane == 0) {
+    if ((threadIdx.x & 31) == 0) {
+        const int warp = (threadIdx.x >> 5) % WARPS;
 #pragma unroll
-        for (int k = 0; k < K; ++k) scratch[warp * K + k] = v[k];
+        for (int k = 0; k < K; ++k) scratch[warp * kt + first + k] = v[k];
     }
+}
+
+template <typename T>
+__device__ __forceinline__ T tree_sum(const T* scratch, int kt, int slot) {
+    T w[WARPS];
+#pragma unroll
+    for (int j = 0; j < WARPS; ++j) w[j] = scratch[j * kt + slot];
+#pragma unroll
+    for (int s = WARPS / 2; s > 0; s >>= 1) {
+#pragma unroll
+        for (int j = 0; j < s; ++j) w[j] = add_rn(w[j], w[j + s]);
+    }
+    return w[0];
+}
+
+// The K running sums of every thread of a block of SUM_T -> the K row sums,
+// in every thread. `scratch` holds WARPS * K values of shared memory.
+template <typename T, int K>
+__device__ __forceinline__ void block_sum(T (&v)[K], T* scratch) {
+    __syncthreads();                     // the scratch of an earlier sum is read
+    warp_sums<T, K>(v, scratch, K, 0);
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-        T w[WARPS];
-#pragma unroll
-        for (int j = 0; j < WARPS; ++j) w[j] = scratch[j * K + k];
-#pragma unroll
-        for (int s = WARPS / 2; s > 0; s >>= 1) {
-#pragma unroll
-            for (int j = 0; j < s; ++j) w[j] = add_rn(w[j], w[j + s]);
-        }
-        v[k] = w[0];
-    }
+    for (int k = 0; k < K; ++k) v[k] = tree_sum(scratch, K, k);
 }
 
 }  // namespace tns

@@ -29,11 +29,13 @@ from ..ops.psycho import sqrt_rn
 from . import build
 from .tns_levinson import MAX_ORDER, _const
 
-#: running sums a row is cut into (the kernel's threads a block)
+#: running sums a row is cut into (two of the kernel's threads each)
 SUM_T = 256
 _WARP = 32
-#: the kernel keeps a row and 8 * 13 partial sums in shared memory
-_SMEM_MAX = 232448
+#: the kernel keeps a row and the warp sums of its 18 sums (19 slots) in
+#: shared memory, within a block's 227 KB
+_SMEM_MAX = 232448 - 64
+_SCRATCH = (SUM_T // _WARP) * 19
 
 
 def row_sum(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -134,7 +136,7 @@ def tns_autocorr(freqs: torch.Tensor, div: torch.Tensor | None, window: torch.Te
         raise ValueError(f"tns_autocorr: [{MAX_ORDER + 1}] window required, got "
                          f"{tuple(window.shape)}")
     lanes, n = freqs.shape
-    if (n + (SUM_T // _WARP) * (MAX_ORDER + 1)) * freqs.element_size() > _SMEM_MAX:
+    if (n + _SCRATCH) * freqs.element_size() > _SMEM_MAX:
         raise ValueError(f"tns_autocorr: a row of {n} {freqs.dtype} values exceeds a block's "
                          f"shared memory")
     x = freqs if div is None else torch.empty_like(freqs)

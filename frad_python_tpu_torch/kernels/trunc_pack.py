@@ -5,6 +5,10 @@ The port of the JAX package's fused XLA program (frad_python_tpu/ops/
 bitpack.py:trunc_pack after the DCT in models/batch.py:_p0_encode_pack_jit).
 `trunc_pack` launches the CUDA kernel (csrc/trunc_pack.cu) for CUDA
 tensors and runs `trunc_pack_plain` for CPU tensors.
+
+The kernel gives each thread one group of `GROUP` consecutive values of a
+frame's interleaved row and each frame one cluster of at most
+`MAX_CLUSTER` blocks; `geometry` picks the blocks and threads.
 """
 
 from __future__ import annotations
@@ -15,6 +19,26 @@ import torch
 
 from ..ops import bitpack
 from . import build
+
+
+#: values a thread of the kernel packs (one group: four 16-byte loads)
+GROUP = 16
+#: most blocks a frame's cluster holds (the portable cluster size)
+MAX_CLUSTER = 8
+#: threads a block while a frame fits in MAX_CLUSTER such blocks
+BLOCK = 256
+
+
+def geometry(c: int, n: int) -> tuple[int, int]:
+    """(blocks a frame, threads a block) of the kernel for frames of c
+    channels of n values: enough threads that each holds one group of
+    GROUP values (a frame of up to MAX_CLUSTER * 1024 groups), in blocks of
+    BLOCK threads or, past MAX_CLUSTER such blocks, in MAX_CLUSTER larger
+    ones; threads a whole number of warps. Larger frames loop."""
+    groups = -(-c * n // GROUP)
+    blocks = max(1, min(MAX_CLUSTER, -(-groups // BLOCK)))
+    threads = min(1024, (-(-groups // blocks) + 31) // 32 * 32)
+    return blocks, threads
 
 
 def _words_shape(b: int, m: int, bits: int) -> tuple[tuple[int, int], torch.dtype]:
@@ -51,10 +75,11 @@ def trunc_pack(y: torch.Tensor, bits: int, little: bool):
     shape, dtype = _words_shape(b, c * n, bits)
     words = torch.empty(shape, dtype=dtype, device=y.device)
     maxabs = torch.empty(b, dtype=torch.float32, device=y.device)
+    blocks, threads = geometry(c, n)
     lib = build.library()
     err = lib.frad_trunc_pack(
         ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(words.data_ptr()),
-        ctypes.c_void_p(maxabs.data_ptr()), b, c, n, bits, int(bool(little)),
+        ctypes.c_void_p(maxabs.data_ptr()), b, c, n, bits, int(bool(little)), blocks, threads,
         ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream))
     build.check("frad_trunc_pack", err)
     trunc_pack.launches += 1

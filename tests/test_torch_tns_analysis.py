@@ -263,3 +263,103 @@ def test_chip_smoke_analysis_inputs_cover_every_gate(dtype):
     assert not torch.isfinite(resid[kind_b == 4]).all()
     assert torch.isfinite(resid[kind_b == 3]).all() and (tns._predgain(xb, resid)[kind_b == 3]
                                                          == 0).all()
+
+
+# ----------------------------------------------------------------------
+# the kernel's split of the sums over two threads an owner
+# ----------------------------------------------------------------------
+#: threads of the tns_autocorr kernel's block, lags of an owner's first thread
+NT, LAGS0 = 2 * SUM_T, 7
+
+
+def split_kernel_model(freqs: torch.Tensor, div, window: torch.Tensor):
+    """(x, ac, gate) of rows [L, n] as csrc/tns_autocorr.cu computes them
+    with 512 threads a row: thread tid is half h = tid // 256 of owner
+    t = tid % 256; the first half sums x, x^2 and |x| (slots 0-2), the
+    second log(|x| + 1e-10) (slot 3); the centring sum stays with the first
+    half; the first half sums lags 0-6, the second lags 7-12. Every running sum adds the
+    owner's elements t, t + 256, ... from +0 (padded steps add +0); lane 0
+    of each warp writes its warp's shuffle-tree sum to scratch slot
+    (warp % 8) * kt + first + k, and `tree` adds the 8 warp sums of a slot."""
+    dt = freqs.dtype
+    lanes, n = freqs.shape
+    zero, tiny = torch.zeros((), dtype=dt), torch.tensor(1e-10, dtype=dt)
+    x = freqs if div is None else freqs / torch.where(div == 0, torch.inf, div)
+    steps = -(-n // SUM_T)
+
+    def owned(v, i):              # [L, 256]: element t + 256 i of each owner, +0 past n
+        idx = torch.arange(SUM_T) + i * SUM_T
+        return torch.where(idx < n, v[:, idx.clamp(max=n - 1)], zero)
+
+    def warp_sums(sums, scratch, kt):
+        """sums {(half, first slot): [L, K, 256] running sums} -> scratch"""
+        for (h, first), s in sums.items():
+            for w in range(h * 8, h * 8 + 8):
+                p = s[..., (w % 8) * 32:(w % 8) * 32 + 32]
+                for sh in (16, 8, 4, 2, 1):
+                    p = p[..., :sh] + p[..., sh:2 * sh]
+                for k in range(s.shape[1]):
+                    scratch[:, (w % 8) * kt + first + k] = p[:, k, 0]
+
+    def tree(scratch, kt, slot):
+        w = [scratch[:, j * kt + slot] for j in range(8)]
+        for sh in (4, 2, 1):
+            w = [w[j] + w[j + sh] for j in range(sh)]
+        return w[0]
+
+    lg = torch.log(torch.abs(x) + tiny)            # each thread's own log, elementwise
+    s = {(0, 0): torch.zeros((lanes, 3, SUM_T), dtype=dt),
+         (1, 3): torch.zeros((lanes, 1, SUM_T), dtype=dt)}
+    for i in range(steps):
+        xi = owned(x, i)
+        s[(0, 0)] = s[(0, 0)] + torch.stack([xi, xi * xi, torch.abs(xi)], 1)
+        s[(1, 3)] = s[(1, 3)] + owned(lg, i)[:, None]
+    sc1 = torch.zeros((lanes, 8 * 4), dtype=dt)
+    warp_sums(s, sc1, 4)
+    nn = torch.full((lanes,), n, dtype=dt)
+    mean = tree(sc1, 4, 0) / nn
+    flat = torch.exp(tree(sc1, 4, 3) / nn) / (tree(sc1, 4, 2) / nn + tiny) < 0.5
+    gate = flat & (n >= 24) & (tree(sc1, 4, 1) >= tiny)
+
+    row = x - mean[:, None]
+    e = torch.zeros((lanes, 1, SUM_T), dtype=dt)
+    for i in range(steps):
+        ri = owned(row, i)
+        e = e + (ri * ri)[:, None]
+    sc2 = torch.zeros((lanes, 8), dtype=dt)
+    warp_sums({(0, 0): e}, sc2, 1)
+    norm = torch.from_numpy(np.sqrt(tree(sc2, 1, 0).double().numpy())).to(dt)
+    row = torch.where(norm[:, None] > torch.tensor(1e-6, dtype=dt), row / norm[:, None], row)
+
+    acc = {(0, 0): torch.zeros((lanes, LAGS0, SUM_T), dtype=dt),
+           (1, LAGS0): torch.zeros((lanes, LAGS0, SUM_T), dtype=dt)}
+    for i in range(steps):
+        a = owned(row, i)
+        for (h, l0), sums in acc.items():
+            for j in range(13 - LAGS0 if h else LAGS0):
+                idx = torch.arange(SUM_T) + i * SUM_T + l0 + j
+                nb = torch.where(idx < n, row[:, idx.clamp(max=n - 1)], zero)
+                sums[:, j] = sums[:, j] + torch.where(idx < n, a * nb, zero)
+    sc3 = torch.zeros((lanes, 8 * 2 * LAGS0), dtype=dt)
+    warp_sums(acc, sc3, 2 * LAGS0)
+    ac = torch.stack([tree(sc3, 2 * LAGS0, l) * window[l] for l in range(13)], -1)
+    return x, ac, gate
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [256, 300, 2048])
+@pytest.mark.parametrize("with_div", [False, True])
+def test_tns_autocorr_split_model_is_the_plain_version(n, dtype, with_div):
+    """The kernel's split of each owner's sums over two threads changes
+    no sum's order: its model equals tns_autocorr_plain bit for bit."""
+    if with_div:
+        freqs, div = (t_(a) for a in divided(n, dtype))
+    else:
+        freqs, div = t_(spectra(n, dtype).reshape(12, n)), None
+    window = tns._lag_window(freqs.dtype, torch.device("cpu"))
+    got = split_kernel_model(freqs, div, window)
+    want = kernels.tns_autocorr_plain(freqs, div, window)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, w) if g.dtype == torch.bool else chip_smoke.bits_equal(torch, g, w)
+    assert want[2].any() and not want[2].all()

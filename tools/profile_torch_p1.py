@@ -27,7 +27,8 @@ decode, `Decoder` in 32 KiB pushes and in `exact` mode, and an `Encoder`
 whose loaded state names profile 2 in 32 KiB pushes; then profiles 1 and
 2 at `compute_dtype="float64"` on 5 s.
 
-After a warm-up of each call:
+After a warm-up of each call, whose output's digest it prints (sha256 of
+the stream's bytes or the decoded PCM; two trees compare output by output):
 
 * walls: five host-clock calls of each, ending in
   `torch.cuda.synchronize()`; median, min and max, and frames/s at the
@@ -53,13 +54,18 @@ the one GEMM and with the cut, each stream's SNR decoded on the card and
 on the CPU.
 
 Prints the card's name and power limit first. Needs a CUDA device;
-imports neither jax nor the JAX package.
+imports neither jax nor the JAX package. With FRAD_PROFILE_TREE set to
+another checkout (a parent's `git archive`), it profiles that checkout's
+port and chip_smoke.py: `tools/profile_ab.sh` runs one copy of this tool
+on both trees.
 """
 
 from __future__ import annotations
 
 import cProfile
+import hashlib
 import io
+import os
 import pstats
 import statistics
 import subprocess
@@ -67,7 +73,7 @@ import sys
 import time
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
+REPO = Path(os.environ.get("FRAD_PROFILE_TREE") or Path(__file__).resolve().parent.parent)
 OUT = REPO / "_profile"
 SECONDS, REPS = 30.0, 5
 
@@ -245,6 +251,30 @@ def ksplit_probe(ft, torch, dev) -> None:
         dct.K_SPLIT_ABOVE = saved
 
 
+def digest(out) -> str:
+    """sha256 (16 hex digits) of a call's output: stream bytes, PCM arrays,
+    sample rates, and tuples of them (a float in them is a time: left out)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, (bytes, bytearray)):
+            h.update(x)
+        elif isinstance(x, np.ndarray):
+            h.update(str(x.dtype).encode() + np.ascontiguousarray(x).tobytes())
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                feed(y)
+        elif isinstance(x, float):      # stream_decode's time to first audio
+            pass
+        else:
+            h.update(repr(x).encode())
+
+    feed(out)
+    return h.hexdigest()[:16]
+
+
 def main() -> int:
     import torch
 
@@ -274,8 +304,8 @@ def main() -> int:
     mode = {"--lossless": lossless_calls, "--long": long_calls, "--p2": p2_calls}
     calls, traced = next((fn for flag, fn in mode.items() if flag in sys.argv[1:]),
                          p1_calls)(ft, torch, dev)
-    for fn, _ in calls.values():             # first-use set-up outside the timing
-        fn()
+    for name, (fn, _) in calls.items():      # first-use set-up outside the timing
+        print(f"digest {name}: {digest(fn())}")
 
     def timed(fn) -> float:
         t0 = time.perf_counter()
