@@ -27,8 +27,9 @@ against the CPU), `hires_96k_8ch` (96 kHz, 8 channels, 8192-sample frames,
 cut to 10 s), Profile 1 at 8192-sample frames (the DCT GEMM cut along its
 contraction) and at 16384 (the FFT form), and the `p0_stereo_44k1` track
 as s32le bytes through `Encoder` and `Decoder`. Then the Profile 2 phase:
-`tns_iir` and `tns_levinson` held bit for bit against their plain versions
-at the batch and the streaming shapes, float32 and float64, with the
+`tns_iir` and `tns_fir_gate` (on the Levinson recursion's dead, clamped
+and frozen lanes) held bit for bit against their plain versions at the
+batch and the streaming shapes, float32 and float64, with the
 float64 and no-divisor forms of `power_quant` and the float64 form of
 `overlap_add` (the phase fails if one of its runs launches a kernel at a
 shape, dtype or option that was not held so); the track as profile 2 through `batch_encode` /
@@ -39,8 +40,8 @@ their plain versions first, at every shape, dtype and option that any of
 these runs launches them at (a tally over all the runs fails the script on
 a form that was not held); so are `mask_thres` and `thres_expand`, the
 threshold chains of every lossy encode and decode, and in the Profile 2
-phase `tns_autocorr` and `tns_fir_gate`, which with `tns_levinson` are the
-TNS analysis (inputs that meet every gate from both sides; the card's
+phase `tns_autocorr` and `tns_fir_gate`, which are the TNS analysis
+(inputs that meet every gate from both sides; the card's
 quantised LPC rows of the 30 s track are held against a CPU encode's). The
 batch and streaming runs of Profiles 1 and 2 print the pipeline's stage
 timer. Last, the command-line phase: the track as an
@@ -50,7 +51,7 @@ s16le file through `frad_python_tpu_torch.app.main` on the card: `encode`
 of a damaged armored file, the `meta` actions, and one
 `python3 -m frad_python_tpu_torch encode` subprocess.
 Every phase prints one line; any failure exits non-zero. The
-second-to-last line is a JSON object with one entry per kernel (fourteen,
+second-to-last line is a JSON object with one entry per kernel (thirteen,
 each with its device time at the main path's shape and at the streaming
 engines' shape), the last
 line `{"ok": true, "device": {...}}`. Needs a CUDA device, nvcc and g++,
@@ -188,7 +189,7 @@ I24_SHAPES = ((645, 2048, 2), (1, 2040, 2), (4, 2048, 2))
 STREAMING_SHAPES = {
     "power_quant": "[8, 2048]", "overlap_add": "[4, 2, 2048] f32 emit",
     "trunc_pack": "[2, 2, 2048] 24-bit", "trunc_unpack": "[2, 2, 2048] 24-bit",
-    "tns_iir": "[8, 2048]", "tns_levinson": "[8, 13]", "egr_pack": "[4, 4096]",
+    "tns_iir": "[8, 2048]", "egr_pack": "[4, 4096]",
     "dequant": "[4, 2048, 2] i16 + divisor", "tns_autocorr": "[8, 2048] + divisor",
     "tns_fir_gate": "[8, 2048]", "mask_thres": "[8, 22]", "thres_expand": "[4, 27, 2]",
     "i24_pack": "[4, 2048, 2] transposed view", "i24_unpack": "[4, 3072]"}
@@ -203,11 +204,10 @@ DEVICE = "cuda"
 P1_KERNELS = ("power_quant", "overlap_add", "egr_pack", "dequant", "mask_thres",
               "thres_expand")
 #: the kernels of the Profile 2 paths
-P2_KERNELS = ("power_quant", "overlap_add", "dequant", "tns_iir", "tns_levinson",
-              "tns_autocorr", "tns_fir_gate", "mask_thres", "thres_expand")
+P2_KERNELS = ("power_quant", "overlap_add", "dequant", "tns_iir", "tns_autocorr",
+              "tns_fir_gate", "mask_thres", "thres_expand")
 #: the kernels of a Profile 2 encode
-P2_ENCODE_KERNELS = ("power_quant", "tns_levinson", "tns_autocorr", "tns_fir_gate",
-                     "mask_thres")
+P2_ENCODE_KERNELS = ("power_quant", "tns_autocorr", "tns_fir_gate", "mask_thres")
 #: lanes of the 30 s track whose quantised LPC row may differ between the
 #: card's encode and the CPU's (a gate is a threshold on float sums, and the
 #: DCT GEMM before them sums in another order on each)
@@ -334,7 +334,7 @@ class FormTally:
 
         self.targets = [(mod, name) for mod, name in (
             (batch, "power_quant"), (batch, "overlap_add"), (tns, "tns_iir"),
-            (tns, "tns_levinson"), (pipeline, "egr_pack"), (batch, "dequant"),
+            (pipeline, "egr_pack"), (batch, "dequant"),
             (tns, "tns_autocorr"), (tns, "tns_fir_gate"), (batch, "mask_thres"),
             (batch, "thres_expand"), (batch, "i24_pack"), (batch, "i24_unpack"))
             if only is None or name in only]
@@ -1056,33 +1056,39 @@ def bits_equal(torch, a, b) -> bool:
 
 
 def check_tns_kernels(torch, kernels, dev) -> dict:
-    """tns_iir and tns_levinson against their plain versions, bit for bit,
-    at TNS_SHAPES, float32 and float64; power_quant at
+    """tns_iir against its plain version, bit for bit, at TNS_SHAPES,
+    float32 and float64, and tns_fir_gate likewise on the same rows with
+    `tns_inputs`' lags and every gate true (the Levinson recursion's dead,
+    clamped and frozen lanes, reached through the plain recursion on the
+    card); power_quant at
     P2_POWER_QUANT_FORMS and overlap_add at P2_OVERLAP_FORMS likewise:
     every form the Profile 2 and float64 runs launch. CUDA-event times of
     the kernels; of the plain versions at the main path's shape (the plain
     IIR, a Python loop over time, with one call, at float32 only)."""
     from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
 
-    res = {"iir_err": 0.0, "lev_err": 0.0, "pq_err": 0.0, "oa_err": 0.0, "thunks": {},
+    res = {"iir_err": 0.0, "pq_err": 0.0, "oa_err": 0.0, "thunks": {},
            "stream_thunks": {}, "bounds": {}, "stream_bounds": {}}
     for dtype, shapes in TNS_SHAPES.items():
         for si, (lanes, n) in enumerate(shapes):
             x, coeffs, ac = (torch.from_numpy(a).to(dev)
                              for a in tns_inputs(lanes, n, dtype, 31 + lanes))
             (y_k,), (y_p,) = held(kernels, "tns_iir", x, coeffs)
-            (l_k,), (l_p,) = held(kernels, "tns_levinson", ac)
+            every = torch.ones(lanes, dtype=torch.bool, device=dev)
+            got_f, want_f = held(kernels, "tns_fir_gate", x, ac, every)
+            l_k = kernels.tns_levinson_plain(ac)
             torch.cuda.synchronize()
             kind = torch.arange(lanes, device=dev) % 7
             d_iir = float((y_k - y_p).abs().nan_to_num(float("inf")).max())
-            d_lev = float((l_k - l_p).abs().nan_to_num(float("inf")).max())
-            res["iir_err"], res["lev_err"] = max(res["iir_err"], d_iir), max(res["lev_err"], d_lev)
+            res["iir_err"] = max(res["iir_err"], d_iir)
             if not bits_equal(torch, y_k, y_p):
                 raise AssertionError(f"tns_iir {(lanes, n)} {dtype} differs from its plain "
                                      f"version: max |d| {d_iir}")
-            if not bits_equal(torch, l_k, l_p):
-                raise AssertionError(f"tns_levinson {(lanes, 13)} {dtype} differs from its "
-                                     f"plain version: max |d| {d_lev}")
+            if not (bits_equal(torch, got_f[0], want_f[0]) and bits_equal(torch, got_f[1], want_f[1])
+                    and torch.equal(got_f[2], want_f[2])):
+                raise AssertionError(f"tns_fir_gate {(lanes, n)} {dtype} on the recursion's "
+                                     f"lanes differs from its plain version: "
+                                     f"{ulp_report(torch, got_f[0], want_f[0])}")
             # lanes of every kind from 7 lanes on; fewer hold the first kinds
             peak = y_k[kind == 4].abs().amax(dim=-1)
             unit = torch.zeros(13, dtype=l_k.dtype, device=dev)
@@ -1094,24 +1100,17 @@ def check_tns_kernels(torch, kernels, dev) -> dict:
                     and bool((l_k[kind == 5][:, 3:] == 0).all())):
                 raise AssertionError(f"TNS kernel inputs {(lanes, n)} {dtype} miss a case: "
                                      f"bypass, blow-up {peak.tolist()[:3]}, dead, clamp or freeze")
-            t = {"iir": cuda_ms(torch, lambda: kernels.tns_iir(x, coeffs)),
-                 "lev": cuda_ms(torch, lambda: kernels.tns_levinson(ac))}
-            line = (f"kernels tns_iir {(lanes, n)} / tns_levinson {(lanes, 13)} {dtype}: equal "
-                    f"bit for bit, tns_iir {t['iir']:.4f} ms, tns_levinson {t['lev']:.4f} ms")
-            if si == 0:
-                t["lev_plain"] = cuda_ms(torch, lambda: kernels.tns_levinson_plain(ac), 3, 1)
-                line += f" vs plain {t['lev_plain']:.3f} ms"
-                if dtype == "float32":
-                    t["iir_plain"] = cuda_ms(torch, lambda: kernels.tns_iir_plain(x, coeffs), 1, 1)
-                    line += f", plain tns_iir {t['iir_plain']:.1f} ms"
-                    res["thunks"] = {
-                        "tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c),
-                        "tns_levinson_kernel": lambda ac=ac: kernels.tns_levinson(ac)}
-                    res["bounds"] = tns_bounds(lanes, n)
+            t = {"iir": cuda_ms(torch, lambda: kernels.tns_iir(x, coeffs))}
+            line = (f"kernels tns_iir {(lanes, n)} / tns_fir_gate on the recursion's lanes "
+                    f"{dtype}: equal bit for bit (TNS runs on {int(got_f[2].sum())} of {lanes} "
+                    f"rows), tns_iir {t['iir']:.4f} ms")
+            if si == 0 and dtype == "float32":
+                t["iir_plain"] = cuda_ms(torch, lambda: kernels.tns_iir_plain(x, coeffs), 1, 1)
+                line += f" vs plain {t['iir_plain']:.1f} ms"
+                res["thunks"] = {"tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c)}
+                res["bounds"] = tns_bounds(lanes, n)
             if (lanes, dtype) == (8, "float32"):
-                res["stream_thunks"] = {
-                    "tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c),
-                    "tns_levinson_kernel": lambda ac=ac: kernels.tns_levinson(ac)}
+                res["stream_thunks"] = {"tns_iir_kernel": lambda x=x, c=coeffs: kernels.tns_iir(x, c)}
                 res["stream_bounds"] = tns_bounds(lanes, n)
             res[(lanes, dtype)] = t
             print(line)
@@ -1443,29 +1442,37 @@ def analysis_inputs(lanes: int, n: int, dtype: str, seed: int):
 FIR_KINDS = 7
 
 
-def fir_gate_inputs(torch, x, lpc_good):
-    """(x [L, N], lpc [L, 13], gate [L]) for tns_fir_gate on its own, the
-    gate true on every row, rows cycling through FIR_KINDS kinds: 0 and 6 a
-    tone row of `x` with `lpc_good` (TNS runs), 1 coefficients of 0.0005
-    (their sum under 0.01), 2 coefficients of 0.02 (each rounds to 0),
-    3 a smooth positive row with lpc[1] = 0.9 (the residual is larger than
-    the row: gain 0), 4 values near the dtype's largest (the residual
-    overflows), 5 a NaN in the row."""
+def fir_gate_inputs(torch, x, ac_good):
+    """(x [L, N], ac [L, 13], gate [L]) for tns_fir_gate on rows that a
+    natural spectrum does not give, the gate true on every row, rows
+    cycling through FIR_KINDS kinds: 0 and 6 a tone row of `x` with its
+    lags `ac_good` (TNS runs); 1-4 the lags of an AR(1) process of
+    coefficient rho, [1, rho, rho^2, ..., rho^12], whose LPC is [1, -rho,
+    0, ...]: 1 rho = 0.0005 (the coefficients sum under 0.01), 2 rho = 0.02
+    (each rounds to 0), 3 a smooth positive row with rho = -0.9 (lpc[1] =
+    0.9: the residual is larger than the row, gain 0), 4 values near the
+    dtype's largest with rho = -0.9 (the residual overflows); 5 a NaN in
+    the tone row."""
     lanes, n = x.shape
     kind = torch.arange(lanes, device=x.device) % FIR_KINDS
     xb = x[0].expand(lanes, n).clone()
-    lpc = lpc_good.expand(lanes, 13).clone()
-    lpc[kind == 1, 1:] = 0.0005
-    lpc[kind == 2, 1:] = 0.02
-    ramp = 1.0 + torch.arange(n, device=x.device, dtype=x.dtype) / n
-    xb[kind == 3] = ramp
-    lpc[kind == 3, 1:] = 0.0
-    lpc[kind == 3, 1] = 0.9
+    ac = ac_good.expand(lanes, 13).clone()
+    for k, rho in ((1, 0.0005), (2, 0.02), (3, -0.9), (4, -0.9)):
+        ac[kind == k] = torch.tensor([rho ** j for j in range(13)], dtype=x.dtype,
+                                     device=x.device)
+    xb[kind == 3] = 1.0 + torch.arange(n, device=x.device, dtype=x.dtype) / n
     xb[kind == 4] = xb[kind == 4].sign() * (torch.finfo(x.dtype).max * 0.9)
-    lpc[kind == 4, 1:] = 0.0
-    lpc[kind == 4, 1] = 0.9
     xb[kind == 5, 7] = float("nan")
-    return xb, lpc, torch.ones(lanes, dtype=torch.bool, device=x.device)
+    return xb, ac, torch.ones(lanes, dtype=torch.bool, device=x.device)
+
+
+#: tns_fir_gate's forms that no run launches, (dtype, [L, N]) on
+#: `analysis_inputs`: rows of 1001 samples, of which only every fourth
+#: (float32) or second (float64) starts on a 16-byte boundary, in x and in
+#: out; and float64 rows too long for x and the residual both in a block's
+#: shared memory (the kernel keeps the residual in out)
+FIR_GATE_EXTRA_FORMS = (("float32", (6, 1001)), ("float64", (6, 1001)),
+                        ("float64", (2, 16384)))
 
 
 def offset_view(torch, a):
@@ -1480,14 +1487,15 @@ def offset_view(torch, a):
 def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
     """tns_autocorr and tns_fir_gate against their plain versions on the
     card, bit for bit, at TNS_SHAPES, float32 and float64: as the chain
-    tns_autocorr -> tns_levinson -> tns_fir_gate on `analysis_inputs`
-    (with a divisor, and at each dtype's first shape without; there and at 8
-    lanes also on `offset_view`s, rows that are not 16-byte aligned), and
-    tns_fir_gate alone on `fir_gate_inputs`. From 14 lanes on, every gate
-    must be met from both sides. CUDA-event times of the kernels, of the
-    plain versions at each dtype's first shape and at 8 lanes of float32;
-    a call of each at the main path's shape (`thunks`) and each one's
-    bound, tns_fir_gate's from the rows that entered its filter."""
+    tns_autocorr -> tns_fir_gate on `analysis_inputs` (with a divisor, and
+    at each dtype's first shape without; there and at 8 lanes also on
+    `offset_view`s, rows that are not 16-byte aligned), and tns_fir_gate
+    alone on `fir_gate_inputs`; then tns_fir_gate at FIR_GATE_EXTRA_FORMS.
+    From 14 lanes on, every gate must be met from both sides. CUDA-event
+    times of the kernels, of the plain versions at each dtype's first shape
+    and at 8 lanes of float32; a call of each at the main path's shape
+    (`thunks`) and each one's bound, tns_fir_gate's work from the rows whose
+    gate is true (the recursion and the filter run on those)."""
     from frad_python_tpu_torch.ops import tns
 
     res = {"ac_err": 0.0, "fg_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {},
@@ -1529,13 +1537,18 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
                 torch.cuda.synchronize()
                 same("tns_autocorr", form + " offset views", got_o, want_o)
                 same("tns_autocorr", form + " offset views against aligned rows", got_o, got)
-            lpc = kernels.tns_levinson(ac)
-            got_f, want_f = held(kernels, "tns_fir_gate", x, lpc, gate)
-            xb, lpc_b, gate_b = fir_gate_inputs(torch, x, lpc[0])
-            got_b, want_b = held(kernels, "tns_fir_gate", xb, lpc_b, gate_b)
+            got_f, want_f = held(kernels, "tns_fir_gate", x, ac, gate)
+            xb, ac_b, gate_b = fir_gate_inputs(torch, x, ac[0])
+            got_b, want_b = held(kernels, "tns_fir_gate", xb, ac_b, gate_b)
             torch.cuda.synchronize()
             same("tns_fir_gate", form, got_f, want_f)
             same("tns_fir_gate", form + " (gates)", got_b, want_b)
+            if si == 0 or lanes == 8:
+                got_o, want_o = held(kernels, "tns_fir_gate", offset_view(torch, x),
+                                     offset_view(torch, ac), offset_view(torch, gate))
+                torch.cuda.synchronize()
+                same("tns_fir_gate", form + " offset views", got_o, want_o)
+                same("tns_fir_gate", form + " offset views against aligned rows", got_o, got_f)
             res["fg_err"] = max(res["fg_err"],
                                 max_abs(torch, got_f[0].nan_to_num(0.0, 0.0, 0.0),
                                         want_f[0].nan_to_num(0.0, 0.0, 0.0)),
@@ -1560,7 +1573,7 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
                     f"gate rows by kind "
                     f"{[int(run_b[kind_b == k].sum()) for k in range(FIR_KINDS)]}")
             t = {"ac": cuda_ms(torch, lambda: kernels.tns_autocorr(freqs, div, window)),
-                 "fg": cuda_ms(torch, lambda: kernels.tns_fir_gate(x, lpc, gate))}
+                 "fg": cuda_ms(torch, lambda: kernels.tns_fir_gate(x, ac, gate))}
             line = (f"kernels tns_autocorr / tns_fir_gate {form}: equal bit for bit (chain and "
                     f"gate rows; TNS runs on {int(run.sum())} of {lanes} rows, "
                     f"{int(gate.sum())} pass the first gates), tns_autocorr {t['ac']:.4f} ms, "
@@ -1569,23 +1582,33 @@ def check_tns_analysis_kernels(torch, kernels, dev) -> dict:
                 t["ac_plain"] = cuda_ms(
                     torch, lambda: kernels.tns_autocorr_plain(freqs, div, window), 3, 2)
                 t["fg_plain"] = cuda_ms(
-                    torch, lambda: kernels.tns_fir_gate_plain(x, lpc, gate), 3, 2)
+                    torch, lambda: kernels.tns_fir_gate_plain(x, ac, gate), 3, 2)
                 line += f" vs plain {t['ac_plain']:.3f} / {t['fg_plain']:.3f} ms"
             if dtype == "float32" and (si == 0 or lanes == 8):
                 res["thunks" if si == 0 else "stream_thunks"] = {
                     "tns_autocorr_kernel":
                         lambda f=freqs, d=div, w=window: kernels.tns_autocorr(f, d, w),
                     "tns_fir_gate_kernel":
-                        lambda x=x, l=lpc, g=gate: kernels.tns_fir_gate(x, l, g)}
+                        lambda x=x, a=ac, g=gate: kernels.tns_fir_gate(x, a, g)}
             if dtype == "float32" and (si == 0 or lanes == 8):
                 entered = int(gate.sum())
                 res["bounds" if si == 0 else "stream_bounds"] = {
                     "tns_autocorr": bound(3 * lanes * n * 4 + lanes * 14 * 4 + lanes,
                                           lanes * n * 40),
                     "tns_fir_gate": bound(2 * lanes * n * 4 + 2 * lanes * 13 * 4 + 2 * lanes,
-                                          entered * n * 34)}
+                                          entered * (n * 34 + 360))}
             res[(lanes, dtype)] = t
             print(line)
+    for dtype, (lanes, n) in FIR_GATE_EXTRA_FORMS:
+        freqs, div = (torch.from_numpy(a).to(dev)
+                      for a in analysis_inputs(lanes, n, dtype, 700 + n))
+        x, ac, gate = kernels.tns_autocorr_plain(freqs, div, tns._lag_window(freqs.dtype, dev))
+        got, want = held(kernels, "tns_fir_gate", x, ac, gate)
+        torch.cuda.synchronize()
+        same("tns_fir_gate", f"{(lanes, n)} {dtype}", got, want)
+        if not bool(got[2].any()):
+            raise AssertionError(f"tns_fir_gate {(lanes, n)} {dtype}: TNS runs on no row")
+    print(f"kernel tns_fir_gate at {list(FIR_GATE_EXTRA_FORMS)}: equal bit for bit")
     return res
 
 
@@ -1943,14 +1966,13 @@ def early_bounds(freqs, pcm, i16_emit: bool) -> dict:
 
 
 def tns_bounds(lanes: int, n: int) -> dict:
-    """The bounds of tns_iir and tns_levinson at [lanes, n], float32."""
-    return {"tns_iir": bound(2 * lanes * n * 4 + lanes * 13 * 4, lanes * n * 25),
-            "tns_levinson": bound(2 * lanes * 13 * 4, lanes * 360)}
+    """The bound of tns_iir at [lanes, n], float32."""
+    return {"tns_iir": bound(2 * lanes * n * 4 + lanes * 13 * 4, lanes * n * 25)}
 
 
 def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, bounds: dict,
                       stream_bounds: dict) -> dict:
-    """For the fourteen kernels at their main-path shapes (float32): the device
+    """For the thirteen kernels at their main-path shapes (float32): the device
     time of one launch of each on its check's inputs (`thunks`, {kernel
     function name: call}; `egr_` sums egr_pack's three kernels) from one
     `torch.profiler` call, the same at STREAMING_SHAPES (`stream_thunks`)
@@ -2324,7 +2346,7 @@ def main() -> int:
     def yard(name: str) -> dict:
         """The keys every kernel's entry carries beside its own times:
         its bound, `bound_ms_streaming` (the same at `streaming_shape`),
-        `library_ms` (no single PyTorch call computes any of the fourteen
+        `library_ms` (no single PyTorch call computes any of the thirteen
         functions), `device_ms_synthetic` (one launch on the check's
         inputs under the profiler, not the runs' data), `device_ms_streaming`
         (the same at `streaming_shape`), and for the
@@ -2381,13 +2403,6 @@ def main() -> int:
          "ms": big["iir"], "plain_ms": big["iir_plain"],
          "ms_f64": p2[(tns_lanes, "float64")]["iir"],
          "ms_8_lanes": p2[(8, "float32")]["iir"], **yard("tns_iir")},
-        {"name": "tns_levinson", "route": "cuda",
-         "source": "frad_python_tpu_torch/csrc/tns_levinson.cu",
-         "replaces": "frad_python_tpu/ops/tns_jax.py:45",
-         "launches": p2["launches"]["tns_levinson"], "max_abs_err": p2["lev_err"],
-         "ms": big["lev"], "plain_ms": big["lev_plain"],
-         "ms_f64": p2[(tns_lanes, "float64")]["lev"],
-         "ms_8_lanes": p2[(8, "float32")]["lev"], **yard("tns_levinson")},
         {"name": "egr_pack", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/egr_pack.cu",
          "replaces": "frad_python_tpu/ops/bitpack.py:34",
@@ -2414,7 +2429,7 @@ def main() -> int:
          "plain_ms_8_lanes": ana[(8, "float32")]["ac_plain"], **yard("tns_autocorr")},
         {"name": "tns_fir_gate", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/tns_fir_gate.cu",
-         "replaces": "frad_python_tpu/ops/tns_jax.py:87",
+         "replaces": "frad_python_tpu/ops/tns_jax.py:45, frad_python_tpu/ops/tns_jax.py:87",
          "launches": p2["launches"]["tns_fir_gate"], "max_abs_err": ana["fg_err"],
          "ms": big_a["fg"], "plain_ms": big_a["fg_plain"],
          "ms_f64": ana[(tns_lanes, "float64")]["fg"],

@@ -35,7 +35,7 @@
 //   order, so the two threads of an owner share its sums: the first takes
 //   x, x^2 and |x|, the second log(|x| + 1e-10); in the 13-lag pass the
 //   first takes lags 0-6 and the second lags 7-12. warp_sums / tree_sum of
-//   tns_reduce.cuh give each sum the tree of block_sum. The centring sum
+//   tns_reduce.cuh give each sum its fixed tree. The centring sum
 //   is one chain and stays with the first thread, while a second thread
 //   works out the gate; centring and normalising run over all 512.
 // - For the codec's 2048-sample frames an owner's steps are a compile-time

@@ -1,11 +1,12 @@
 // The TNS analysis kernels' shared arithmetic: IEEE-rounded operations by
 // type, and the block reduction whose order is part of both functions.
 //
-// A block of SUM_T = 256 threads owns one row. Thread t adds the elements
-// t, t + 256, t + 512, ... of a row in ascending order, starting from +0 (the
-// row counts as padded with +0 to a multiple of 256), then `block_sum` adds
-// the 256 running sums as a fixed tree: inside each warp p[i] += p[i + s] for
-// s = 16, 8, 4, 2, 1 (shuffles), then over the 8 warp sums for s = 4, 2, 1.
+// A row's sum has SUM_T = 256 owners. Owner t adds the elements t, t + 256,
+// t + 512, ... of a row in ascending order, starting from +0 (the row counts
+// as padded with +0 to a multiple of 256), then the 256 running sums are
+// added as a fixed tree: inside each warp p[i] += p[i + s] for s = 16, 8, 4,
+// 2, 1 (shuffles, `warp_sums`), then over the 8 warp sums for s = 4, 2, 1
+// (`tree_sum`).
 // kernels/tns_autocorr.py:row_sum is the same order in PyTorch. Every sum and
 // product is an _rn intrinsic, so nvcc contracts nothing into an FMA.
 
@@ -44,12 +45,11 @@ __device__ __forceinline__ double rint_t(double a) { return rint(a); }
 __device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
 
-// `block_sum` in two halves, for blocks in which several threads hold
-// running sums of one owner: the K running sums of every thread of a warp
-// -> their warp sums (the shuffle tree), which lane 0 writes to
-// scratch[(warp % WARPS) * KT + first + k]: a warp w of a larger block
-// holds sums of the owners 32 (w % WARPS) .. + 31. After a barrier,
-// `tree_sum` of a slot is the row sum, in every thread.
+// The K running sums of every thread of a warp -> their warp sums (the
+// shuffle tree), which lane 0 writes to scratch[(warp % WARPS) * KT + first
+// + k]: a warp w of a block of more than 256 threads holds sums of the owners
+// 32 (w % WARPS) .. + 31. After a barrier, `tree_sum` of a slot is the row
+// sum, in every thread.
 template <typename T, int K>
 __device__ __forceinline__ void warp_sums(T (&v)[K], T* scratch, int kt, int first) {
 #pragma unroll
@@ -76,17 +76,6 @@ __device__ __forceinline__ T tree_sum(const T* scratch, int kt, int slot) {
         for (int j = 0; j < s; ++j) w[j] = add_rn(w[j], w[j + s]);
     }
     return w[0];
-}
-
-// The K running sums of every thread of a block of SUM_T -> the K row sums,
-// in every thread. `scratch` holds WARPS * K values of shared memory.
-template <typename T, int K>
-__device__ __forceinline__ void block_sum(T (&v)[K], T* scratch) {
-    __syncthreads();                     // the scratch of an earlier sum is read
-    warp_sums<T, K>(v, scratch, K, 0);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = tree_sum(scratch, K, k);
 }
 
 }  // namespace tns

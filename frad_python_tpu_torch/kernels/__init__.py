@@ -7,8 +7,8 @@ Exp-Golomb-Rice packer (frad_python_tpu/ops/bitpack.py, parallel/
 pipeline.py), of the lossy decoders' dequantiser and of the masking
 threshold chains of the lossy encoders and decoders
 (frad_python_tpu/models/batch.py, ops/psycho.py), and of the lossless
-profiles' int24 transfer forms (frad_python_tpu/ops/bitpack.py). Fourteen
-kernels:
+profiles' int24 transfer forms (frad_python_tpu/ops/bitpack.py). Thirteen
+kernels for fourteen device programs:
 
 * `power_quant.power_quant` — the lossy encoders' quantisation epilogue
   (Pallas `power_quant`), float32 -> int32 or float64 -> int64, with or
@@ -23,8 +23,6 @@ kernels:
   IDCT's layout (XLA `trunc_unpack`), source csrc/trunc_unpack.cu.
 * `tns_iir.tns_iir` — Profile 2's TNS synthesis recurrence (XLA `_iir`, a
   scan over time), source csrc/tns_iir.cu.
-* `tns_levinson.tns_levinson` — Profile 2's order-12 Levinson-Durbin
-  recursion (XLA `_levinson`), source csrc/tns_levinson.cu.
 * `egr_pack.egr_pack` — Profile 1's Exp-Golomb-Rice bit-packer with the
   compaction of the used words (XLA `egr_pack_frames` and
   `_egr_compact_packer`), source csrc/egr_pack.cu.
@@ -34,10 +32,12 @@ kernels:
 * `tns_autocorr.tns_autocorr` — the front of Profile 2's TNS analysis: the
   masking divide, the windowed autocorrelation and the flatness and energy
   gates (XLA `_autocorr`, `_flatness_gate`), source csrc/tns_autocorr.cu.
-* `tns_fir_gate.tns_fir_gate` — its back: coefficient quantisation, the
-  analysis FIR, the remaining gates and the selects (XLA `_quantise`,
-  `_fir`, `_predgain`, the tail of `tns_analysis`), source
-  csrc/tns_fir_gate.cu.
+* `tns_fir_gate.tns_fir_gate` — its back: the order-12 Levinson-Durbin
+  recursion, coefficient quantisation, the analysis FIR, the remaining
+  gates and the selects (XLA `_levinson`, `_quantise`, `_fir`,
+  `_predgain`, the tail of `tns_analysis`), source csrc/tns_fir_gate.cu
+  with the recursion in csrc/tns_levinson.cuh (`tns_levinson_plain` is
+  its plain version).
 * `mask_thres.mask_thres` — the lossy encoders' threshold chain after the
   band-sum GEMM, with the threshold symbols (XLA `mask_thres_mos_jnp` and
   the symbols of `_p1_encode_jit` / `_p2_encode_jit`), source
@@ -68,13 +68,12 @@ from .thres_expand import thres_expand, thres_expand_plain
 from .tns_autocorr import tns_autocorr, tns_autocorr_plain
 from .tns_fir_gate import tns_fir_gate, tns_fir_gate_plain
 from .tns_iir import tns_iir, tns_iir_plain
-from .tns_levinson import tns_levinson, tns_levinson_plain
+from .tns_levinson import tns_levinson_plain
 from .trunc_pack import trunc_pack, trunc_pack_plain
 from .trunc_unpack import trunc_unpack, trunc_unpack_plain
 
-KERNELS = (power_quant, overlap_add, trunc_pack, trunc_unpack, tns_iir, tns_levinson,
-           egr_pack, dequant, tns_autocorr, tns_fir_gate, mask_thres, thres_expand,
-           i24_pack, i24_unpack)
+KERNELS = (power_quant, overlap_add, trunc_pack, trunc_unpack, tns_iir, egr_pack, dequant,
+           tns_autocorr, tns_fir_gate, mask_thres, thres_expand, i24_pack, i24_unpack)
 
 
 def reset_launches() -> None:
@@ -88,5 +87,5 @@ __all__ = ["KERNELS", "dequant", "dequant_plain", "egr_pack", "egr_pack_plain", 
            "mask_thres_plain", "overlap_add", "overlap_add_plain", "power_quant",
            "power_quant_plain", "reset_launches", "thres_expand", "thres_expand_plain",
            "tns_autocorr", "tns_autocorr_plain", "tns_fir_gate", "tns_fir_gate_plain", "tns_iir",
-           "tns_iir_plain", "tns_levinson", "tns_levinson_plain", "trunc_pack",
+           "tns_iir_plain", "tns_levinson_plain", "trunc_pack",
            "trunc_pack_plain", "trunc_unpack", "trunc_unpack_plain"]

@@ -1,21 +1,18 @@
-"""`tns_levinson`: Profile 2's order-12 Levinson-Durbin recursion.
+"""Profile 2's order-12 Levinson-Durbin recursion, plain.
 
 The port of the XLA device program `_levinson` (frad_python_tpu/ops/
 tns_jax.py): autocorrelation lags [L, 13] -> LPC coefficients [L, 13],
 with the reflection clamp at 0.96 and the reference's early exit emulated
-by freezing converged lanes. `tns_levinson` launches the CUDA kernel
-(csrc/tns_levinson.cu) for CUDA tensors and runs `tns_levinson_plain`
-for CPU tensors.
+by freezing converged lanes. On the card the recursion runs inside the
+`tns_fir_gate` kernel (csrc/tns_levinson.cuh, one thread of each row's
+block); `tns_levinson_plain` is its plain version and the front of
+`tns_fir_gate_plain`.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
-
-from . import build
 
 MAX_ORDER = 12
 
@@ -60,30 +57,3 @@ def tns_levinson_plain(ac: torch.Tensor) -> torch.Tensor:
     unit[..., 0] = 1.0
     return torch.where(dead[..., None], unit, lpc)
 
-
-def tns_levinson(ac: torch.Tensor) -> torch.Tensor:
-    """[L, 13] float32 or float64 autocorrelation -> [L, 13] LPC; one
-    kernel launch for a CUDA tensor."""
-    if ac.device.type == "cpu":
-        return tns_levinson_plain(ac)
-    if ac.device.type != "cuda":
-        raise ValueError(f"tns_levinson: tensor on {ac.device}")
-    if ac.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"tns_levinson: float32 or float64 required, got {ac.dtype}")
-    if ac.dim() != 2 or ac.shape[1] != MAX_ORDER + 1:
-        raise ValueError(f"tns_levinson: [L, {MAX_ORDER + 1}] required, got {tuple(ac.shape)}")
-    if not ac.is_contiguous():
-        raise ValueError("tns_levinson: contiguous input required")
-    out = torch.empty_like(ac)
-    lib = build.library()
-    err = lib.frad_tns_levinson(
-        ctypes.c_void_p(ac.data_ptr()), ctypes.c_void_p(out.data_ptr()), ac.shape[0],
-        int(ac.dtype == torch.float64),
-        ctypes.c_void_p(torch.cuda.current_stream(ac.device).cuda_stream))
-    build.check("frad_tns_levinson", err)
-    tns_levinson.launches += 1
-    return out
-
-
-#: kernel launches since the last reset (CPU calls do not count)
-tns_levinson.launches = 0

@@ -18,8 +18,8 @@ hand-written CUDA kernels of `kernels/`.
 
 Profile 2 is Profile 1's chain with Temporal Noise Shaping (`ops/tns.py`)
 between the masking divide and the quantiser: the encoder runs the TNS
-analysis (`tns_autocorr`, which divides, `tns_levinson` and `tns_fir_gate`
-kernels) and quantises the residual with
+analysis (`tns_autocorr`, which divides, and `tns_fir_gate`, which runs the
+Levinson recursion, kernels) and quantises the residual with
 the `power_quant` kernel's no-divisor form; the decoder dequantises, runs
 the TNS synthesis (`tns_iir` kernel), multiplies the divisors back and
 ends like Profile 1.

@@ -2,18 +2,18 @@
 device: the counterpart of the JAX package's `ops/tns_jax.py`.
 
 Over [..., N] spectra, one lane per (frame, channel), float32 or float64.
-The analysis is three kernels:
+The analysis is two kernels:
 
 * `tns_autocorr`: the masking divide, autocorrelation lags 0..12 and the
   spectral-flatness and energy gates
-* `tns_levinson`: Levinson-Durbin
-* `tns_fir_gate`: coefficient quantisation, the analysis FIR, the
-  tiny-coefficient, blow-up and prediction-gain gates, and the selects of
-  the passthrough for bypassed lanes
+* `tns_fir_gate`: Levinson-Durbin, coefficient quantisation, the analysis
+  FIR, the tiny-coefficient, blow-up and prediction-gain gates, and the
+  selects of the passthrough for bypassed lanes
 
 and the synthesis IIR is the `tns_iir` kernel. On the CPU each runs its
-plain PyTorch version; `_autocorr`, `_fir`, `_flatness_gate`, `_predgain`,
-`_quantise` and `_dequantise` are those plain pieces by their JAX names.
+plain PyTorch version; `_autocorr`, `_levinson`, `_fir`, `_flatness_gate`,
+`_predgain`, `_quantise` and `_dequantise` are those plain pieces by their
+JAX names.
 
 The gates are thresholds on float sums, taken in the order the kernels fix
 (`kernels/tns_autocorr.row_sum`), which is not XLA's: a lane that sits on
@@ -38,7 +38,7 @@ from ..kernels.tns_fir_gate import dequantise as _dequantise
 from ..kernels.tns_fir_gate import fir_plain as _fir  # noqa: F401
 from ..kernels.tns_fir_gate import predgain_plain as _predgain  # noqa: F401
 from ..kernels.tns_fir_gate import quantise as _quantise  # noqa: F401
-from ..kernels.tns_levinson import MAX_ORDER, tns_levinson
+from ..kernels.tns_levinson import MAX_ORDER, tns_levinson_plain
 
 
 @functools.lru_cache(maxsize=8)
@@ -55,8 +55,9 @@ def _autocorr(x: torch.Tensor) -> torch.Tensor:
 
 
 def _levinson(ac: torch.Tensor) -> torch.Tensor:
-    """[..., 13] autocorrelation -> [..., 13] LPC (the `tns_levinson` kernel)."""
-    return tns_levinson(ac.reshape(-1, MAX_ORDER + 1).contiguous()).reshape(ac.shape)
+    """[..., 13] autocorrelation -> [..., 13] LPC (the recursion at the
+    front of the `tns_fir_gate` kernel, plain, over the flattened lanes)."""
+    return tns_levinson_plain(ac.reshape(-1, MAX_ORDER + 1)).reshape(ac.shape)
 
 
 def _iir(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
@@ -72,12 +73,12 @@ def tns_analysis(freqs: torch.Tensor, div: torch.Tensor | None = None
     """[..., N] spectra, divided first by the per-bin divisors `div`
     [..., N] where given (a divisor of 0 reads as infinity) -> (residual,
     quantised LPC [..., 13]); bypassed lanes return (the divided spectra,
-    zeros). Three kernel launches on a CUDA tensor."""
+    zeros). Two kernel launches on a CUDA tensor."""
     n = freqs.shape[-1]
     rows = freqs.reshape(-1, n).contiguous()
     div_rows = None if div is None else div.reshape(-1, n).contiguous()
     x, ac, gate = tns_autocorr(rows, div_rows, _lag_window(freqs.dtype, freqs.device))
-    out, lpc_out, _ = tns_fir_gate(x, tns_levinson(ac), gate)
+    out, lpc_out, _ = tns_fir_gate(x, ac, gate)
     return out.reshape(freqs.shape), lpc_out.reshape(freqs.shape[:-1] + (MAX_ORDER + 1,))
 
 

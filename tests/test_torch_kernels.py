@@ -133,8 +133,9 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
         kernels.power_quant(meta, None, FACTOR)
     with pytest.raises(ValueError):
         kernels.tns_iir(meta, torch.empty((4, 13), device="meta"))
-    with pytest.raises(ValueError):
-        kernels.tns_levinson(torch.empty((4, 13), device="meta"))
+    with pytest.raises(ValueError, match="ac"):
+        kernels.tns_fir_gate(meta, torch.empty((4, 12), device="meta"),
+                             torch.empty(4, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError):
         kernels.egr_pack(torch.empty((4, 8), dtype=torch.int32, device="meta"), 16)
     with pytest.raises(ValueError):
@@ -161,19 +162,19 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert path.parent.parent == build.BUILD_DIR and path.name == build.LIB_NAME
     assert {p.name for p in build.sources()} == {"power_quant.cu", "overlap_add.cu",
                                                  "trunc_pack.cu", "trunc_unpack.cu",
-                                                 "tns_iir.cu", "tns_levinson.cu",
+                                                 "tns_iir.cu",
                                                  "egr_pack.cu", "dequant.cu",
                                                  "tns_autocorr.cu", "tns_fir_gate.cu",
                                                  "mask_thres.cu", "thres_expand.cu",
                                                  "i24_pack.cu", "i24_unpack.cu"}
     assert set(build.SIGNATURES) == {"frad_power_quant", "frad_overlap_add",
                                      "frad_trunc_pack", "frad_trunc_unpack",
-                                     "frad_tns_iir", "frad_tns_levinson",
+                                     "frad_tns_iir",
                                      "frad_egr_pack", "frad_dequant",
                                      "frad_tns_autocorr", "frad_tns_fir_gate",
                                      "frad_mask_thres", "frad_thres_expand",
                                      "frad_i24_pack", "frad_i24_unpack"}
-    assert len(kernels.KERNELS) == len(build.SIGNATURES) == 14
+    assert len(kernels.KERNELS) == len(build.SIGNATURES) == 13
     # every kernel has its plain version beside it and a launch count
     for k in kernels.KERNELS:
         assert callable(getattr(kernels, k.__name__ + "_plain")) and k.launches == 0

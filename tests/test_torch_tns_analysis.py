@@ -15,9 +15,11 @@ Tolerances, each with its reason:
   order than XLA's), 1e-13 at float64; the divided spectra equal but for
   subnormal values, which XLA's CPU code flushes to zero (within 1000 times
   the smallest normal number: a subnormal over a divisor of 0.001 or more).
-* `tns_analysis`: `lpc_q` and the run mask equal lane for lane on the
-  seeded spectra (0 differing lanes); residuals 1e-5 of max|y| at float32,
-  1e-12 at float64.
+* `tns_analysis`, and `tns_fir_gate_plain` against the JAX chain from the
+  same lags (`_levinson` -> `_quantise` -> `_fir` -> `_predgain`, the
+  gates): `lpc_q` and the run mask equal lane for lane on the seeded
+  spectra (0 differing lanes, the count printed); residuals 1e-5 of
+  max|y| at float32, 1e-12 at float64.
 """
 
 import jax.numpy as jnp
@@ -28,7 +30,10 @@ import torch
 import chip_smoke
 from frad_python_tpu.ops import tns_jax
 from frad_python_tpu_torch import kernels
+from frad_python_tpu_torch.kernels.tns_autocorr import _SMEM_MAX as SMEM_MAX
 from frad_python_tpu_torch.kernels.tns_autocorr import SUM_T, row_mean, row_sum
+from frad_python_tpu_torch.kernels.tns_fir_gate import _SCRATCH as SCRATCH
+from frad_python_tpu_torch.kernels.tns_fir_gate import fir_gate_plain
 from frad_python_tpu_torch.ops import tns
 from test_torch_tns import spectra
 
@@ -150,8 +155,8 @@ def test_tns_fir_gate_plain_is_the_scalar_definition(dtype):
     x = spectra(n, dtype).reshape(12, n)
     window = tns._lag_window(getattr(torch, dtype), torch.device("cpu"))
     _, ac, gate = kernels.tns_autocorr(t_(x), None, window)
-    lpc = kernels.tns_levinson(ac)
-    out, lpc_out, run = kernels.tns_fir_gate_plain(t_(x), lpc, gate)
+    lpc = kernels.tns_levinson_plain(ac)
+    out, lpc_out, run = kernels.tns_fir_gate_plain(t_(x), ac, gate)
     for i, row in enumerate(x):
         w_out, w_lpc, w_run = scalar_fir_gate(row, lpc[i].numpy(), bool(gate[i]))
         assert bool(run[i]) == w_run, i
@@ -215,10 +220,75 @@ def test_tns_analysis_with_divisor_matches_jax(n, dtype):
     # the run mask is tns_fir_gate's third output
     window = tns._lag_window(getattr(torch, dtype), torch.device("cpu"))
     x, ac, gate = kernels.tns_autocorr(t_(freqs), t_(div), window)
-    out, lpc_out, run = kernels.tns_fir_gate(x, kernels.tns_levinson(ac), gate)
+    out, lpc_out, run = kernels.tns_fir_gate(x, ac, gate)
     np.testing.assert_array_equal(run.numpy(), ran)
     np.testing.assert_array_equal(out.numpy(), got_res)
     np.testing.assert_array_equal(lpc_out.numpy(), got_lpc)
+
+
+def jax_fir_gate(x: np.ndarray, ac: np.ndarray, gate: np.ndarray):
+    """(out, lpc_out, run) of the back of `tns_jax.tns_analysis` from the
+    lags and the gate: `_levinson`, `_quantise`, `_dequantise`, `_fir`,
+    `_predgain` and the gates and selects around them."""
+    jx = jnp.asarray(x)
+    lpc = tns_jax._levinson(jnp.asarray(ac))
+    run = jnp.asarray(gate) & (jnp.sum(jnp.abs(lpc[..., 1:]), axis=-1) >= 0.01)
+    lpc_q = tns_jax._quantise(lpc)
+    run = run & jnp.any(lpc_q[..., 1:] != 0, axis=-1)
+    resid = tns_jax._fir(jx, tns_jax._dequantise(lpc_q))
+    run = run & jnp.all(jnp.isfinite(resid), axis=-1) & (jnp.max(jnp.abs(resid), axis=-1) <= 1e6)
+    run = run & (tns_jax._predgain(jx, resid) >= tns_jax.MIN_PRED)
+    out = jnp.where(run[..., None], resid, jx)
+    return tuple(np.asarray(a) for a in (out, jnp.where(run[..., None], lpc_q, 0.0), run))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tns_fir_gate_plain_is_the_recursion_then_the_fir_gate(dtype):
+    """The fused function from the lags: bit for bit the recursion followed
+    by `fir_gate_plain`, and the JAX chain within the module's tolerances,
+    on natural rows and on chip_smoke.py's gate rows."""
+    n = 2048
+    freqs, div = divided(n, dtype)
+    window = tns._lag_window(getattr(torch, dtype), torch.device("cpu"))
+    x, ac, gate = kernels.tns_autocorr(t_(freqs), t_(div), window)
+    xb, ac_b, gate_b = chip_smoke.fir_gate_inputs(torch, x, ac[0])
+    x, ac, gate = torch.cat([x, xb]), torch.cat([ac, ac_b]), torch.cat([gate, gate_b])
+    got = kernels.tns_fir_gate_plain(x, ac, gate)
+    want = fir_gate_plain(x, kernels.tns_levinson_plain(ac), gate)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) if g.dtype == torch.bool else chip_smoke.bits_equal(torch, g, w)
+    out, lpc_out, run = (a.numpy() for a in got)
+    j_out, j_lpc, j_run = jax_fir_gate(x.numpy(), ac.numpy(), gate.numpy())
+    flipped = int((run != j_run).sum())
+    print(f"tns_fir_gate_plain {dtype} [{len(run)}, {n}]: {flipped} lanes decide differently "
+          f"from the JAX chain, TNS runs on {int(run.sum())}")
+    assert flipped == 0
+    assert 3 <= run.sum() <= len(run) - 3
+    np.testing.assert_array_equal(lpc_out, j_lpc)
+    np.testing.assert_array_equal(out[~run], x.numpy()[~run])              # bypass: untouched
+    np.testing.assert_array_equal(j_out[~run], x.numpy()[~run])
+    np.testing.assert_allclose(out[run], j_out[run], rtol=0, atol=(
+        1e-5 if dtype == "float32" else 1e-12) * np.abs(j_out[run]).max())
+
+
+@pytest.mark.parametrize("dtype,shape", chip_smoke.FIR_GATE_EXTRA_FORMS)
+def test_chip_smoke_fir_gate_extra_forms_reach_their_paths(dtype, shape):
+    """The card check's extra tns_fir_gate forms, through the plain
+    version: TNS runs on a row of each; the 1001-sample rows start both on
+    and off 16-byte boundaries; the long float64 rows fit a block's shared
+    memory alone, but not beside their residual."""
+    lanes, n = shape
+    freqs, div = (t_(a) for a in chip_smoke.analysis_inputs(lanes, n, dtype, 700 + n))
+    x, ac, gate = kernels.tns_autocorr_plain(freqs, div, tns._lag_window(freqs.dtype,
+                                                                         torch.device("cpu")))
+    out, lpc_out, run = kernels.tns_fir_gate(x, ac, gate)
+    assert run.any() and lpc_out[run].any()
+    size = x.element_size()
+    starts = {lane * n * size % 16 for lane in range(lanes)}
+    if n == 1001:
+        assert 0 in starts and len(starts) > 1
+    else:
+        assert (2 * n + SCRATCH) * size > SMEM_MAX >= (n + SCRATCH) * size
 
 
 def test_tns_analysis_is_three_wrapper_calls_and_no_launch_on_the_cpu():
@@ -227,7 +297,6 @@ def test_tns_analysis_is_three_wrapper_calls_and_no_launch_on_the_cpu():
     with chip_smoke.FormTally(device_type="cpu") as tally:
         tns.tns_analysis(t_(x))
     assert tally.seen == {("tns_autocorr", (12, 256), "float32", False): 1,
-                          ("tns_levinson", (12, 13), "float32"): 1,
                           ("tns_fir_gate", (12, 256), "float32"): 1}
     assert all(k.launches == 0 for k in kernels.KERNELS)
     assert tns._fir is kernels.tns_fir_gate.__globals__["fir_plain"]
@@ -242,8 +311,7 @@ def test_chip_smoke_analysis_inputs_cover_every_gate(dtype):
     freqs, div = (t_(a) for a in chip_smoke.analysis_inputs(lanes, n, dtype, 5))
     window = tns._lag_window(freqs.dtype, torch.device("cpu"))
     x, ac, gate = kernels.tns_autocorr(freqs, div, window)
-    lpc = kernels.tns_levinson(ac)
-    out, lpc_out, run = kernels.tns_fir_gate(x, lpc, gate)
+    out, lpc_out, run = kernels.tns_fir_gate(x, ac, gate)
     kind = torch.arange(lanes) % chip_smoke.ANALYSIS_KINDS
     assert run[kind == 0].all() and gate[kind == 12].all() and not run[kind == 12].any()
     for k in (2, 3, 4, 13):
@@ -251,14 +319,24 @@ def test_chip_smoke_analysis_inputs_cover_every_gate(dtype):
     assert torch.isinf(x[kind == 13]).any() and chip_smoke.bits_equal(torch, out[~run], x[~run])
     assert not lpc_out[~run].any() and lpc_out[run].any()
     assert 0 < int(gate[(kind >= 6) & (kind < 12)].sum()) < 12       # the flatness edge
-    xb, lpc_b, gate_b = chip_smoke.fir_gate_inputs(torch, x, lpc[0])
-    out_b, lpc_out_b, run_b = kernels.tns_fir_gate(xb, lpc_b, gate_b)
+    xb, ac_b, gate_b = chip_smoke.fir_gate_inputs(torch, x, ac[0])
+    out_b, lpc_out_b, run_b = kernels.tns_fir_gate(xb, ac_b, gate_b)
     kind_b = torch.arange(lanes) % chip_smoke.FIR_KINDS
     assert run_b[(kind_b == 0) | (kind_b == 6)].all()
     assert not run_b[(kind_b > 0) & (kind_b < 6)].any()
     assert chip_smoke.bits_equal(torch, out_b[~run_b], xb[~run_b])
     assert torch.isnan(out_b[kind_b == 5]).any() and not lpc_out_b[~run_b].any()
-    # kind 4 overflows in the filter, kind 3 fails on the gain alone
+    # the AR(1) lags give the LPC [1, -rho, ~0, ...]: kind 1 sums under 0.01,
+    # kind 2 rounds to 0; kind 4 overflows in the filter, kind 3 fails on
+    # the gain alone
+    lpc_b = tns._levinson(ac_b)
+    rho = {1: 0.0005, 2: 0.02, 3: -0.9, 4: -0.9}
+    for k, r in rho.items():
+        np.testing.assert_allclose(lpc_b[kind_b == k][:, 1].numpy(), -r, rtol=1e-6)
+        assert (lpc_b[kind_b == k][:, 2:].abs() < 1e-6).all()
+    total = lpc_b[:, 1:].abs().sum(-1)
+    assert (total[kind_b == 1] < 0.01).all() and (total[kind_b == 2] >= 0.01).all()
+    assert not tns._quantise(lpc_b)[kind_b == 2].any() and tns._quantise(lpc_b)[kind_b == 3].any()
     resid = tns._fir(xb, tns._dequantise(tns._quantise(lpc_b)))
     assert not torch.isfinite(resid[kind_b == 4]).all()
     assert torch.isfinite(resid[kind_b == 3]).all() and (tns._predgain(xb, resid)[kind_b == 3]

@@ -36,9 +36,28 @@ SECTIONs (default: all, in this order):
   kernel's barriers (thread 0 of every block), the mean cycles a block
   spends in each phase (`PHASES`) at float32, and in µs at the SM clock
   read while the kernel as built runs back to back;
+* `fir_gate`: `tns_fir_gate` on `tns_autocorr`'s output at TNS_SHAPES,
+  float32 and float64, on storage-offset views at each dtype's first
+  shape and at 8 lanes, and at FIR_GATE_EXTRA_FORMS where the tree has
+  them: out, lpc_out and run equal to plain or not, and the mean device
+  time of a launch; in a tree whose Levinson recursion is a launch of its
+  own (`kernels.tns_levinson`), of that launch and `tns_fir_gate` on its
+  LPC, and their sum;
+* `fir_gate_variants`: csrc/tns_fir_gate.cu as built and with runs of 8
+  outputs a thread (FIR_TILE) or other residency hints (FIR_MIN_BLOCKS_F32
+  / _F64; `FIR_VARIANTS`), each
+  built by its own nvcc with `-Xptxas -v`: registers and spills of each
+  kernel, bit-equality with plain and the mean device time at [8, 2048]
+  and [1378, 2048], float32 and float64, timed twice (variants in order,
+  then in reverse order), beside the package's library; then, from a build
+  with `clock64()` stamps at the kernel's phases (thread 0 of every block,
+  PHASE_STAMP), the mean cycles a block spends in each phase
+  (`FIR_PHASES`) at float32, and in µs at the SM clock read while the
+  kernel as built runs back to back;
 * `sass`: the opcode counts of the float32 `tns_iir` kernel, the 24-bit
-  C = 2 `trunc_pack` kernel and the float32 8-step `tns_autocorr`
-  kernel from `cuobjdump -sass`.
+  C = 2 `trunc_pack` kernel, the float32 8-step `tns_autocorr` kernel
+  and the float32 2048-sample `tns_fir_gate` kernel from
+  `cuobjdump -sass`.
 
 `--tree DIR` imports the port and chip_smoke.py from another checkout
 (a parent's `git archive`), so that two trees are timed by the same
@@ -67,7 +86,7 @@ import torch
 
 REPS = 10
 SECTIONS = ("tns_iir", "egr_pack", "i24", "trunc_pack", "tns_autocorr", "autocorr_variants",
-            "sass")
+            "fir_gate", "fir_gate_variants", "sass")
 
 
 def device_us(fn, names: tuple[str, ...]) -> dict:
@@ -183,16 +202,22 @@ def probe_trunc_pack(cs, kernels, dev) -> bool:
     return ok
 
 
+def offset_view(a):
+    """a copy of `a` that starts one element past a 16-byte boundary"""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    buf[1:].view(a.shape).copy_(a)
+    return buf[1:].view(a.shape)
+
+
+def same_results(cs, got, want) -> bool:
+    return all(torch.equal(g, w) if g.dtype == torch.bool else cs.bits_equal(torch, g, w)
+               for g, w in zip(got, want))
+
+
 def probe_tns_autocorr(cs, kernels, dev) -> bool:
     from frad_python_tpu_torch.ops import tns
 
     ok = True
-
-    def offset_view(a):
-        """a copy of `a` that starts one element past a 16-byte boundary"""
-        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
-        buf[1:].view(a.shape).copy_(a)
-        return buf[1:].view(a.shape)
 
     for dtype, shapes in cs.TNS_SHAPES.items():
         window = tns._lag_window(getattr(torch, dtype), dev)
@@ -205,10 +230,8 @@ def probe_tns_autocorr(cs, kernels, dev) -> bool:
             if si == 0 or lanes == 8:
                 forms.append(("divisor, offset views", offset_view(freqs), offset_view(div)))
             for name, f, d in forms:
-                got = kernels.tns_autocorr(f, d, window)
-                want = kernels.tns_autocorr_plain(f, d, window)
-                same = all(torch.equal(g, w) if g.dtype == torch.bool
-                           else cs.bits_equal(torch, g, w) for g, w in zip(got, want))
+                same = same_results(cs, kernels.tns_autocorr(f, d, window),
+                                    kernels.tns_autocorr_plain(f, d, window))
                 ok &= same
                 us = device_us(lambda: kernels.tns_autocorr(f, d, window), ("tns_autocorr",))
                 print(f"tns_autocorr {dtype} {(lanes, n)} {name}: "
@@ -423,6 +446,177 @@ def probe_autocorr_variants(cs, kernels, dev, build) -> bool:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def fir_gate_inputs(cs, kernels, dtype: str, lanes: int, n: int, dev):
+    """(x, ac, gate) of `tns_autocorr` on chip_smoke.py's analysis rows."""
+    from frad_python_tpu_torch.ops import tns
+
+    freqs, div = (torch.from_numpy(a).to(dev)
+                  for a in cs.analysis_inputs(lanes, n, dtype, 900 + lanes))
+    return kernels.tns_autocorr(freqs, div, tns._lag_window(freqs.dtype, dev))
+
+
+def probe_fir_gate(cs, kernels, dev) -> bool:
+    fused = not callable(getattr(kernels, "tns_levinson", None))
+    ok = True
+    forms = [(dtype, shape, si == 0 or shape[0] == 8)
+             for dtype, shapes in cs.TNS_SHAPES.items() for si, shape in enumerate(shapes)]
+    forms += [(dtype, shape, False) for dtype, shape in getattr(cs, "FIR_GATE_EXTRA_FORMS", ())]
+    for dtype, (lanes, n), offset in forms:
+        x, ac, gate = fir_gate_inputs(cs, kernels, dtype, lanes, n, dev)
+        if fused:
+            want = kernels.tns_fir_gate_plain(x, ac, gate)
+            calls = [("aligned", lambda x=x: kernels.tns_fir_gate(x, ac, gate))]
+            if offset:
+                xo, aco, go = offset_view(x), offset_view(ac), offset_view(gate)
+                calls.append(("offset views", lambda: kernels.tns_fir_gate(xo, aco, go)))
+            names = ("tns_fir_gate",)
+        else:
+            lpc = kernels.tns_levinson_plain(ac)
+            want = kernels.tns_fir_gate_plain(x, lpc, gate)
+            calls = [("aligned",
+                      lambda: kernels.tns_fir_gate(x, kernels.tns_levinson(ac), gate))]
+            names = ("tns_levinson", "tns_fir_gate")
+        for name, call in calls:
+            same = same_results(cs, call(), want)
+            ok &= same
+            us = device_us(call, names)
+            print(f"tns_fir_gate {dtype} {(lanes, n)} {name}{'' if fused else ' (two launches)'}: "
+                  f"{'equal' if same else 'DIFFERS'}, device {us} us, together "
+                  f"{sum(us.values()):.2f}")
+    return ok
+
+
+#: the phases of a tns_fir_gate block (PHASE_STAMP k closes FIR_PHASES[k - 1])
+FIR_PHASES = ("lags and recursion", "quantise", "row wait", "FIR", "sums, max, finite",
+              "centred energies", "gain and store")
+#: the builds `fir_gate_variants` times beside the source as built: runs of
+#: 8 outputs a thread, and other residency hints (blocks of 256 an SM, 1:
+#: none) by dtype
+FIR_VARIANTS = {
+    "runs of 8": ["-DFIR_TILE=8"], "f32 no hint": ["-DFIR_MIN_BLOCKS_F32=1"],
+    "f32 hint 5": ["-DFIR_MIN_BLOCKS_F32=5"], "f64 no hint": ["-DFIR_MIN_BLOCKS_F64=1"]}
+FIR_STAMPS = """
+__device__ unsigned long long probe_clk[16];  // [k]: cycles of phase k; [8 + k]: blocks
+__device__ __forceinline__ void probe_stamp(int k) {
+    __shared__ long long probe_last;
+    if (threadIdx.x != 0) return;
+    const long long c = clock64();
+    if (k > 0) {
+        atomicAdd(&probe_clk[k - 1], (unsigned long long)(c - probe_last));
+        atomicAdd(&probe_clk[8 + k - 1], 1ull);
+    }
+    probe_last = c;
+}
+#define PHASE_STAMP(k) probe_stamp(k)
+extern "C" int probe_clocks(unsigned long long* host) {   // read, then zero
+    cudaError_t e = cudaMemcpyFromSymbol(host, probe_clk, sizeof(probe_clk));
+    if (e != cudaSuccess) return (int)e;
+    const unsigned long long zero[16] = {};
+    return (int)cudaMemcpyToSymbol(probe_clk, zero, sizeof(zero));
+}
+"""
+
+
+def fir_registers(log: str) -> dict:
+    """{"f32 N=2048": "40 (spill 0)", ...} from `-Xptxas -v` output."""
+    out, name, spill = {}, None, "?"
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = m.group(1)
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            k = re.search(r"tns_fir_gate_kernelI([fd])Li(\d+)E", name)
+            if k:
+                out[f"{'f32' if k[1] == 'f' else 'f64'} N={k[2]}"] = f"{m.group(1)} (spill {spill})"
+    return out
+
+
+def probe_fir_gate_variants(cs, kernels, dev, build) -> bool:
+    src = build.CSRC_DIR / "tns_fir_gate.cu"
+    variants = {"as built": [], **FIR_VARIANTS}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    try:
+        (tmp / "stamps.cuh").write_text(FIR_STAMPS)
+        jobs = {}
+        for i, (label, flags) in enumerate(list(variants.items()) + [("stamped", None)]):
+            extra = flags if flags is not None else ["-include", str(tmp / "stamps.cuh")]
+            so = tmp / f"fg{i}.so"
+            cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC_DIR),
+                   *extra, "-o", str(so), str(src)]
+            jobs[label] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True))
+        libs = {}
+        for label, (so, proc) in jobs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc tns_fir_gate {label}:\n{err}")
+            lib = ctypes.CDLL(str(so))
+            lib.frad_tns_fir_gate.argtypes = list(build.SIGNATURES["frad_tns_fir_gate"])
+            lib.frad_tns_fir_gate.restype = ctypes.c_int
+            print(f"tns_fir_gate [{label}] registers: {fir_registers(out + err)}")
+            libs[label] = lib
+        libs["stamped"].probe_clocks.argtypes = [ctypes.c_void_p]
+        libs["stamped"].probe_clocks.restype = ctypes.c_int
+
+        def call(lib, x, ac, gate):
+            out, lpc_out = torch.empty_like(x), torch.empty_like(ac)
+            run = torch.empty_like(gate)
+            err = lib.frad_tns_fir_gate(*(ctypes.c_void_p(t.data_ptr())
+                                          for t in (x, ac, gate, out, lpc_out, run)),
+                                        x.shape[0], x.shape[1], int(x.dtype == torch.float64),
+                                        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            build.check("frad_tns_fir_gate (variant)", err)
+            return out, lpc_out, run
+
+        forms = {}
+        for dtype in ("float32", "float64"):
+            for lanes in (8, 1378):
+                x, ac, gate = fir_gate_inputs(cs, kernels, dtype, lanes, 2048, dev)
+                forms[dtype, lanes] = (x, ac, gate, kernels.tns_fir_gate_plain(x, ac, gate))
+        runs = {label: lambda x, a, g, lib=libs[label]: call(lib, x, a, g) for label in variants}
+        runs["the package's library"] = kernels.tns_fir_gate
+        ok, times, labels = True, collections.defaultdict(list), list(runs)
+        for order in (labels, labels[::-1]):
+            for label in order:
+                run = runs[label]
+                for (dtype, lanes), (x, ac, gate, want) in forms.items():
+                    same = same_results(cs, run(x, ac, gate), want)
+                    ok &= same
+                    if not same:
+                        print(f"tns_fir_gate [{label}] {dtype} [{lanes}, 2048] DIFFERS from plain")
+                    us = device_us(lambda: run(x, ac, gate), ("tns_fir_gate",))
+                    times[label, dtype, lanes].append(us.get("tns_fir_gate"))
+        for (dtype, lanes) in forms:
+            print(f"tns_fir_gate {dtype} [{lanes}, 2048], device us (in order; reversed): "
+                  + "; ".join(f"[{label}] {times[label, dtype, lanes][0]}, "
+                              f"{times[label, dtype, lanes][1]}" for label in labels))
+
+        x, ac, gate, _ = forms["float32", 1378]
+        mhz = sm_mhz_under(lambda: kernels.tns_fir_gate(x, ac, gate))
+        clk = (ctypes.c_ulonglong * 16)()
+        lib = libs["stamped"]
+        for lanes in (8, 1378):
+            x, ac, gate, want = forms["float32", lanes]
+            ok &= same_results(cs, call(lib, x, ac, gate), want)
+            torch.cuda.synchronize()
+            build.check("probe_clocks", lib.probe_clocks(clk))      # zeroes them
+            for _ in range(REPS):
+                call(lib, x, ac, gate)
+            torch.cuda.synchronize()
+            build.check("probe_clocks", lib.probe_clocks(clk))
+            cyc = [clk[k] / max(clk[8 + k], 1) for k in range(len(FIR_PHASES))]
+            print(f"tns_fir_gate float32 [{lanes}, 2048] phases, mean cycles of a block that "
+                  f"reached each (µs at {mhz} MHz; blocks): "
+                  + "; ".join(f"{p} {c:.0f} ({c / mhz:.3f}; {clk[8 + k] // REPS})"
+                              for k, (p, c) in enumerate(zip(FIR_PHASES, cyc)))
+                  + f"; all {sum(cyc):.0f} ({sum(cyc) / mhz:.3f})")
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def sm_mhz_under(fn) -> int:
     """The SM clock (MHz, median of three `nvidia-smi` reads) while `fn`
     runs back to back."""
@@ -452,7 +646,8 @@ def probe_sass(build) -> None:
                           capture_output=True, text=True).stdout
     wanted = {"tns_iir_kernelIfEE": "tns_iir float32",
               "trunc_pack_kernelILi2ELi24ELb1EEEv": "trunc_pack C = 2, 24 bits, vectors",
-              "tns_autocorr_kernelIfLi8EEEv": "tns_autocorr float32, 8 steps"}
+              "tns_autocorr_kernelIfLi8EEEv": "tns_autocorr float32, 8 steps",
+              "tns_fir_gate_kernelIfLi2048EEEv": "tns_fir_gate float32, 2048 samples"}
     for fn in re.split(r"(?=\n\s+Function : )", sass):
         name = re.search(r"Function : (\S+)", fn)
         for key, label in wanted.items():
@@ -488,13 +683,16 @@ def main() -> int:
     build.build()
     build.library()
     probes = {"tns_iir": probe_tns_iir, "egr_pack": probe_egr_pack, "i24": probe_i24,
-              "trunc_pack": probe_trunc_pack, "tns_autocorr": probe_tns_autocorr}
+              "trunc_pack": probe_trunc_pack, "tns_autocorr": probe_tns_autocorr,
+              "fir_gate": probe_fir_gate}
     ok = True
     for name in sections:
         if name == "sass":
             probe_sass(build)
         elif name == "autocorr_variants":
             ok &= probe_autocorr_variants(cs, kernels, dev, build)
+        elif name == "fir_gate_variants":
+            ok &= probe_fir_gate_variants(cs, kernels, dev, build)
         else:
             ok &= probes[name](cs, kernels, dev)
     print("all equal" if ok else "MISMATCH")
