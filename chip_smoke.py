@@ -39,7 +39,11 @@ shape, dtype or option that was not held so); the track as profile 2 through `ba
 their plain versions first, at every shape, dtype and option that any of
 these runs launches them at (a tally over all the runs fails the script on
 a form that was not held); so are `mask_thres` and `thres_expand`, the
-threshold chains of every lossy encode and decode, and in the Profile 2
+threshold chains of every lossy encode and decode (spectrum to divisor and
+symbols, symbols to divisor: a traced encode and decode of each lossy
+profile must show no GEMM and no other kernel between the DCT and
+`power_quant` / `tns_autocorr` but `mask_thres`, and no GEMM in a decode
+but the IDCT's), and in the Profile 2
 phase `tns_autocorr` and `tns_fir_gate`, which are the TNS analysis
 (inputs that meet every gate from both sides; the card's
 quantised LPC rows of the 30 s track are held against a CPU encode's). The
@@ -191,7 +195,7 @@ STREAMING_SHAPES = {
     "trunc_pack": "[2, 2, 2048] 24-bit", "trunc_unpack": "[2, 2, 2048] 24-bit",
     "tns_iir": "[8, 2048]", "egr_pack": "[4, 4096]",
     "dequant": "[4, 2048, 2] i16 + divisor", "tns_autocorr": "[8, 2048] + divisor",
-    "tns_fir_gate": "[8, 2048]", "mask_thres": "[8, 22]", "thres_expand": "[4, 27, 2]",
+    "tns_fir_gate": "[8, 2048]", "mask_thres": "[8, 2048]", "thres_expand": "[4, 2, 2048]",
     "i24_pack": "[4, 2048, 2] transposed view", "i24_unpack": "[4, 3072]"}
 # the main path's shapes for 30 s: 688 uniform frames + a tail frame
 # padded to 2048, encoded as two batches and decoded as one run
@@ -256,22 +260,30 @@ DEQUANT_FORMS = (
     ("int16", (23, 2048, 2), False), ("float32", (1, 2048, 2), False),
     ("float64", (114, 2048, 2), True), ("float64", (1, 1792, 2), True),
     ("float64", (114, 2048, 2), False), ("float64", (1, 1792, 2), False))
-#: mask_thres's forms, (dtype, rows = frames * channels, samples a frame),
-#: for every batch that an encoder of these runs hands over: the 30 s
-#: track's 688 uniform frames and its tail frame, the 1 s warm-ups' 22, the
-#: engines' micro-batches, Profile 1 at 8192 and 16384 samples, and the
-#: F64_SECONDS track at float64
+#: mask_thres's forms, (dtype, rows = frames * channels, samples a frame,
+#: channels), for every batch that an encoder of these runs hands over: the
+#: 30 s track's 688 uniform frames and its tail frame, the 1 s warm-ups' 22,
+#: the engines' micro-batches, Profile 1 at 8192 and 16384 samples (their
+#: tail frames too), and the F64_SECONDS track at float64; then the edges no
+#: run reaches: 256 and 16384 samples at both dtypes, one row, odd row counts
 MASK_THRES_FORMS = (
-    ("float32", 1376, 2048), ("float32", 2, 2048), ("float32", 4, 2048),
-    ("float32", 8, 2048), ("float32", 16, 2048), ("float32", 32, 2048),
-    ("float32", 44, 2048), ("float32", 64, 2048), ("float32", 256, 2048),
-    ("float32", 512, 2048), ("float32", 344, 8192), ("float32", 8, 8192),
-    ("float32", 2, 6144), ("float32", 172, 16384), ("float32", 8, 16384),
-    ("float64", 228, 2048), ("float64", 2, 1792))
-#: thres_expand's forms, (dtype, frames): every run of DEQUANT_FORMS
+    ("float32", 1376, 2048, 2), ("float32", 2, 2048, 2), ("float32", 4, 2048, 2),
+    ("float32", 8, 2048, 2), ("float32", 16, 2048, 2), ("float32", 32, 2048, 2),
+    ("float32", 44, 2048, 2), ("float32", 64, 2048, 2), ("float32", 256, 2048, 2),
+    ("float32", 512, 2048, 2), ("float32", 344, 8192, 2), ("float32", 8, 8192, 2),
+    ("float32", 2, 6144, 2), ("float32", 172, 16384, 2), ("float32", 2, 16384, 2),
+    ("float32", 8, 16384, 2), ("float64", 228, 2048, 2), ("float64", 2, 1792, 2),
+    ("float32", 1, 256, 1), ("float32", 7, 256, 1), ("float64", 1, 2048, 1),
+    ("float64", 5, 256, 1), ("float64", 3, 8192, 1), ("float64", 2, 16384, 2),
+    ("float32", 3, 16384, 1))
+#: thres_expand's forms, (dtype, frames, samples a frame, channels): every
+#: run of DEQUANT_FORMS, and the same edges as mask_thres's
 THRES_EXPAND_FORMS = tuple(sorted({
-    ("float64" if dtype == "float64" else "float32", shape[0])
-    for dtype, shape, _ in DEQUANT_FORMS}))
+    ("float64" if dtype == "float64" else "float32", shape[0], shape[1], shape[2])
+    for dtype, shape, _ in DEQUANT_FORMS})) + (
+    ("float32", 1, 256, 1), ("float32", 7, 256, 1), ("float64", 1, 2048, 1),
+    ("float64", 5, 256, 1), ("float64", 3, 8192, 1), ("float64", 1, 16384, 2),
+    ("float32", 3, 16384, 1))
 #: the command-line phase: the track as an s16le file. Profile 1 at the
 #: CLI's default loss level, decoded to s16le: the JAX package's float32
 #: SNR there, 17.6704 dB on the CPU, minus 0.1 dB; profile 0 at 24 bits
@@ -290,8 +302,9 @@ def kernel_form(name: str, *args) -> tuple:
     wrapper's name, its first tensor's shape and dtype, and for power_quant
     dequant and tns_autocorr whether it has a divisor, for overlap_add the
     overlap, cut and emit, for egr_pack max_words, for mask_thres the
-    active bands and the channels, for i24_pack whether the PCM is
-    contiguous (the kernel reads a view through its strides)."""
+    sample rate and the channels, for thres_expand the samples a frame
+    and the sample rate, for i24_pack whether the PCM is contiguous (the
+    kernel reads a view through its strides)."""
     x = args[0]
     form = (name, tuple(x.shape), str(x.dtype).removeprefix("torch."))
     if name == "power_quant":
@@ -303,7 +316,9 @@ def kernel_form(name: str, *args) -> tuple:
     if name in ("dequant", "tns_autocorr"):
         return form + (args[1] is not None,)
     if name == "mask_thres":
-        return form + (int(args[3]), int(args[5]))
+        return form + (int(args[3]), int(args[4]))
+    if name == "thres_expand":
+        return form + (int(args[1]), int(args[2]))
     if name == "i24_pack":
         return form + (bool(x.is_contiguous()),)
     return form
@@ -1313,90 +1328,202 @@ def max_abs(torch, a, b) -> float:
         if a.numel() else 0.0
 
 
+def mask_thres_inputs(rows: int, n: int, dtype: str, seed: int) -> np.ndarray:
+    """Spectra [rows, n] whose thresholds meet every case of the chain:
+    rows scaled over 16 decades, so that thresholds fall on both sides of
+    the AHT floor and of the clamp at 1 and symbols reach past 20; the
+    first row's first band all zero (a band sum of 0: the floor); the bins
+    past the active bands are there as in every row."""
+    rng = np.random.default_rng(seed)
+    scale = 10.0 ** rng.uniform(-13.0, 3.0, (rows, 1))
+    x = rng.standard_normal((rows, n)) * scale
+    x[0, : max(1, n // 64)] = 0.0
+    return x.astype(dtype)
+
+
+def thres_chain_cases(torch, x, srate: int, loss: float) -> dict:
+    """Which cases the plain chain meets on spectra x: thresholds on the
+    AHT floor, under 1 (clamped), symbols past 20 and 0, and bands past the
+    active ones."""
+    from frad_python_tpu_torch.kernels.mask_thres import band_sums_plain, thres_quant_plain
+    from frad_python_tpu_torch.ops import psycho
+
+    k = psycho.device_consts(x.shape[1], srate, x.device, x.dtype)
+    a = torch.abs(x) * 2.0 ** 15
+    th = psycho.thres_from_sums(band_sums_plain(a * a, k), k["inv_w"], k["aht"], k["nb"], loss)
+    tq = thres_quant_plain(th)
+    act = th[:, :k["nb"]]
+    return {"floor": bool((act == k["aht"][:k["nb"]] * loss).any()),
+            "clamp": bool((act < 1).any()), "large": bool((tq > 20).any()),
+            "zero": bool((tq == 0).any()), "past": k["nb"] < psycho.SUBBANDS}
+
+
 def check_thres_kernels(torch, kernels, dev) -> dict:
     """mask_thres at MASK_THRES_FORMS and thres_expand at THRES_EXPAND_FORMS
     against their plain versions on the card, bit for bit (were they not,
     the count of differing elements and their distance in ulps is in the
-    failure). mask_thres: band sums over 24 decades with zeros, at two loss
-    levels, so thresholds fall on both sides of the AHT floor and of the
-    clamp at 1; thres_expand: symbols of both signs, zeros included.
-    CUDA-event times at the main path's forms and at 4 frames, a call of
-    each there (`thunks`) and each one's bound."""
+    failure). mask_thres on `mask_thres_inputs` at two loss levels;
+    thres_expand on symbols of both signs, zeros included. CUDA-event
+    times at the main path's forms and at the streaming engines' (8 rows,
+    4 frames), a call of each there (`thunks`) and each one's bound."""
     from frad_python_tpu_torch.ops import psycho
 
     res = {"mt_err": 0.0, "te_err": 0.0, "thunks": {}, "stream_thunks": {}, "bounds": {},
            "stream_bounds": {}}
-    rng = np.random.default_rng(700)
-    for fi, (dtype, rows, n) in enumerate(MASK_THRES_FORMS):
-        tdt = getattr(torch, dtype)
-        k = psycho.device_consts(n, SRATE, dev, tdt)
-        nbp = k["ind"].shape[1]
-        sums = np.exp(rng.uniform(-30.0, 25.0, (rows, nbp)))
-        sums[0, : min(4, nbp)] = 0.0
-        s_d = torch.from_numpy(sums.astype(dtype)).to(dev)
+    met = set()
+    factor = 2.0 ** 15
+    for fi, (dtype, rows, n, ch) in enumerate(MASK_THRES_FORMS):
+        x = torch.from_numpy(mask_thres_inputs(rows, n, dtype, 700 + fi)).to(dev)
         for loss in (0.5, 1.8329800000000002):
-            args = (s_d, k["inv_w"], k["aht"], k["nb"], loss, CHANNELS)
-            (th_k, tq_k), (th_p, tq_p) = held(kernels, "mask_thres", *args)
+            args = (x, factor, loss, SRATE, ch)
+            (div_k, tq_k), (div_p, tq_p) = held(kernels, "mask_thres", *args)
             torch.cuda.synchronize()
-            res["mt_err"] = max(res["mt_err"], max_abs(torch, th_k, th_p),
+            res["mt_err"] = max(res["mt_err"], max_abs(torch, div_k, div_p),
                                 max_abs(torch, tq_k, tq_p))
-            if not (bits_equal(torch, th_k, th_p) and tq_k.dtype == tq_p.dtype
+            if not (bits_equal(torch, div_k, div_p) and tq_k.dtype == tq_p.dtype
                     and torch.equal(tq_k, tq_p)):
                 raise AssertionError(
-                    f"mask_thres {dtype} {(rows, nbp)} loss={loss} differs from its plain "
-                    f"version: th {ulp_report(torch, th_k, th_p)}, "
+                    f"mask_thres {dtype} {(rows, n)} loss={loss} differs from its plain "
+                    f"version: div {ulp_report(torch, div_k, div_p)}, "
                     f"{int((tq_k != tq_p).sum())} of {tq_k.numel()} symbols differ")
-            if fi == 0 and not (int(tq_k.max()) > 20 and bool((tq_k == 0).any())
-                                and bool((th_k[:, :k["nb"]] == k["aht"][:k["nb"]] * loss).any())
-                                and bool((th_k[:, k["nb"]:] == 0).all())):
-                raise AssertionError("mask_thres inputs miss a case: large symbols, zero "
-                                     "symbols, the AHT floor or the bands past the last")
-        if fi == 0 or (dtype, rows, n) == ("float32", 8, FSIZE):
-            key = "mt" if fi == 0 else "mt_4"
-            args = (s_d, k["inv_w"], k["aht"], k["nb"], 0.5, CHANNELS)
+            met |= {c for c, hit in thres_chain_cases(torch, x, SRATE, loss).items()
+                    if hit}
+        item = x.element_size()
+        mt_bound = bound(2 * rows * n * item + rows * psycho.SUBBANDS * (8 if item == 8 else 4),
+                         rows * n * 6 + rows * psycho.SUBBANDS * 60, dtype)
+        key = {(POWER_QUANT_SHAPE[0], FSIZE, "float32"): "mt",
+               (8, FSIZE, "float32"): "mt_4"}.get((rows, n, dtype))
+        if key:
+            args = (x, factor, 0.5, SRATE, ch)
             res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.mask_thres(*args))
             res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.mask_thres_plain(*args))
-        item = s_d.element_size()
-        mt_bound = bound(rows * nbp * item + 2 * nbp * item + rows * psycho.SUBBANDS * 2 * item,
-                         rows * psycho.SUBBANDS * 60)
-        if (dtype, rows, n) == ("float32", 8, FSIZE):
-            res["stream_thunks"]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
-            res["stream_bounds"]["mask_thres"] = mt_bound
-        if fi == 0:
-            res["thunks"]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
-            res["bounds"]["mask_thres"] = mt_bound
+            which = "thunks" if key == "mt" else "stream_thunks"
+            res[which]["mask_thres_kernel"] = lambda a=args: kernels.mask_thres(*a)
+            res["bounds" if key == "mt" else "stream_bounds"]["mask_thres"] = mt_bound
+    missed = {"floor", "clamp", "large", "zero", "past"} - met
+    if missed:
+        raise AssertionError(f"mask_thres inputs miss cases: {sorted(missed)}")
     print(f"kernel mask_thres at {len(MASK_THRES_FORMS)} forms {list(MASK_THRES_FORMS)}, two "
-          f"loss levels each: equal to plain bit for bit; {MASK_THRES_FORMS[0]} "
-          f"{res['mt_ms']:.4f} ms vs plain {res['mt_plain_ms']:.4f} ms; 4 frames "
-          f"{res['mt_4_ms']:.4f} vs {res['mt_4_plain_ms']:.4f} ms")
+          f"loss levels each: divisor and symbols equal to plain bit for bit; "
+          f"{MASK_THRES_FORMS[0][:3]} {res['mt_ms']:.4f} ms vs plain {res['mt_plain_ms']:.4f} "
+          f"ms; 8 rows {res['mt_4_ms']:.4f} vs {res['mt_4_plain_ms']:.4f} ms")
 
-    for fi, (dtype, b) in enumerate(THRES_EXPAND_FORMS):
-        sym = np.rint(rng.laplace(0, 6, (b, psycho.SUBBANDS, CHANNELS)))
+    rng = np.random.default_rng(701)
+    for dtype, b, n, ch in THRES_EXPAND_FORMS:
+        sym = np.rint(rng.laplace(0, 6, (b, psycho.SUBBANDS, ch)))
         sym[0, :4, 0] = (0, -0.0, 1, -1)
         t_d = torch.from_numpy(sym.astype(dtype)).to(dev)
-        (got,), (want,) = held(kernels, "thres_expand", t_d)
+        (got,), (want,) = held(kernels, "thres_expand", t_d, n, SRATE)
         torch.cuda.synchronize()
         res["te_err"] = max(res["te_err"], max_abs(torch, got, want))
-        if not bits_equal(torch, got, want.contiguous()):
-            raise AssertionError(f"thres_expand {dtype} {tuple(t_d.shape)} differs from its "
-                                 f"plain version: {ulp_report(torch, got, want)}")
-        if (dtype, b) in (("float32", OVERLAP_SHAPE[0]), ("float32", 4)):
-            key = "te" if b == OVERLAP_SHAPE[0] else "te_4"
-            res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.thres_expand(t_d))
-            res[f"{key}_plain_ms"] = cuda_ms(torch, lambda: kernels.thres_expand_plain(t_d))
-            te_bound = bound(2 * t_d.numel() * 4, t_d.numel() * 50)
-            if key == "te_4":
-                res["stream_thunks"]["thres_expand_kernel"] = lambda t=t_d: kernels.thres_expand(t)
-                res["stream_bounds"]["thres_expand"] = te_bound
-            if key == "te":
-                res["thunks"]["thres_expand_kernel"] = lambda t=t_d: kernels.thres_expand(t)
-                res["bounds"]["thres_expand"] = te_bound
+        if not bits_equal(torch, got, want):
+            raise AssertionError(f"thres_expand {dtype} {tuple(t_d.shape)} n={n} differs from "
+                                 f"its plain version: {ulp_report(torch, got, want)}")
+        key = {(OVERLAP_SHAPE[0], FSIZE, "float32", CHANNELS): "te",
+               (4, FSIZE, "float32", CHANNELS): "te_4"}.get((b, n, dtype, ch))
+        if key:
+            res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.thres_expand(t_d, n, SRATE))
+            res[f"{key}_plain_ms"] = cuda_ms(
+                torch, lambda: kernels.thres_expand_plain(t_d, n, SRATE))
+            te_bound = bound(t_d.numel() * t_d.element_size() + b * ch * n * t_d.element_size(),
+                             b * ch * n * 6 + t_d.numel() * 50, dtype)
+            which = "thunks" if key == "te" else "stream_thunks"
+            res[which]["thres_expand_kernel"] = \
+                lambda t=t_d, n=n: kernels.thres_expand(t, n, SRATE)
+            res["bounds" if key == "te" else "stream_bounds"]["thres_expand"] = te_bound
     print(f"kernel thres_expand at {len(THRES_EXPAND_FORMS)} forms {list(THRES_EXPAND_FORMS)} "
-          f"(frames of {CHANNELS} channels; zeros and both signs in each): equal to plain bit "
-          f"for bit; {OVERLAP_SHAPE[0]} frames {res['te_ms']:.4f} ms vs plain "
-          f"{res['te_plain_ms']:.4f} ms; 4 frames {res['te_4_ms']:.4f} vs "
-          f"{res['te_4_plain_ms']:.4f} ms")
+          f"(zeros and both signs in each): divisor equal to plain bit for bit; "
+          f"{OVERLAP_SHAPE[0]} frames {res['te_ms']:.4f} ms vs plain {res['te_plain_ms']:.4f} "
+          f"ms; 4 frames {res['te_4_ms']:.4f} vs {res['te_4_plain_ms']:.4f} ms")
     return res
+
+
+#: what a lossy batch call's trace may show around its threshold chain: the
+#: kernels that may follow mask_thres in an encode
+AFTER_MASK_THRES = ("power_quant", "tns_autocorr")
+
+
+def gemm_kernel(name: str) -> bool:
+    """A cuBLAS GEMM or GEMV kernel, by its name in a trace."""
+    low = name.lower()
+    return "gemm" in low or "gemv" in low or "splitkreduce" in low
+
+
+def traced_kernels(torch, fn) -> list[str]:
+    """The device kernels of one call of `fn`, in the order they ran, from
+    one `torch.profiler` call (copies and memsets left out; a lead kernel
+    of no interest may come first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    lead = torch.zeros(1, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead.add_(1)         # a trace can miss its first kernel: let that be this one
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))),
+                    key=lambda e: e.time_range.start)
+    return [e.name for e in events]
+
+
+def gemm_calls(names: list[str]) -> int:
+    """GEMMs in a trace: runs of consecutive GEMM kernels (cuBLAS may close
+    a GEMM with a split-K reduction)."""
+    return sum(gemm_kernel(n) and (i == 0 or not gemm_kernel(names[i - 1]))
+               for i, n in enumerate(names))
+
+
+def threshold_chain_fault(enc: list[str], dec: list[str]) -> str:
+    """What is wrong with the kernels (by name, in order) of one lossy
+    batch_encode and one batch_decode call, or "": in the encode each
+    mask_thres launch directly follows a GEMM (the DCT's) and is directly
+    followed by power_quant or tns_autocorr, and no other GEMM runs; the
+    decode runs as many GEMMs (the IDCT's) as thres_expand launches."""
+    mt = [i for i, n in enumerate(enc) if "mask_thres" in n]
+    if not mt or gemm_calls(enc) != len(mt) or any(
+            not gemm_kernel(enc[i - 1]) or i + 1 >= len(enc)
+            or not any(k in enc[i + 1] for k in AFTER_MASK_THRES) for i in mt):
+        return f"the encode's kernels around the threshold chain are {short_names(enc)}"
+    te = sum("thres_expand" in n for n in dec)
+    if not te or gemm_calls(dec) != te:
+        return (f"the decode ran {te} thres_expand launches and {gemm_calls(dec)} GEMMs: "
+                f"{short_names(dec)}")
+    return ""
+
+
+def short_names(names: list[str]) -> list[str]:
+    """Kernel names without their return type, namespaces and arguments."""
+    out = []
+    for n in names:
+        for lead in ("void ", "(anonymous namespace)::", "at::native::", "cutlass::"):
+            n = n.removeprefix(lead)
+        out.append(n.split("<")[0].split("(")[0][:40])
+    return out
+
+
+def check_threshold_chains(ft, torch, dev) -> None:
+    """One traced batch_encode and batch_decode of 1 s of the track as each
+    lossy profile, held to `threshold_chain_fault`."""
+    pcm = make_audio(1.0, SRATE, CHANNELS)
+    for profile in (1, 2):
+        stream = ft.batch_encode(pcm, profile, SRATE, BITS, FSIZE, device=dev)
+        enc = traced_kernels(torch, lambda: ft.batch_encode(pcm, profile, SRATE, BITS, FSIZE,
+                                                            device=dev))
+        dec = traced_kernels(torch, lambda: ft.batch_decode(stream, device=dev))
+        fault = threshold_chain_fault(enc, dec)
+        if fault:
+            raise AssertionError(f"profile {profile} threshold chains: {fault}")
+        after = short_names([enc[i + 1] for i, n in enumerate(enc) if "mask_thres" in n])
+        print(f"profile {profile} threshold chains, 1 s: batch_encode ran {len(enc)} kernels, "
+              f"{len(after)} times a DCT GEMM -> mask_thres -> {after[0]} and no other GEMM; "
+              f"batch_decode ran {len(dec)} kernels, {gemm_calls(dec)} GEMMs (the IDCT's) and "
+              f"as many thres_expand; encode kernels {short_names(enc)}; decode kernels "
+              f"{short_names(dec)}")
+
 
 
 #: kinds of lanes `analysis_inputs` cycles through
@@ -2107,6 +2234,7 @@ def main() -> int:
     ft.batch_decode(ft.batch_encode(warm, 1, SRATE, BITS, FSIZE, i16_upload=True, device=dev),
                     i16_transfer=True, device=dev)
     torch.cuda.synchronize()
+    check_threshold_chains(ft, torch, dev)
 
     pipeline.STAGES = stages = StageTimer()
     kernels.reset_launches()
@@ -2438,15 +2566,15 @@ def main() -> int:
          "plain_ms_8_lanes": ana[(8, "float32")]["fg_plain"], **yard("tns_fir_gate")},
         {"name": "mask_thres", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/mask_thres.cu",
-         "replaces": "frad_python_tpu/ops/psycho.py:165",
+         "replaces": "frad_python_tpu/ops/psycho.py:156, frad_python_tpu/ops/psycho.py:188",
          "launches": p2["launches"]["mask_thres"], "max_abs_err": thres["mt_err"],
          "ms": thres["mt_ms"], "plain_ms": thres["mt_plain_ms"],
-         "ms_4_frames": thres["mt_4_ms"], "plain_ms_4_frames": thres["mt_4_plain_ms"],
+         "ms_8_rows": thres["mt_4_ms"], "plain_ms_8_rows": thres["mt_4_plain_ms"],
          "launches_p1": launches["mask_thres"],
          "streaming_launches": stream_launches["mask_thres"], **yard("mask_thres")},
         {"name": "thres_expand", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/thres_expand.cu",
-         "replaces": "frad_python_tpu/models/batch.py:351",
+         "replaces": "frad_python_tpu/models/batch.py:359, frad_python_tpu/ops/psycho.py:188",
          "launches": p2["launches"]["thres_expand"], "max_abs_err": thres["te_err"],
          "ms": thres["te_ms"], "plain_ms": thres["te_plain_ms"],
          "ms_4_frames": thres["te_4_ms"], "plain_ms_4_frames": thres["te_4_plain_ms"],

@@ -9,7 +9,8 @@ with `crit`, force-flush handling, and suspend / resume through
 `process` defers each whole frame and decodes the deferred frames at
 drain points. Runs of >= 2 frames with one header configuration go to
 `pipeline._decode_run` in power-of-two groups (the batch cores and
-kernels on `device`, at `policy.compute_dtype()`);
+kernels on `device`, at `compute_dtype`, by default
+`policy.compute_dtype()`);
 a single frame, a fragment that needs a crossfade over several frames, a
 frame of a reserved profile and a lossless run the batch cannot split
 take the per-frame path (`profile0/1/2/4.digital`, crossfade on the host).
@@ -57,11 +58,14 @@ class DecodeResult:
 
 class Decoder:
     def __init__(self, fix_error: bool = False, exact: bool | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, compute_dtype: str | None = None):
         """`exact=True` decodes every frame on the per-frame path, so the
         PCM is bit-identical across push sizes, at one device call per
         frame. The default (None) reads FRAD_TORCH_EXACT_DECODE: "1"
-        turns exact mode on, anything else leaves it off."""
+        turns exact mode on, anything else leaves it off. Every frame
+        decodes at `compute_dtype` ("float32" or "float64"; None reads
+        FRAD_TORCH_COMPUTE_DTYPE at each decode, `policy.compute_dtype()`);
+        48- and 64-bit lossless frames at float64."""
         self.asfh = ASFH()
         self.info: tuple[int, int] = (0, 0)   # (channels, srate) snapshot
         self.buffer = b""
@@ -72,6 +76,8 @@ class Decoder:
                       if exact is None else exact)
         self.broken_frame = False
         self.device = policy.resolve_device(device)
+        self.compute_dtype = (None if compute_dtype is None
+                              else policy.check_compute_dtype(compute_dtype))
 
     def is_empty(self) -> bool:
         return len(self.buffer) < len(FRM_SIGN) or self.broken_frame
@@ -101,12 +107,12 @@ class Decoder:
         if a.profile in (1, 2):
             codec = models.profile1 if a.profile == 1 else models.profile2
             return codec.digital(frad, a.bit_depth_index, a.channels, a.srate, a.fsize,
-                                 self.device)
+                                 self.device, self.compute_dtype)
         if a.profile == 4:
             return models.profile4.digital(frad, a.bit_depth_index, a.channels, a.endian,
                                            a.fsize)
         return models.profile0.digital(frad, a.bit_depth_index, a.channels, a.endian,
-                                       a.fsize, self.device)
+                                       a.fsize, self.device, self.compute_dtype)
 
     def _decode_one(self, a: ASFH, frad: bytes) -> np.ndarray:
         """Per-frame path: ECC strip/repair + decode + crossfade.
@@ -173,7 +179,8 @@ class Decoder:
                     continue
                 res = pipeline._decode_run(
                     hs[idx: idx + k], ps[idx: idx + k], i16_transfer=False,
-                    device=self.device, fix_error=self.fix_error)
+                    device=self.device, fix_error=self.fix_error,
+                    compute_dtype=self.compute_dtype)
                 if res is None:
                     # a lossless payload the batch cannot split: frame by
                     # frame, as the JAX Decoder falls back when its batch

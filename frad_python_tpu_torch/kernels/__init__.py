@@ -38,13 +38,15 @@ kernels for fourteen device programs:
   `_predgain`, the tail of `tns_analysis`), source csrc/tns_fir_gate.cu
   with the recursion in csrc/tns_levinson.cuh (`tns_levinson_plain` is
   its plain version).
-* `mask_thres.mask_thres` — the lossy encoders' threshold chain after the
-  band-sum GEMM, with the threshold symbols (XLA `mask_thres_mos_jnp` and
-  the symbols of `_p1_encode_jit` / `_p2_encode_jit`), source
-  csrc/mask_thres.cu.
-* `thres_expand.thres_expand` — the lossy decoders' threshold expansion
-  before the interpolation GEMM (the head of XLA `_p1_decode_jit` /
-  `_p2_decode_jit`), source csrc/thres_expand.cu.
+* `mask_thres.mask_thres` — the lossy encoders' masking chain from the
+  spectra to the per-bin divisor, with the threshold symbols (XLA
+  `mask_thres_mos_jnp` of |X| * factor with its band-sum product,
+  `mapping_from_opus_jnp` and the symbols of `_p1_encode_jit` /
+  `_p2_encode_jit`), source csrc/mask_thres.cu with csrc/thres_interp.cuh.
+* `thres_expand.thres_expand` — the lossy decoders' threshold chain from
+  the symbols to the per-bin divisor (the head of XLA `_p1_decode_jit` /
+  `_p2_decode_jit` with `mapping_from_opus_jnp`), source
+  csrc/thres_expand.cu with csrc/thres_interp.cuh.
 * `i24_pack.i24_pack` — the Profile 0 decoder's PCM as int24 fixed-point
   words for the copy back (XLA `pcm_to_i24_words`), source
   csrc/i24_pack.cu.

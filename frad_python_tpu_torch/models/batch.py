@@ -8,13 +8,13 @@ max|x|), and `trunc_unpack` kernel -> IDCT GEMM; with the int24 transfer
 forms the `i24_unpack` kernel comes before the first and the `i24_pack`
 kernel after the second.
 
-Encode: PCM -> DCT-II GEMM -> band-sum GEMM -> `mask_thres` kernel
-(RMS^0.8, AHT floor, x loss, and the log-companded threshold symbols) ->
-interpolation GEMM -> `power_quant` kernel. Decode: `thres_expand` kernel ->
-interpolation GEMM -> `dequant` kernel -> IDCT GEMM (`p1_decode_core`) ->
-`overlap_add` kernel (`p1_decode_oa_core`). The GEMMs are `torch.matmul`
-at full float32; the elementwise stages between them are the
-hand-written CUDA kernels of `kernels/`.
+Encode: PCM -> DCT-II GEMM -> `mask_thres` kernel (band sums of
+(|X| * factor)^2, RMS^0.8, AHT floor, x loss, the log-companded threshold
+symbols and the per-bin divisor) -> `power_quant` kernel. Decode:
+`thres_expand` kernel (thresholds and the per-bin divisor) -> `dequant`
+kernel -> IDCT GEMM (`p1_decode_core`) -> `overlap_add` kernel
+(`p1_decode_oa_core`). The GEMMs are `torch.matmul` at full float32; the
+stages between them are the hand-written CUDA kernels of `kernels/`.
 
 Profile 2 is Profile 1's chain with Temporal Noise Shaping (`ops/tns.py`)
 between the masking divide and the quantiser: the encoder runs the TNS
@@ -42,7 +42,7 @@ from ..kernels.power_quant import power_quant
 from ..kernels.thres_expand import thres_expand
 from ..kernels.trunc_pack import trunc_pack
 from ..kernels.trunc_unpack import trunc_unpack
-from ..ops import psycho, tns
+from ..ops import tns
 from ..ops.dct import dct2, idct2
 
 
@@ -87,32 +87,13 @@ def p0_unpack_decode_i24_core(words: torch.Tensor, bits: int, little: bool, n: i
     return i24_pack(p0_unpack_decode_core(words, bits, little, n, ch))
 
 
-def _mask_thres(freqs: torch.Tensor, srate: int, loss_level: float, factor: float):
-    """[B, C, N] spectra -> (masking thresholds [B * C, 27], their
-    log-companded symbols [B, 27, C], int64 at float64, else int32): the
-    band-sum GEMM of |freqs| * factor, then the `mask_thres` kernel."""
-    b, c, n = freqs.shape
-    k = psycho.device_consts(n, srate, freqs.device, freqs.dtype)
-    sums = psycho.band_sums((torch.abs(freqs) * factor).reshape(b * c, n), k)
-    return mask_thres(sums, k["inv_w"], k["aht"], k["nb"], loss_level, c)
-
-
-def _thres_expand(thres_flat: torch.Tensor, n: int, srate: int) -> torch.Tensor:
-    """[B, 27, C] threshold symbols -> [B, C, N] per-bin divisors: the
-    `thres_expand` kernel, then the interpolation GEMM."""
-    return psycho.mapping_from_opus(thres_expand(thres_flat.contiguous()), n, srate)
-
-
 def p1_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: float):
     """[B, N, C] PCM -> (freqs_q [B, N, C], thres_q [B, 27, C]): int32 for
     float32 frames, int64 for float64."""
     b, n, c = frames.shape
-    x = frames.transpose(1, 2)                                  # [B, C, N]
-    freqs = dct2(x)
-    thres, thres_q = _mask_thres(freqs, srate, loss_level, factor)
-    div = psycho.mapping_from_opus(thres, n, srate)                 # [B * C, N]
-    freqs_q = power_quant(freqs.reshape(b * c, n).contiguous(), div.contiguous(),
-                          factor).reshape(b, c, n)
+    freqs = dct2(frames.transpose(1, 2)).reshape(b * c, n).contiguous()
+    div, thres_q = mask_thres(freqs, factor, loss_level, srate, c)
+    freqs_q = power_quant(freqs, div, factor).reshape(b, c, n)
     return freqs_q.transpose(1, 2), thres_q
 
 
@@ -130,8 +111,8 @@ def p1_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
     freqs_flat [B, N, C] symbols (int16, or float32 / float64),
     thres_flat [B, 27, C] in the compute dtype -> [B, N, C] PCM in that
     dtype (a transposed view of the IDCT's [B, C, N] output)."""
-    div = _thres_expand(thres_flat, freqs_flat.shape[1], srate)      # [B, C, N]
-    return idct2(dequant(freqs_flat.contiguous(), div.contiguous(), factor)).transpose(1, 2)
+    div = thres_expand(thres_flat.contiguous(), freqs_flat.shape[1], srate)   # [B, C, N]
+    return idct2(dequant(freqs_flat.contiguous(), div, factor)).transpose(1, 2)
 
 
 def _overlap_add_emit(pcm: torch.Tensor, olap: int, cut: int, i16: bool):
@@ -157,10 +138,9 @@ def p2_encode_core(frames: torch.Tensor, srate: int, loss_level: float, factor: 
     masking divide and the quantiser. int32 for float32 frames, int64 for
     float64."""
     b, n, c = frames.shape
-    freqs = dct2(frames.transpose(1, 2))                        # [B, C, N]
-    thres, thres_q = _mask_thres(freqs, srate, loss_level, factor)
-    div = psycho.mapping_from_opus(thres, n, srate)                 # [B * C, N]
-    masked, lpc_q = tns.tns_analysis(freqs.reshape(b * c, n), div)
+    freqs = dct2(frames.transpose(1, 2)).reshape(b * c, n).contiguous()
+    div, thres_q = mask_thres(freqs, factor, loss_level, srate, c)
+    masked, lpc_q = tns.tns_analysis(freqs, div)
     freqs_q = power_quant(masked, None, factor).reshape(b, c, n)
     return (freqs_q.transpose(1, 2), thres_q,
             lpc_q.reshape(b, c, -1).to(freqs_q.dtype).transpose(1, 2))
@@ -173,7 +153,7 @@ def p2_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
     and lpc_flat [B, 13, C] in the compute dtype -> [B, N, C] PCM."""
     masked = dequant(freqs_flat.contiguous(), None, factor)          # [B, C, N]
     freqs = tns.tns_synthesis(masked, lpc_flat.transpose(1, 2)) \
-        * _thres_expand(thres_flat, freqs_flat.shape[1], srate)
+        * thres_expand(thres_flat.contiguous(), freqs_flat.shape[1], srate)
     return idct2(freqs).transpose(1, 2)
 
 

@@ -62,17 +62,19 @@ def analogue(pcm: np.ndarray, bits: int, srate: int, little_endian: bool,
 
 
 def digital(frad: bytes, bit_depth_index: int, channels: int, little_endian: bool,
-            fsize: int, device: torch.device) -> np.ndarray:
+            fsize: int, device: torch.device, compute_dtype: str | None = None) -> np.ndarray:
     """Decode one frame payload -> [len(values) // channels, channels] f64
     PCM. A payload the JAX package's decoder cannot decode (a depth index
     past the table, a 16/32/64-bit payload of a partial value, no whole
     row for the float32 GEMM) decodes, as there, to a zero frame of
-    `fsize` rows; no whole row at float64 decodes to no rows."""
+    `fsize` rows; no whole row at float64 decodes to no rows. Below 48
+    bits the transform runs at `compute_dtype` (None: the environment's,
+    `policy.compute_dtype()`)."""
     if bit_depth_index >= len(DEPTHS) or not packing.whole_values(
             len(frad), DEPTHS[bit_depth_index]):
         return np.zeros((fsize, max(channels, 1)))
     bits = DEPTHS[bit_depth_index]
-    dt = policy.transform_dtype(bits)
+    dt = policy.transform_dtype(bits, compute_dtype)
     flat = packing.unpack_floats(frad, bits, little_endian)
     n = (len(flat) // channels) * channels
     if n == 0:

@@ -92,9 +92,10 @@ def analogue(pcm: np.ndarray, bits: int, srate: int, loss_level: float,
 
 
 def digital(frad: bytes, bit_depth_index: int, channels: int, srate: int, fsize: int,
-            device: torch.device) -> np.ndarray:
-    """Decode one frame payload -> [fsize, channels] f64 PCM; a corrupt
-    payload, or a depth index past the table, decodes to a zero frame."""
+            device: torch.device, compute_dtype: str | None = None) -> np.ndarray:
+    """Decode one frame payload -> [fsize, channels] f64 PCM at
+    `compute_dtype` (None: `policy.compute_dtype()`); a corrupt payload, or
+    a depth index past the table, decodes to a zero frame."""
     if bit_depth_index >= len(DEPTHS):
         return np.zeros((fsize, channels))
     factor = _scale_factor(DEPTHS[bit_depth_index])
@@ -104,7 +105,7 @@ def digital(frad: bytes, bit_depth_index: int, channels: int, srate: int, fsize:
         return np.zeros((fsize, channels))
     freqs, thres, lpc = untrim_streams(streams, fsize, channels)
 
-    dt = policy.compute_dtype()
+    dt = policy.check_compute_dtype(compute_dtype)
     pcm = batch.p2_decode_core(
         policy.to_device(freqs.reshape(1, fsize, channels).astype(dt), device),
         policy.to_device(thres.reshape(1, psycho.SUBBANDS, channels).astype(dt), device),

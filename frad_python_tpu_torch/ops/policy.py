@@ -42,10 +42,11 @@ def compute_dtype() -> str:
     return env
 
 
-def transform_dtype(bits: int) -> str:
+def transform_dtype(bits: int, dtype: str | None = None) -> str:
     """Dtype of a lossless transform into a `bits`-deep container: float64
-    for the 48- and 64-bit containers, `compute_dtype()` below them."""
-    return "float64" if bits >= DEEP_BITS else compute_dtype()
+    for the 48- and 64-bit containers, `check_compute_dtype(dtype)` below
+    them."""
+    return "float64" if bits >= DEEP_BITS else check_compute_dtype(dtype)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -1,17 +1,22 @@
-"""Psychoacoustic masking for the lossy profiles, as torch ops on the device.
+"""Psychoacoustic masking for the lossy profiles: the tables the masking
+kernels (`kernels/mask_thres.py`, `kernels/thres_expand.py`) and their
+plain versions read, and the elementwise pieces they share.
 
 * 27 modified-Opus subband edges
 * per-subband masking threshold: RMS(|X|)^0.8 against the absolute
   hearing threshold, times loss_level; bands from the first empty one
   on stay 0
-* threshold -> per-bin divisor by per-band linear interpolation, as one
-  [.., 27] @ [27, N] GEMM (lo*(1-frac) + hi*frac, the JAX package's
-  product form)
+* threshold -> per-bin divisor by per-band linear interpolation,
+  lo*(1-frac) + hi*frac with the weights of the JAX package's
+  interpolation matrix (its `_interp_matrix`), as two products and a sum
 * alpha=0.75 power-law compand, in the sqrt form sqrt(|x|*sqrt(|x|))
 
 The numpy constant builders are verbatim copies of the JAX package's, so
-the tables are bit-identical; `device_consts` turns them into float32 or
-float64 tensors on the device, cached per (N, srate, device, dtype).
+the tables are bit-identical; `kernel_tables` hands the per-band ones to
+the kernels as host arrays (they go by value), `device_consts` the rest as
+float32 or float64 tensors on the device to the plain versions and, for
+the per-bin interpolation, to the kernels too, cached per (N, srate,
+device, dtype).
 """
 
 from __future__ import annotations
@@ -20,8 +25,6 @@ import functools
 
 import numpy as np
 import torch
-
-from .dct import matmul_rows
 
 MODIFIED_OPUS_SUBBANDS = (
     0, 200, 400, 600, 800, 1000, 1200, 1400,
@@ -32,6 +35,8 @@ MODIFIED_OPUS_SUBBANDS = (
 SUBBANDS = len(MODIFIED_OPUS_SUBBANDS) - 1
 SPREAD_ALPHA = 0.8
 QUANT_ALPHA = 0.75
+#: lanes of a band's running sums (a warp of the kernel)
+SUM_LANES = 32
 
 
 @functools.lru_cache(maxsize=256)
@@ -66,18 +71,22 @@ def _mask_consts(dlen: int, srate: int) -> tuple[np.ndarray, int, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=256)
-def _mask_consts_jnp(dlen: int, srate: int):
-    """Masking constants: a [dlen, nb] band-indicator matrix (subband sums
-    become one GEMM), per-band 1/width, AHT floor, and the per-bin band
-    index / interpolation fraction / validity of the mapping."""
+def band_consts(dlen: int, srate: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """(per-band 1/width [nb'], AHT floor [nb'], active bands nb), nb' =
+    max(nb, 1): the JAX package's `_mask_consts_jnp` without its
+    band-indicator matrix."""
     starts, nb, aht_floor = _mask_consts(dlen, srate)
-    ind = np.zeros((dlen, max(nb, 1)), dtype=np.float64)
-    for i in range(nb):
-        ind[starts[i]:starts[i + 1], i] = 1.0
     inv_w = np.zeros(max(nb, 1))
     inv_w[:nb] = 1.0 / (starts[1:nb + 1] - starts[:nb])
+    return inv_w, aht_floor[:max(nb, 1)], nb
 
-    # mapping constants: per-bin band index / interp fraction
+
+@functools.lru_cache(maxsize=256)
+def mapping_consts(dlen: int, srate: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-bin band index b, interpolation fraction and validity of the
+    mapping (the JAX package's `_mask_consts_jnp`): bin t of a valid band
+    b gets lo = thres[b] at weight 1 - frac and hi = thres[b + 1] at frac;
+    bins from the start of band 26 on are invalid (divisor 0)."""
     edges = band_edges(dlen, srate)
     mstarts = np.minimum(np.maximum(edges[:SUBBANDS], 0), dlen)
     t = np.arange(dlen)
@@ -87,38 +96,55 @@ def _mask_consts_jnp(dlen: int, srate: int):
     c = (mstarts[b + 1] - mstarts[b]).astype(np.float64)
     c = np.where(c == 0, 1.0, c)
     frac = (t - mstarts[b]) / c
-    return ind, inv_w, aht_floor, nb, b, frac, valid
+    return b, frac, valid
 
 
 @functools.lru_cache(maxsize=256)
-def _interp_matrix(dlen: int, srate: int) -> np.ndarray:
-    """[SUBBANDS, dlen] interpolation matrix: column t holds the two band
-    weights (1-frac, frac) of bin t, zero for invalid bins."""
-    _, _, _, _, b, frac, valid = _mask_consts_jnp(dlen, srate)
-    t = np.arange(dlen)
-    hi = np.minimum(b + 1, SUBBANDS - 1)
-    w = np.zeros((SUBBANDS, dlen), dtype=np.float64)
-    np.add.at(w, (b, t), np.where(valid, 1.0 - frac, 0.0))
-    np.add.at(w, (hi, t), np.where(valid, frac, 0.0))
-    return w
+def kernel_tables(dlen: int, srate: int) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The host tables the masking kernels take by value: (the 28 clipped
+    band starts, int32; 1/width and the AHT floor of the 27 bands,
+    float64, zero from band nb' on; nb). The kernels round the float64
+    entries to their compute dtype as `device_consts` does."""
+    starts, _, _ = _mask_consts(dlen, srate)
+    inv_w, aht, nb = band_consts(dlen, srate)
+    pad = np.zeros(SUBBANDS)
+    w, a = pad.copy(), pad.copy()
+    w[:len(inv_w)], a[:len(aht)] = inv_w, aht
+    return np.ascontiguousarray(starts, dtype=np.int32), w, a, nb
 
 
 @functools.lru_cache(maxsize=32)
 def device_consts(dlen: int, srate: int, device: torch.device,
                   dtype: torch.dtype = torch.float32) -> dict:
-    """The masking and mapping tables as `dtype` (float32 or float64)
-    tensors on `device`: `ind` [dlen, nb'], `inv_w` [nb'], `aht` [nb']
-    (nb' = max(nb, 1)), `interp` [SUBBANDS, dlen], and the active band
-    count `nb`."""
-    ind, inv_w, aht_floor, nb, *_ = _mask_consts_jnp(dlen, srate)
+    """The masking and mapping tables of the plain versions as tensors on
+    `device`, floats in `dtype` (float32 or float64): `inv_w` and `aht`
+    [nb'], the active band count `nb`; `sum_index` [nb, S, SUM_LANES], the
+    bins each band's running sums add in step order (lane l of step s of
+    band b: start_b + SUM_LANES * s + l, or dlen, a +0 pad, past the band);
+    per bin the two bands `lo`, `hi` [dlen] and their weights `w_lo` =
+    1 - frac, `w_hi` = frac [dlen] (0 on invalid bins: the entries of the
+    JAX package's interpolation matrix rounded to `dtype`), `valid`, and
+    `band8` [dlen], uint8: `lo`, or 255 on an invalid bin (the kernels read
+    it with the weights)."""
+    starts, _, _ = _mask_consts(dlen, srate)
+    inv_w, aht, nb = band_consts(dlen, srate)
+    b, frac, valid = mapping_consts(dlen, srate)
     ft = np.float64 if dtype == torch.float64 else np.float32
+    widths = starts[1:nb + 1] - starts[:nb]
+    steps = int(-(-widths.max() // SUM_LANES)) if nb else 0
+    idx = starts[:nb, None, None] + SUM_LANES * np.arange(steps)[None, :, None] \
+        + np.arange(SUM_LANES)[None, None, :]
+    idx = np.where(idx < starts[1:nb + 1, None, None], idx, dlen)
 
-    def dev(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=ft)).to(device)
+    def dev(a: np.ndarray, dt=ft) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(device)
 
-    return {"ind": dev(ind), "inv_w": dev(inv_w),
-            "aht": dev(aht_floor[:ind.shape[1]]),
-            "interp": dev(_interp_matrix(dlen, srate)), "nb": nb}
+    return {"inv_w": dev(inv_w), "aht": dev(aht), "nb": nb,
+            "sum_index": dev(idx, np.int64), "lo": dev(b, np.int64),
+            "hi": dev(np.minimum(b + 1, SUBBANDS - 1), np.int64),
+            "w_lo": dev(np.where(valid, 1.0 - frac, 0.0)),
+            "w_hi": dev(np.where(valid, frac, 0.0)), "valid": dev(valid, np.bool_),
+            "band8": dev(np.where(valid, b, 255), np.uint8)}
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -138,12 +164,6 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
-def band_sums(freqs: torch.Tensor, consts: dict) -> torch.Tensor:
-    """Sum of squares per active subband of [..., N] magnitude spectra ->
-    [..., nb'], as one GEMM against the band-indicator matrix."""
-    return matmul_rows(freqs * freqs, consts["ind"])
-
-
 def thres_from_sums(sums: torch.Tensor, inv_w: torch.Tensor, aht: torch.Tensor, nb: int,
                     loss_level: float, alpha: float = SPREAD_ALPHA) -> torch.Tensor:
     """Band sums [..., nb'] -> masking thresholds [..., SUBBANDS]:
@@ -156,21 +176,6 @@ def thres_from_sums(sums: torch.Tensor, inv_w: torch.Tensor, aht: torch.Tensor, 
     if pad > 0:
         th = torch.cat([th, th.new_zeros(th.shape[:-1] + (pad,))], dim=-1)
     return th
-
-
-def mask_thres_mos(freqs: torch.Tensor, srate: int, loss_level: float,
-                   alpha: float = SPREAD_ALPHA) -> torch.Tensor:
-    """Masking thresholds for [..., N] magnitude spectra -> [..., SUBBANDS]."""
-    c = device_consts(freqs.shape[-1], srate, freqs.device, freqs.dtype)
-    return thres_from_sums(band_sums(freqs, c), c["inv_w"], c["aht"], c["nb"], loss_level,
-                           alpha)
-
-
-def mapping_from_opus(mapped_thres: torch.Tensor, freqs_len: int, srate: int) -> torch.Tensor:
-    """Per-bin divisors [..., freqs_len] from [..., SUBBANDS] thresholds,
-    as one GEMM against the interpolation matrix."""
-    w = device_consts(freqs_len, srate, mapped_thres.device, mapped_thres.dtype)["interp"]
-    return matmul_rows(mapped_thres[..., :SUBBANDS], w)
 
 
 def quant(x: torch.Tensor) -> torch.Tensor:

@@ -785,7 +785,9 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
     fragment longer than the next run's emit window (which needs a
     crossfade over several frames), a frame of a reserved profile and a
     lossless run the batch cannot split are decoded by the streaming
-    `Decoder` with the carried state.
+    `Decoder` with the carried state, at `compute_dtype`; the transfer
+    forms do not reach those frames (the Decoder's per-frame path has none),
+    which come back unrounded.
     """
     from ..decoder import Decoder
 
@@ -794,7 +796,7 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
     with _stage("dec:parse"):
         headers, payloads, tail_bytes = _parse_frames(stream)
     if not any(p is not None for p in payloads):
-        dec = Decoder(fix_error=fix_error, device=dev)
+        dec = Decoder(fix_error=fix_error, device=dev, compute_dtype=compute_dtype)
         parts = [p for p in (dec.process(stream).pcm, dec.flush().pcm) if p.size]
         pcm_out = np.concatenate(parts) if parts else np.empty((0,))
         if return_remainder:
@@ -870,7 +872,7 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
                                 for i in range(idx, len(headers)))
                        if stream_rest else b"") + tail_bytes
         if rest_stream:
-            dec = Decoder(fix_error=fix_error, device=dev)
+            dec = Decoder(fix_error=fix_error, device=dev, compute_dtype=compute_dtype)
             dec.overlap_fragment = np.asarray(frag, dtype=np.float64)
             dec.info = info
             r = dec.process(rest_stream)

@@ -93,7 +93,7 @@ def former_p1_decode_core(freqs_flat, thres_flat, srate, factor):
         freqs_flat = freqs_flat.to(torch.float32)
     n = freqs_flat.shape[1]
     masked = tpsycho.dequant(freqs_flat.transpose(1, 2)) / factor
-    return idct2(masked * tbatch._thres_expand(thres_flat, n, srate)).transpose(1, 2)
+    return idct2(masked * kernels.thres_expand(thres_flat.contiguous(), n, srate)).transpose(1, 2)
 
 
 def former_p2_decode_core(freqs_flat, thres_flat, lpc_flat, srate, factor):
@@ -103,7 +103,7 @@ def former_p2_decode_core(freqs_flat, thres_flat, lpc_flat, srate, factor):
     n = freqs_flat.shape[1]
     masked = tpsycho.dequant(freqs_flat.transpose(1, 2)) / factor
     freqs = ttns.tns_synthesis(masked, lpc_flat.transpose(1, 2)) \
-        * tbatch._thres_expand(thres_flat, n, srate)
+        * kernels.thres_expand(thres_flat.contiguous(), n, srate)
     return idct2(freqs).transpose(1, 2)
 
 

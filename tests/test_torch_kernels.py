@@ -146,10 +146,9 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
         kernels.tns_fir_gate(meta, torch.empty((4, 13), device="meta"),
                              torch.empty(4, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError):
-        kernels.mask_thres(meta, torch.empty(8, device="meta"), torch.empty(8, device="meta"),
-                           8, 0.5, 2)
+        kernels.mask_thres(meta, FACTOR, 0.5, 44100, 2)
     with pytest.raises(ValueError):
-        kernels.thres_expand(torch.empty((2, 27, 2), device="meta"))
+        kernels.thres_expand(torch.empty((2, 27, 2), device="meta"), 2048, 44100)
     with pytest.raises(ValueError):
         kernels.i24_pack(torch.empty((2, 8, 2), device="meta"))
     with pytest.raises(ValueError):

@@ -12,6 +12,7 @@ from frad_python_tpu.ops import bitpack as jbitpack
 from frad_python_tpu.ops import dct as jdct
 from frad_python_tpu.ops import golomb as jgolomb
 from frad_python_tpu.ops import psycho as jpsycho
+from frad_python_tpu_torch.kernels.mask_thres import band_sums_plain, interpolate_plain
 from frad_python_tpu_torch.ops import bitpack as tbitpack
 from frad_python_tpu_torch.ops import dct as tdct
 from frad_python_tpu_torch.ops import policy
@@ -37,23 +38,34 @@ def test_dct_matrices_equal(n):
 
 @pytest.mark.parametrize("n,srate", GEOMS)
 def test_psycho_tables_equal(n, srate):
-    j = jpsycho._mask_consts_jnp(n, srate)
-    t = tpsycho._mask_consts_jnp(n, srate)
-    for a, b in zip(j, t):
-        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
-    np.testing.assert_array_equal(tpsycho._interp_matrix(n, srate),
-                                  jpsycho._interp_matrix(n, srate))
+    """The port's copies of the JAX package's masking and mapping tables
+    (`_mask_consts_jnp`: 1/width, AHT floor, active bands, per-bin band,
+    fraction and validity) are equal, and the plain versions' tensors are
+    them cast as the JAX cores cast them (the interpolation weights are the
+    entries of its `_interp_matrix`)."""
+    ind, inv_w, aht, nb, b, frac, valid = jpsycho._mask_consts_jnp(n, srate)
+    t_inv_w, t_aht, t_nb = tpsycho.band_consts(n, srate)
+    np.testing.assert_array_equal(t_inv_w, inv_w)
+    np.testing.assert_array_equal(t_aht, aht[:ind.shape[1]])
+    assert t_nb == nb
+    for got, want in zip(tpsycho.mapping_consts(n, srate), (b, frac, valid)):
+        np.testing.assert_array_equal(got, want)
     c = tpsycho.device_consts(n, srate, CPU)
-    ind, inv_w, aht, nb = j[0], j[1], j[2], j[3]
     assert c["nb"] == nb
     # the JAX cores cast the same f64 tables to f32 (jnp.asarray(.., f32))
-    np.testing.assert_array_equal(c["ind"].numpy(), np.asarray(jnp.asarray(ind, jnp.float32)))
     np.testing.assert_array_equal(c["inv_w"].numpy(), np.asarray(jnp.asarray(inv_w, jnp.float32)))
     np.testing.assert_array_equal(c["aht"].numpy(),
                                   np.asarray(jnp.asarray(aht[:ind.shape[1]], jnp.float32)))
-    np.testing.assert_array_equal(
-        c["interp"].numpy(),
-        np.asarray(jnp.asarray(jpsycho._interp_matrix(n, srate), jnp.float32)))
+    w = np.asarray(jnp.asarray(jpsycho._interp_matrix(n, srate), jnp.float32))
+    t = np.arange(n)
+    np.testing.assert_array_equal(c["w_lo"].numpy(), np.where(valid, w[b, t], 0.0))
+    np.testing.assert_array_equal(c["w_hi"].numpy(),
+                                  np.where(valid, w[np.minimum(b + 1, 26), t], 0.0))
+    # the band sums' gather covers each active band's bins once, in order
+    idx = c["sum_index"].numpy()
+    for i in range(nb):
+        got = idx[i].ravel()
+        np.testing.assert_array_equal(got[got < n], np.nonzero(ind[:, i])[0])
 
 
 def test_window_equal():
@@ -83,16 +95,19 @@ def test_dct_idct_match_jax(n):
 @pytest.mark.parametrize("n,srate", GEOMS[:3])
 def test_psycho_chain_matches_jax(n, srate):
     rng = np.random.default_rng(srate)
-    spec = (np.abs(rng.standard_normal((4, 2, n))) * 300.0).astype(np.float32)
+    spec = (np.abs(rng.standard_normal((8, n))) * 300.0).astype(np.float32)
     want = np.asarray(jax.jit(lambda f: jpsycho.mask_thres_mos_jnp(f, srate, jnp.float32(0.5)))(
         jnp.asarray(spec)))
-    got = tpsycho.mask_thres_mos(torch.from_numpy(spec), srate, 0.5).numpy()
-    assert got.shape == want.shape == (4, 2, tpsycho.SUBBANDS)
-    # band sums (GEMM order) then pow(., 0.8): float32 relative error
+    k = tpsycho.device_consts(n, srate, CPU)
+    got = tpsycho.thres_from_sums(band_sums_plain(torch.from_numpy(spec) ** 2, k), k["inv_w"],
+                                  k["aht"], k["nb"], 0.5).numpy()
+    assert got.shape == want.shape == (8, tpsycho.SUBBANDS)
+    # band sums (the kernel's order against a GEMM's) then pow(., 0.8):
+    # float32 relative error
     np.testing.assert_allclose(got, want, rtol=2e-6, atol=0)
 
     div_want = np.asarray(jpsycho.mapping_from_opus_jnp(jnp.asarray(want), n, srate))
-    div_got = tpsycho.mapping_from_opus(torch.from_numpy(want), n, srate).numpy()
+    div_got = interpolate_plain(torch.from_numpy(np.array(want)), k).numpy()
     np.testing.assert_allclose(div_got, div_want, rtol=2e-6, atol=1e-30)
 
     x = (rng.standard_normal((3, 500)) * 50).astype(np.float32)

@@ -456,11 +456,10 @@ def smoke_form_tables() -> set:
         for lanes, n in shapes:
             forms |= {("tns_autocorr", (lanes, n), dtype, True),
                       ("tns_fir_gate", (lanes, n), dtype)}
-    for dtype, rows, n in chip_smoke.MASK_THRES_FORMS:
-        k = tpsycho.device_consts(n, chip_smoke.SRATE, CPU, getattr(torch, dtype))
-        forms.add(("mask_thres", (rows, k["ind"].shape[1]), dtype, k["nb"], chip_smoke.CHANNELS))
-    forms |= {("thres_expand", (b, tpsycho.SUBBANDS, chip_smoke.CHANNELS), dtype)
-              for dtype, b in chip_smoke.THRES_EXPAND_FORMS}
+    forms |= {("mask_thres", (rows, n), dtype, chip_smoke.SRATE, ch)
+              for dtype, rows, n, ch in chip_smoke.MASK_THRES_FORMS}
+    forms |= {("thres_expand", (b, tpsycho.SUBBANDS, ch), dtype, n, chip_smoke.SRATE)
+              for dtype, b, n, ch in chip_smoke.THRES_EXPAND_FORMS}
     return forms
 
 

@@ -291,7 +291,7 @@ def test_chip_smoke_fir_gate_extra_forms_reach_their_paths(dtype, shape):
         assert (2 * n + SCRATCH) * size > SMEM_MAX >= (n + SCRATCH) * size
 
 
-def test_tns_analysis_is_three_wrapper_calls_and_no_launch_on_the_cpu():
+def test_tns_analysis_is_two_wrapper_calls_and_no_launch_on_the_cpu():
     x = spectra(256, "float32")
     kernels.reset_launches()
     with chip_smoke.FormTally(device_type="cpu") as tally:

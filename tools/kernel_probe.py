@@ -1,7 +1,7 @@
 """Device times of the redesigned kernels on one CUDA card, warm, with the
 SM clock they ran at and what the compiler made of them.
 
-    python3 tools/kernel_probe.py [--tree DIR] [SECTION ...]
+    python3 tools/kernel_probe.py [--tree DIR] [--parent DIR] [SECTION ...]
 
 SECTIONs (default: all, in this order):
 
@@ -54,6 +54,29 @@ SECTIONs (default: all, in this order):
   PHASE_STAMP), the mean cycles a block spends in each phase
   (`FIR_PHASES`) at float32, and in µs at the SM clock read while the
   kernel as built runs back to back;
+* `thres`: `mask_thres` (spectra [R, 2048] -> divisor and symbols) at 8
+  and 1376 rows and `thres_expand` (symbols -> divisor [B, 2, 2048]) at 4
+  and 689 frames, float32 and float64: equal to plain or not, the mean
+  device time of a call (every kernel it runs); `mask_thres` float32
+  again at 128 to 1024 threads a block (the C entry takes them), and the
+  cycles of a block's phases from a build with `clock64()` stamps
+  (`MASK_PHASES`); with `--parent DIR` (a
+  `git archive` of a tree whose chains were six and two launches), that
+  tree's `mask_thres.cu` and `thres_expand.cu` built beside and its
+  chains timed in this process on the same inputs: abs, * factor, the
+  square, the band-sum GEMM, its `mask_thres` and the interpolation GEMM;
+  its `thres_expand` and the interpolation GEMM;
+* `thres_registers`: the registers and spills of every `mask_thres` and
+  `thres_expand` kernel (`-Xptxas -v`);
+* `flips` (needs `--parent`): chip_smoke.py's 30 s track framed as
+  `batch_encode` frames it (688 uniform frames), through the DCT, then the
+  parent's threshold chain and this tree's, each followed by the rest of
+  the Profile 1 core (int16 upload, `power_quant`) and of the Profile 2
+  core (float32, the TNS analysis, `power_quant` without a divisor): the
+  symbols that differ between the two (threshold, frequency, LPC), and the
+  largest relative difference of the divisors; the decoders' divisors of
+  the same symbols through the parent's `thres_expand` + GEMM and this
+  tree's `thres_expand`;
 * `sass`: the opcode counts of the float32 `tns_iir` kernel, the 24-bit
   C = 2 `trunc_pack` kernel, the float32 8-step `tns_autocorr` kernel
   and the float32 2048-sample `tns_fir_gate` kernel from
@@ -86,7 +109,7 @@ import torch
 
 REPS = 10
 SECTIONS = ("tns_iir", "egr_pack", "i24", "trunc_pack", "tns_autocorr", "autocorr_variants",
-            "fir_gate", "fir_gate_variants", "sass")
+            "fir_gate", "fir_gate_variants", "thres", "thres_registers", "flips", "sass")
 
 
 def device_us(fn, names: tuple[str, ...]) -> dict:
@@ -108,6 +131,23 @@ def device_us(fn, names: tuple[str, ...]) -> dict:
                                                         "device_time_total"))
                 out[n] = round(out.get(n, 0.0) + us / REPS, 2)
     return out
+
+
+def call_us(fn) -> float:
+    """Mean device time in µs of every kernel that one call of `fn` runs,
+    over REPS calls in one profiler call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    return round(sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))) / REPS, 2)
 
 
 def smi(query: str) -> str:
@@ -617,6 +657,296 @@ def probe_fir_gate_variants(cs, kernels, dev, build) -> bool:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: (rows, samples) of the mask_thres probe and (frames, samples) of thres_expand's,
+#: at the main path's sample rate
+THRES_ROWS, EXPAND_FRAMES, THRES_N, THRES_SRATE = (8, 1376), (4, 689), 2048, 44100
+#: the C entries of a parent tree whose threshold chains were six and two
+#: launches, as they were declared there
+PARENT_SIGNATURES = {
+    "frad_mask_thres": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (ctypes.c_double,) * 4
+    + (ctypes.c_int, ctypes.c_void_p),
+    "frad_thres_expand": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_double, ctypes.c_int, ctypes.c_void_p)}
+
+
+def parent_chains(parent: Path, build, dev):
+    """(encode chain, decode chain) of a parent tree whose threshold chains
+    were six and two launches: its mask_thres.cu and thres_expand.cu built
+    here, driven as its models/batch.py drove them (the band-indicator and
+    interpolation matrices from this tree's tables, which equal its)."""
+    import numpy as np
+    from frad_python_tpu_torch.kernels.mask_thres import E_HALF
+    from frad_python_tpu_torch.ops import psycho
+
+    tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    so = tmp / "parent_thres.so"
+    srcs = [str(parent / "frad_python_tpu_torch" / "csrc" / f) for f in
+            ("mask_thres.cu", "thres_expand.cu")]
+    res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), *srcs],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc of the parent's threshold kernels:\n{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for name, args in PARENT_SIGNATURES.items():
+        getattr(lib, name).argtypes = list(args)
+        getattr(lib, name).restype = ctypes.c_int
+
+    def tables(n, dtype):
+        starts, nb, _ = psycho._mask_consts(n, THRES_SRATE)
+        ind = np.zeros((n, max(nb, 1)))
+        for i in range(nb):
+            ind[starts[i]:starts[i + 1], i] = 1.0
+        b, frac, valid = psycho.mapping_consts(n, THRES_SRATE)
+        w = np.zeros((psycho.SUBBANDS, n))
+        np.add.at(w, (b, np.arange(n)), np.where(valid, 1.0 - frac, 0.0))
+        np.add.at(w, (np.minimum(b + 1, psycho.SUBBANDS - 1), np.arange(n)),
+                  np.where(valid, frac, 0.0))
+        k = psycho.device_consts(n, THRES_SRATE, dev, dtype)
+        return (torch.from_numpy(ind).to(dev, dtype), torch.from_numpy(w).to(dev, dtype),
+                k["inv_w"], k["aht"], nb)
+
+    def encode(freqs, factor, loss, ch):            # freqs [R, N]
+        rows, n = freqs.shape
+        ind, w, inv_w, aht, nb = tables(n, freqs.dtype)
+        a = torch.abs(freqs) * factor
+        sums = torch.matmul(a * a, ind)
+        th = torch.empty((rows, psycho.SUBBANDS), dtype=freqs.dtype, device=dev)
+        f64 = freqs.dtype == torch.float64
+        tq = torch.empty((rows // ch, psycho.SUBBANDS, ch),
+                         dtype=torch.int64 if f64 else torch.int32, device=dev)
+        build.check("parent frad_mask_thres", lib.frad_mask_thres(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (sums, inv_w, aht, th, tq)), rows,
+            sums.shape[1], nb, ch, float(loss), psycho.SPREAD_ALPHA, 1.0 / psycho.QUANT_ALPHA,
+            E_HALF, int(f64), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)))
+        return torch.matmul(th, w), tq
+
+    def decode(sym, n):                                  # sym [B, 27, C]
+        b, _, c = sym.shape
+        _, w, *_ = tables(n, sym.dtype)
+        out = torch.empty((b, c, psycho.SUBBANDS), dtype=sym.dtype, device=dev)
+        build.check("parent frad_thres_expand", lib.frad_thres_expand(
+            ctypes.c_void_p(sym.data_ptr()), ctypes.c_void_p(out.data_ptr()), b, c, E_HALF,
+            int(sym.dtype == torch.float64),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)))
+        return torch.matmul(out.reshape(-1, psycho.SUBBANDS), w).reshape(b, c, n)
+
+    return encode, decode
+
+
+def probe_thres(cs, kernels, dev, parent: Path | None, build) -> bool:
+    """See the module docstring: the two kernels against plain with their
+    warm times, mask_thres's block sizes and phases, and a parent's
+    chains on the same inputs."""
+    import numpy as np
+
+    ok = True
+    factor, loss = 2.0 ** 15, 0.5
+    chains = parent_chains(parent, build, dev) if parent else None
+    for dtype in ("float32", "float64"):
+        for rows in THRES_ROWS:
+            x = torch.from_numpy(cs.mask_thres_inputs(rows, THRES_N, dtype, 5 + rows)).to(dev)
+            args = (x, factor, loss, THRES_SRATE, 2)
+            same = all(cs.bits_equal(torch, g, w) if g.is_floating_point() else torch.equal(g, w)
+                       for g, w in zip(kernels.mask_thres(*args), kernels.mask_thres_plain(*args)))
+            ok &= same
+            print(f"mask_thres {dtype} [{rows}, {THRES_N}]: {'equal' if same else 'DIFFERS'}, "
+                  f"device {call_us(lambda: kernels.mask_thres(*args))} us a call")
+            if dtype == "float32":
+                variants(build, x, factor, loss, kernels.mask_thres_plain(*args))
+            if chains:
+                enc, _ = chains
+                print(f"mask_thres parent's chain {dtype} [{rows}, {THRES_N}]: device "
+                      f"{call_us(lambda: enc(x, factor, loss, 2))} us a call (six launches)")
+        for frames in EXPAND_FRAMES:
+            sym = np.rint(np.random.default_rng(frames).laplace(0, 6, (frames, 27, 2)))
+            t = torch.from_numpy(sym.astype(dtype)).to(dev)
+            same = cs.bits_equal(torch, kernels.thres_expand(t, THRES_N, THRES_SRATE),
+                                 kernels.thres_expand_plain(t, THRES_N, THRES_SRATE))
+            ok &= same
+            print(f"thres_expand {dtype} [{frames}, 27, 2] -> [{frames}, 2, {THRES_N}]: "
+                  f"{'equal' if same else 'DIFFERS'}, device "
+                  f"{call_us(lambda: kernels.thres_expand(t, THRES_N, THRES_SRATE))} us a call")
+            if chains:
+                _, dec = chains
+                print(f"thres_expand parent's chain {dtype} [{frames}, 27, 2]: device "
+                      f"{call_us(lambda: dec(t, THRES_N))} us a call (two launches)")
+    return ok
+
+
+#: the phases of a mask_thres block: thread 0's (PHASE_STAMP k closes
+#: MASK_PHASES[k - 1]), then thread 32's time from thread 0's start to the end
+#: of its divisor runs
+MASK_PHASES = ("prefetch, band sums (warp 0)", "wait for every warp", "thresholds",
+               "symbols (warp 0, beside the divisor)", "start to divisor done (thread 32)")
+MASK_STAMPS = """
+__device__ unsigned long long probe_clk[16];  // [k]: cycles of phase k; [8 + k]: blocks
+__device__ __forceinline__ void probe_stamp(int k) {
+    __shared__ long long probe_start, probe_last;
+    const long long c = clock64();
+    if (k == 5) {
+        if (threadIdx.x == 32) {
+            atomicAdd(&probe_clk[4], (unsigned long long)(c - probe_start));
+            atomicAdd(&probe_clk[12], 1ull);
+        }
+        return;
+    }
+    if (threadIdx.x != 0) return;
+    if (k == 0) probe_start = c;
+    else {
+        atomicAdd(&probe_clk[k - 1], (unsigned long long)(c - probe_last));
+        atomicAdd(&probe_clk[8 + k - 1], 1ull);
+    }
+    probe_last = c;
+}
+#define PHASE_STAMP(k) probe_stamp(k)
+extern "C" int probe_clocks(unsigned long long* host) {   // read, then zero
+    cudaError_t e = cudaMemcpyFromSymbol(host, probe_clk, sizeof(probe_clk));
+    if (e != cudaSuccess) return (int)e;
+    const unsigned long long zero[16] = {};
+    return (int)cudaMemcpyToSymbol(probe_clk, zero, sizeof(zero));
+}
+"""
+
+
+def mask_call(lib, x, factor, loss, threads):
+    """frad_mask_thres of library `lib` on float32 spectra x [R, N] of two
+    channels, at `threads` a block."""
+    from frad_python_tpu_torch.kernels import build
+    from frad_python_tpu_torch.kernels.mask_thres import _EXPONENT, E_HALF
+    from frad_python_tpu_torch.ops import psycho
+
+    rows, n = x.shape
+    starts, inv_w, aht, nb = psycho.kernel_tables(n, THRES_SRATE)
+    k = psycho.device_consts(n, THRES_SRATE, x.device, x.dtype)
+    div = torch.empty_like(x)
+    tq = torch.empty((rows // 2, psycho.SUBBANDS, 2), dtype=torch.int32, device=x.device)
+    build.check("frad_mask_thres (probe)", lib.frad_mask_thres(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(div.data_ptr()),
+        ctypes.c_void_p(tq.data_ptr()), rows, n, 2, starts.ctypes.data_as(ctypes.c_void_p),
+        inv_w.ctypes.data_as(ctypes.c_void_p), aht.ctypes.data_as(ctypes.c_void_p), nb,
+        *(ctypes.c_void_p(k[t].data_ptr()) for t in ("band8", "w_lo", "w_hi")),
+        factor, loss, psycho.SPREAD_ALPHA, _EXPONENT, E_HALF, 0, threads,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)))
+    return div, tq
+
+
+def variants(build, x, factor, loss, same_as) -> None:
+    """mask_thres on float32 x at 128 to 1024 threads a block, through the
+    C entry; then the phases of a block from a build with clock64() stamps
+    at the threads the wrapper picks."""
+    from frad_python_tpu_torch.kernels.mask_thres import geometry
+
+    lib = build.library()
+    out = []
+    for threads in (128, 256, 512, 1024):
+        div, tq = mask_call(lib, x, factor, loss, threads)
+        same = torch.equal(div.view(torch.int32), same_as[0].view(torch.int32)) \
+            and torch.equal(tq, same_as[1])
+        out.append(f"{threads} threads {'equal' if same else 'DIFFERS'} "
+                   f"{call_us(lambda: mask_call(lib, x, factor, loss, threads))}")
+    rows, n = x.shape
+    print(f"mask_thres float32 [{rows}, {n}] variants, device us a call: " + "; ".join(out))
+
+    tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    try:
+        (tmp / "stamps.cuh").write_text(MASK_STAMPS)
+        so = tmp / "mt_stamped.so"
+        res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR),
+                              "-include", str(tmp / "stamps.cuh"), "-o", str(so),
+                              str(build.CSRC_DIR / "mask_thres.cu")], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc mask_thres (stamped):\n{res.stderr}")
+        lib = ctypes.CDLL(str(so))
+        lib.frad_mask_thres.argtypes = list(build.SIGNATURES["frad_mask_thres"])
+        lib.frad_mask_thres.restype = ctypes.c_int
+        lib.probe_clocks.argtypes = [ctypes.c_void_p]
+        lib.probe_clocks.restype = ctypes.c_int
+        threads = geometry(rows)
+        mhz = sm_mhz_under(lambda: mask_call(lib, x, factor, loss, threads))
+        clk = (ctypes.c_ulonglong * 16)()
+        mask_call(lib, x, factor, loss, threads)
+        torch.cuda.synchronize()
+        build.check("probe_clocks", lib.probe_clocks(clk))           # zeroes them
+        for _ in range(REPS):
+            mask_call(lib, x, factor, loss, threads)
+        torch.cuda.synchronize()
+        build.check("probe_clocks", lib.probe_clocks(clk))
+        cyc = [clk[k] / max(clk[8 + k], 1) for k in range(len(MASK_PHASES))]
+        print(f"mask_thres float32 [{rows}, {n}] ({threads} threads) phases, mean cycles a "
+              f"block (µs at {mhz} MHz): "
+              + "; ".join(f"{p} {c:.0f} ({c / mhz:.3f})" for p, c in zip(MASK_PHASES, cyc)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def probe_flips(cs, kernels, dev, parent: Path | None, build) -> None:
+    """See the module docstring (`flips`)."""
+    import numpy as np
+    from frad_python_tpu_torch.models import profile1
+    from frad_python_tpu_torch.ops import tns
+    from frad_python_tpu_torch.ops.dct import dct2
+    from frad_python_tpu_torch.parallel import pipeline
+
+    if parent is None:
+        raise SystemExit("kernel_probe: the flips section needs --parent DIR")
+    enc, dec = parent_chains(parent, build, dev)
+    pcm = cs.make_audio(cs.SECONDS, cs.SRATE, cs.CHANNELS)
+    frs, _ = pipeline.plan_frames(len(pcm), cs.FSIZE, 16, True)
+    frs = [f for f in frs if f[1] == frs[0][1]]
+    arr = pipeline._gather(pcm, frs, frs[0][1])
+    _, srate, loss = profile1.prepare_frame(arr[0], cs.SRATE, 0.5)
+    factor = profile1._scale_factor(cs.BITS)
+    b, n, c = arr.shape
+
+    def rel(a, w):
+        return float(((a.double() - w.double()).abs() / w.double().abs().clamp_min(1e-300)).max())
+
+    for profile, frames in ((1, torch.from_numpy(pipeline._to_i16(arr)).to(dev).float()
+                             * (1.0 / 32768.0)),
+                            (2, torch.from_numpy(arr.astype(np.float32)).to(dev))):
+        freqs = dct2(frames.transpose(1, 2)).reshape(b * c, n).contiguous()
+        div, tq = kernels.mask_thres(freqs, factor, loss, srate, c)
+        div_p, tq_p = enc(freqs, factor, loss, c)
+        if profile == 1:
+            fq = kernels.power_quant(freqs, div, factor)
+            fq_p = kernels.power_quant(freqs, div_p.contiguous(), factor)
+            lpc = lpc_p = torch.zeros(1)
+        else:
+            masked, lpc = tns.tns_analysis(freqs, div)
+            masked_p, lpc_p = tns.tns_analysis(freqs, div_p.contiguous())
+            fq = kernels.power_quant(masked, None, factor)
+            fq_p = kernels.power_quant(masked_p, None, factor)
+        print(f"flips P{profile} float32, {b} frames of the {cs.SECONDS:g} s track, this tree "
+              f"against the parent's chain: threshold symbols {int((tq != tq_p).sum())} of "
+              f"{tq.numel()}, frequency symbols {int((fq != fq_p).sum())} of {fq.numel()}, "
+              f"LPC symbols {int((lpc != lpc_p).sum())} of {lpc.numel()}; divisors differ on "
+              f"{int((div != div_p).sum())} of {div.numel()} bins, by at most "
+              f"{rel(div, div_p):.3g} relative")
+        t = tq.to(torch.float32)
+        got, want = kernels.thres_expand(t, n, srate), dec(t, n)
+        print(f"flips P{profile} decode divisors from those symbols: {int((got != want).sum())} "
+              f"of {got.numel()} bins differ, by at most {rel(got, want):.3g} relative")
+
+
+def probe_thres_registers(build) -> None:
+    tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    for src in ("mask_thres.cu", "thres_expand.cu"):
+        res = subprocess.run([build.nvcc(), *[f for f in build.NVCC_FLAGS if f != "-shared"],
+                              "-Xptxas", "-v", "-c", "-o", str(tmp / (src + ".o")),
+                              str(build.CSRC_DIR / src)], capture_output=True, text=True)
+        name, stack, spill = None, "?", "?"
+        for line in (res.stdout + res.stderr).splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                name = m.group(1)
+            elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line):
+                stack, spill = m.group(1), m.group(2)
+            elif (m := re.search(r"Used (\d+) registers", line)) and name:
+                print(f"{src} {name}: {m.group(1)} registers, stack frame {stack} bytes, spill "
+                      f"stores {spill} bytes")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def sm_mhz_under(fn) -> int:
     """The SM clock (MHz, median of three `nvidia-smi` reads) while `fn`
     runs back to back."""
@@ -661,9 +991,14 @@ def probe_sass(build) -> None:
 def main() -> int:
     args = sys.argv[1:]
     tree = Path(__file__).resolve().parent.parent
+    parent = None
     if "--tree" in args:
         i = args.index("--tree")
         tree = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
+    if "--parent" in args:
+        i = args.index("--parent")
+        parent = Path(args[i + 1]).resolve()
         del args[i:i + 2]
     sections = args or list(SECTIONS)
     if set(sections) - set(SECTIONS):
@@ -693,6 +1028,12 @@ def main() -> int:
             ok &= probe_autocorr_variants(cs, kernels, dev, build)
         elif name == "fir_gate_variants":
             ok &= probe_fir_gate_variants(cs, kernels, dev, build)
+        elif name == "thres":
+            ok &= probe_thres(cs, kernels, dev, parent, build)
+        elif name == "thres_registers":
+            probe_thres_registers(build)
+        elif name == "flips":
+            probe_flips(cs, kernels, dev, parent, build)
         else:
             ok &= probes[name](cs, kernels, dev)
     print("all equal" if ok else "MISMATCH")
