@@ -40,10 +40,13 @@ their plain versions first, at every shape, dtype and option that any of
 these runs launches them at (a tally over all the runs fails the script on
 a form that was not held); so are `mask_thres` and `thres_expand`, the
 threshold chains of every lossy encode and decode (spectrum to divisor and
-symbols, symbols to divisor: a traced encode and decode of each lossy
-profile must show no GEMM and no other kernel between the DCT and
-`power_quant` / `tns_autocorr` but `mask_thres`, and no GEMM in a decode
-but the IDCT's), and in the Profile 2
+symbols; symbols to divisor, which `dequant` computes itself for Profile
+1: a traced encode and decode of each lossy profile must show no GEMM and
+no other kernel between the DCT and `power_quant` / `tns_autocorr` but
+`mask_thres`, no GEMM in a decode but the IDCT's, and in a Profile 1
+decode no `thres_expand` and `dequant` right before each IDCT GEMM), and
+`overlap_add` at the forms no run launches (one channel, odd cut and
+overlap, three channels, storage not 16-byte aligned), and in the Profile 2
 phase `tns_autocorr` and `tns_fir_gate`, which are the TNS analysis
 (inputs that meet every gate from both sides; the card's
 quantised LPC rows of the 30 s track are held against a CPU encode's). The
@@ -194,7 +197,7 @@ STREAMING_SHAPES = {
     "power_quant": "[8, 2048]", "overlap_add": "[4, 2, 2048] f32 emit",
     "trunc_pack": "[2, 2, 2048] 24-bit", "trunc_unpack": "[2, 2, 2048] 24-bit",
     "tns_iir": "[8, 2048]", "egr_pack": "[4, 4096]",
-    "dequant": "[4, 2048, 2] i16 + divisor", "tns_autocorr": "[8, 2048] + divisor",
+    "dequant": "[4, 2048, 2] i16 + thresholds", "tns_autocorr": "[8, 2048] + divisor",
     "tns_fir_gate": "[8, 2048]", "mask_thres": "[8, 2048]", "thres_expand": "[4, 2, 2048]",
     "i24_pack": "[4, 2048, 2] transposed view", "i24_unpack": "[4, 3072]"}
 # the main path's shapes for 30 s: 688 uniform frames + a tail frame
@@ -204,9 +207,9 @@ OVERLAP_SHAPE = (689, 2, 2048)           # IDCT output [B, C, N]
 OLAP, CUT = 128, 1920
 ECC_RATIO = (96, 24)
 DEVICE = "cuda"
-#: the kernels of the Profile 1 paths
-P1_KERNELS = ("power_quant", "overlap_add", "egr_pack", "dequant", "mask_thres",
-              "thres_expand")
+#: the kernels of the Profile 1 paths (the decode expands its thresholds
+#: inside dequant: no thres_expand)
+P1_KERNELS = ("power_quant", "overlap_add", "egr_pack", "dequant", "mask_thres")
 #: the kernels of the Profile 2 paths
 P2_KERNELS = ("power_quant", "overlap_add", "dequant", "tns_iir", "tns_autocorr",
               "tns_fir_gate", "mask_thres", "thres_expand")
@@ -220,6 +223,15 @@ TNS_CARD_VS_CPU_LANES = 2
 # 2..256 frames per micro-batch; the decoder's micro-batches emit float32
 STREAM_POWER_QUANT_SHAPES = ((2, 2048), (512, 2048))
 STREAM_OVERLAP_CASES = ((2, OLAP, CUT), (256, OLAP, CUT), (256, 0, 2048))   # (B, olap, cut)
+#: overlap_add's forms that no run launches, (dtype, [B, C, N], olap, int16
+#: emit): one channel, odd cut and overlap (element-wise loads and
+#: stores), three channels (the kernel's any-channel path), float64 with
+#: one channel; each also on a copy whose storage is not 16-byte aligned
+OVERLAP_EDGE_FORMS = (
+    ("float32", (3, 1, 2048), 128, True), ("float32", (3, 1, 2048), 128, False),
+    ("float32", (4, 2, 1000), 77, True), ("float32", (4, 2, 1000), 77, False),
+    ("float32", (2, 3, 512), 32, True), ("float64", (3, 1, 2048), 128, False),
+    ("float64", (3, 2, 1000), 77, True))
 PUSH = 32768
 #: the streaming decode against batch_decode(..., i16_transfer=False) of
 #: the same stream: other batch sizes reach the IDCT GEMM, so float32
@@ -241,8 +253,8 @@ EGR_WIDE_WORDS = 200 * 36 // 32 + 1
 #: and of its check above 2048 rows, where the rows' offsets come from a
 #: scan launch instead of each pack block's own sum
 EGR_MANY_ROWS = (2304, 64)
-#: dequant's forms, (symbol dtype, [B, N, C], with a divisor): Profile 1
-#: has a divisor, Profile 2 none. int16 symbols in batches, runs and
+#: dequant's forms, (symbol dtype, [B, N, C], with threshold symbols):
+#: Profile 1 passes them, Profile 2 none. int16 symbols in batches, runs and
 #: micro-batches (689 frames, the warm-ups' 23, runs of 1, 2, 4 and 8; at
 #: 8192 samples 172 and the 6144-sample tail frame, at 16384 samples 86,
 #: and the warm-ups' 4 and 5), float32 on the per-frame path (one frame),
@@ -260,6 +272,14 @@ DEQUANT_FORMS = (
     ("int16", (23, 2048, 2), False), ("float32", (1, 2048, 2), False),
     ("float64", (114, 2048, 2), True), ("float64", (1, 1792, 2), True),
     ("float64", (114, 2048, 2), False), ("float64", (1, 1792, 2), False))
+#: dequant's forms that no run of this script launches, (symbol dtype,
+#: [B, N, C]): one channel (the kernel's C = 1 path), N not a multiple of a
+#: run (element-wise loads and stores at C = 2) and three channels (its
+#: any-channel path), at each symbol dtype; each is held with and without
+#: threshold symbols, and each also on copies whose storage is not 16-byte
+#: aligned (element-wise at C = 1 too)
+DEQUANT_EDGE_FORMS = tuple((dtype, shape) for shape in ((3, 2048, 1), (2, 1001, 2), (2, 512, 3))
+                           for dtype in ("int16", "float32", "float64"))
 #: mask_thres's forms, (dtype, rows = frames * channels, samples a frame,
 #: channels), for every batch that an encoder of these runs hands over: the
 #: 30 s track's 688 uniform frames and its tail frame, the 1 s warm-ups' 22,
@@ -277,10 +297,11 @@ MASK_THRES_FORMS = (
     ("float64", 5, 256, 1), ("float64", 3, 8192, 1), ("float64", 2, 16384, 2),
     ("float32", 3, 16384, 1))
 #: thres_expand's forms, (dtype, frames, samples a frame, channels): every
-#: run of DEQUANT_FORMS, and the same edges as mask_thres's
+#: Profile 2 run of DEQUANT_FORMS (Profile 1 expands inside dequant), and the
+#: same edges as mask_thres's
 THRES_EXPAND_FORMS = tuple(sorted({
     ("float64" if dtype == "float64" else "float32", shape[0], shape[1], shape[2])
-    for dtype, shape, _ in DEQUANT_FORMS})) + (
+    for dtype, shape, with_thres in DEQUANT_FORMS if not with_thres})) + (
     ("float32", 1, 256, 1), ("float32", 7, 256, 1), ("float64", 1, 2048, 1),
     ("float64", 5, 256, 1), ("float64", 3, 8192, 1), ("float64", 1, 16384, 2),
     ("float32", 3, 16384, 1))
@@ -300,7 +321,8 @@ CHECKED: set[tuple] = set()
 def kernel_form(name: str, *args) -> tuple:
     """What tells one launch of a kernel from another of another form: the
     wrapper's name, its first tensor's shape and dtype, and for power_quant
-    dequant and tns_autocorr whether it has a divisor, for overlap_add the
+    and tns_autocorr whether it has a divisor, for dequant whether it has
+    threshold symbols and then the sample rate, for overlap_add the
     overlap, cut and emit, for egr_pack max_words, for mask_thres the
     sample rate and the channels, for thres_expand the samples a frame
     and the sample rate, for i24_pack whether the PCM is contiguous (the
@@ -313,7 +335,9 @@ def kernel_form(name: str, *args) -> tuple:
         return form + (int(args[1].numel()), int(args[2]), bool(args[3]))
     if name == "egr_pack":
         return form + (int(args[1]),)
-    if name in ("dequant", "tns_autocorr"):
+    if name == "dequant":
+        return form + (args[1] is not None, int(args[3]) if args[1] is not None else 0)
+    if name == "tns_autocorr":
         return form + (args[1] is not None,)
     if name == "mask_thres":
         return form + (int(args[3]), int(args[4]))
@@ -434,29 +458,64 @@ def bound(nbytes: float, flops: float, dtype: str = "float32") -> tuple[float, s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+#: throwaway kernels that open a recorded step: without them a recording
+#: after a warmup step lost kernels 6 times in 20 (PERF.md §7)
+TRACE_LEADS = 8
+
+
 def profiled_device_ms(torch, calls: dict) -> dict:
-    """Device time in ms of each hand kernel from ONE `torch.profiler`
-    call that launches every entry of `calls` ({kernel function name:
-    thunk}) once; None where the trace shows no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time in ms of one launch of each hand kernel on its check's
+    inputs, from ONE `torch.profiler` call over the thunks of `calls`
+    ({kernel function name: thunk}); None where the trace kept no such
+    kernel. A recording can lose some of its kernels, or all of them
+    (PERF.md §7): the profiler warms up over one pass of the calls (a
+    schedule's warmup step, whose events it drops), then opens the
+    recorded step with TRACE_LEADS throwaway kernels and runs the calls
+    once, each on its inputs as the warmup pass left them. A thunk of
+    several kernels (`egr_`) sums one launch of each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for fn in calls.values():
         fn()
     torch.cuda.synchronize()
     lead = torch.zeros(1, device=DEVICE)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lead.add_(1)         # a trace can miss its first kernel: let that be this one
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for fn in calls.values():
             fn()
         torch.cuda.synchronize()
+        prof.step()
+        for _ in range(TRACE_LEADS):
+            lead.add_(1)
+        torch.cuda.synchronize()
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    kept = {e.name: e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA}
     out = {}
     for name in calls:
-        us = [max(getattr(e, a, 0.0) or 0.0 for a in (
-                  "self_device_time_total", "device_time_total",
-                  "self_cuda_time_total", "cuda_time_total"))
-              for e in prof.key_averages() if name in e.key]
+        us = [v for k, v in kept.items() if name in k]
         out[name] = sum(us) / 1e3 if us and sum(us) > 0 else None
     return out
+
+
+#: recordings of the kernels that the recordings before lost, at most
+TRACE_RETRIES = 10
+
+
+def kept_device_ms(torch, calls: dict) -> tuple[dict, int]:
+    """(`profiled_device_ms` of `calls`, recordings made): the kernels that
+    a recording did not keep are recorded again, by themselves, until each
+    is kept or TRACE_RETRIES more recordings were made (PERF.md §7 gives
+    how often a kernel is lost and how many recordings it took)."""
+    ms = profiled_device_ms(torch, calls)
+    made = 1
+    while made <= TRACE_RETRIES and None in ms.values():
+        ms.update(profiled_device_ms(torch, {k: calls[k] for k, v in ms.items() if v is None}))
+        made += 1
+    return ms, made
 
 
 def check_native_pack(native) -> None:
@@ -524,6 +583,20 @@ def check_stream_shapes(torch, kernels, crossfade_window, dev) -> tuple[float, f
         plain = cuda_ms(torch, lambda: kernels.overlap_add_plain(pcm_k, w, cut, False))
         print(f"kernel overlap_add ({b}, {CHANNELS}, {FSIZE}) olap={olap} cut={cut} f32 emit: "
               f"equal, max|d| {err}, {ms:.4f} ms vs plain {plain:.4f} ms")
+    for dtype, shape, olap, i16 in OVERLAP_EDGE_FORMS:
+        pcm = torch.from_numpy((rng.standard_normal(shape) * 0.6).astype(dtype)).to(dev)
+        w = crossfade_window(olap, dev, pcm.dtype)
+        cut = shape[2] - olap
+        for x in (pcm, offset_view(torch, pcm)):
+            (out_k, frag_k), (out_p, frag_p) = held(kernels, "overlap_add", x, w, cut, i16)
+            torch.cuda.synchronize()
+            oa_err = max(oa_err, max_abs(torch, out_k, out_p), max_abs(torch, frag_k, frag_p))
+            if not (bits_equal(torch, out_k, out_p) and bits_equal(torch, frag_k, frag_p)):
+                raise AssertionError(f"overlap_add {dtype} {shape} olap={olap} i16={i16} "
+                                     f"aligned={x.data_ptr() % 16 == 0} differs from its plain "
+                                     f"version: max |d| {oa_err}")
+    print(f"kernel overlap_add at {list(OVERLAP_EDGE_FORMS)}, each also on storage not 16-byte "
+          f"aligned: equal bit for bit")
     return pq_err, oa_err
 
 
@@ -1271,46 +1344,85 @@ def check_egr_dequant(torch, kernels, dev) -> dict:
           f"{res['egr_plain_ms_4']:.4f} ms")
 
     rng = np.random.default_rng(600)
-    edges = [0, -0.0, 1, -1, 2, -3, 32767, -32768]
-    for fi, (dtype, shape, with_div) in enumerate(DEQUANT_FORMS):
-        b, n, c = shape
-        compute = "float64" if dtype == "float64" else "float32"
-        sym = np.rint(rng.laplace(0, 20, shape))
-        sym[0, :len(edges), 0] = edges
-        div = np.exp(rng.standard_normal((b, c, n)) * 2.0) * 0.1
-        div[:, :, -n // 16:] = 0.0
-        s_d = torch.from_numpy(sym.astype(dtype)).to(dev)
-        d_d = torch.from_numpy(div.astype(compute)).to(dev) if with_div else None
+
+    def dequant_held(s_d, t_d, factor):
+        (got,), (want,) = held(kernels, "dequant", s_d, t_d, factor, SRATE)
+        torch.cuda.synchronize()
+        if not bits_equal(torch, got, want.contiguous()):
+            res["deq_err"] = max_abs(torch, got, want)
+            raise AssertionError(
+                f"dequant {s_d.dtype} {tuple(s_d.shape)} thresholds={t_d is not None} "
+                f"factor={factor} aligned={s_d.data_ptr() % 16 == 0} differs from its plain "
+                f"version: {ulp_report(torch, got, want)} (max |d| {res['deq_err']})")
+
+    for fi, (dtype, shape, with_thres) in enumerate(DEQUANT_FORMS):
+        s_d, t_d = dequant_inputs(torch, rng, dtype, shape, dev)
+        t_d = t_d if with_thres else None
         for factor in (2.0 ** 15, 2.0 ** 23):
-            (got,), (want,) = held(kernels, "dequant", s_d, d_d, factor)
-            torch.cuda.synchronize()
-            if not bits_equal(torch, got, want.contiguous()):
-                it = torch.int64 if compute == "float64" else torch.int32
-                d = (got.view(it).to(torch.int64)
-                     - want.contiguous().view(it).to(torch.int64)).abs()
-                res["deq_err"] = float((got - want).abs().nan_to_num(float("inf")).max())
-                raise AssertionError(
-                    f"dequant {dtype} {shape} divisor={with_div} factor={factor} differs from "
-                    f"its plain version in {int((d != 0).sum())} of {got.numel()} elements, "
-                    f"by at most {int(d.max())} ulp (max |d| {res['deq_err']})")
-        if fi == 0 or (dtype, shape) == ("int16", (4, 2048, 2)) and with_div:
+            dequant_held(s_d, t_d, factor)
+        deq_bound = dequant_bound(s_d, t_d)
+        if fi == 0 or (dtype, shape) == ("int16", (4, 2048, 2)) and with_thres:
             key = "deq" if fi == 0 else "deq_4"
-            res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.dequant(s_d, d_d, 2.0 ** 15))
+            res[f"{key}_ms"] = cuda_ms(torch, lambda: kernels.dequant(s_d, t_d, 2.0 ** 15, SRATE))
             res[f"{key}_plain_ms"] = cuda_ms(
-                torch, lambda: kernels.dequant_plain(s_d, d_d, 2.0 ** 15))
-        if (dtype, shape) == ("int16", (4, 2048, 2)) and with_div:
+                torch, lambda: kernels.dequant_plain(s_d, t_d, 2.0 ** 15, SRATE))
+        if (dtype, shape) == ("int16", (4, 2048, 2)) and with_thres:
             res["stream_thunks"]["dequant_kernel"] = \
-                lambda s=s_d, d=d_d: kernels.dequant(s, d, 2.0 ** 15)
-            res["stream_bounds"]["dequant"] = bound(s_d.numel() * (2 + 4 + 4), s_d.numel() * 40)
+                lambda s=s_d, t=t_d: kernels.dequant(s, t, 2.0 ** 15, SRATE)
+            res["stream_bounds"]["dequant"] = deq_bound
         if fi == 0:
-            res["thunks"]["dequant_kernel"] = lambda s=s_d, d=d_d: kernels.dequant(s, d, 2.0 ** 15)
-            n_el = s_d.numel()
-            res["bounds"]["dequant"] = bound(n_el * (2 + 4 + 4), n_el * 40)
+            res["thunks"]["dequant_kernel"] = \
+                lambda s=s_d, t=t_d: kernels.dequant(s, t, 2.0 ** 15, SRATE)
+            res["bounds"]["dequant"] = deq_bound
+    for dtype, shape in DEQUANT_EDGE_FORMS:
+        s_d, t_d = dequant_inputs(torch, rng, dtype, shape, dev)
+        for x, t in ((s_d, t_d), (offset_view(torch, s_d), offset_view(torch, t_d))):
+            for thres in (t, None):
+                dequant_held(x, thres, 2.0 ** 15)
+    print(f"kernel dequant at {list(DEQUANT_EDGE_FORMS)}, with and without threshold symbols, "
+          f"each also on storage not 16-byte aligned: equal to plain bit for bit")
     print(f"kernel dequant at {len(DEQUANT_FORMS)} forms {list(DEQUANT_FORMS)}, factors 2^15 "
-          f"and 2^23 (zeros, signs and the int16 extremes in each): equal to plain bit for "
-          f"bit; {DEQUANT_FORMS[0]} {res['deq_ms']:.4f} ms vs plain {res['deq_plain_ms']:.4f} "
-          f"ms; (4, 2048, 2) {res['deq_4_ms']:.4f} vs {res['deq_4_plain_ms']:.4f} ms")
+          f"and 2^23 (zeros, signs and the int16 extremes in each; threshold symbols of both "
+          f"signs): equal to plain bit for bit; {DEQUANT_FORMS[0]} {res['deq_ms']:.4f} ms vs "
+          f"plain {res['deq_plain_ms']:.4f} ms; (4, 2048, 2) {res['deq_4_ms']:.4f} vs "
+          f"{res['deq_4_plain_ms']:.4f} ms")
     return res
+
+
+def dequant_inputs(torch, rng, dtype: str, shape: tuple[int, int, int], dev):
+    """(symbols [B, N, C] of `dtype`, threshold symbols [B, 27, C] in the
+    compute dtype) on `dev`: Laplace symbols with zeros, signs and the int16
+    extremes in frame 0 (float symbols also magnitudes that are not
+    integers: no table entry), threshold symbols of both signs."""
+    b, n, c = shape
+    edges = [0, -0.0, 1, -1, 2, -3, 32767, -32768]
+    sym = np.rint(rng.laplace(0, 20, shape))
+    sym[0, :len(edges), 0] = edges
+    if dtype != "int16":
+        sym[0, len(edges):len(edges) + 4, 0] = (0.5, -2.25, 255.5, -300.75)
+    thres = np.rint(rng.laplace(0, 6, (b, 27, c)))
+    thres[0, :4, 0] = (0, -0.0, 1, -1)
+    compute = "float64" if dtype == "float64" else "float32"
+    return (torch.from_numpy(sym.astype(dtype)).to(dev),
+            torch.from_numpy(thres.astype(compute)).to(dev))
+
+
+def dequant_bound(symbols, thres) -> tuple[float, str]:
+    """dequant's bound on symbols [B, N, C] and threshold symbols [B, 27, C]
+    (or None): the symbols read and the output written once, and with
+    thresholds those and the per-bin tables (a band byte and two weights a
+    bin); a power (~40 operations) and the scale a value, and with
+    thresholds three operations a value for the divisor and ~50 a
+    threshold."""
+    n = symbols.shape[1]
+    n_el = symbols.numel()
+    item = 8 if symbols.element_size() == 8 else 4          # the compute dtype's
+    nbytes = n_el * symbols.element_size() + n_el * item
+    ops = n_el * 41
+    if thres is not None:
+        nbytes += thres.numel() * item + n * (1 + 2 * item)
+        ops += n_el * 4 + thres.numel() * 50
+    return bound(nbytes, ops, "float64" if item == 8 else "float32")
 
 
 def ulp_report(torch, got, want) -> str:
@@ -1477,19 +1589,28 @@ def gemm_calls(names: list[str]) -> int:
                for i, n in enumerate(names))
 
 
-def threshold_chain_fault(enc: list[str], dec: list[str]) -> str:
+def threshold_chain_fault(enc: list[str], dec: list[str], profile: int) -> str:
     """What is wrong with the kernels (by name, in order) of one lossy
-    batch_encode and one batch_decode call, or "": in the encode each
-    mask_thres launch directly follows a GEMM (the DCT's) and is directly
-    followed by power_quant or tns_autocorr, and no other GEMM runs; the
-    decode runs as many GEMMs (the IDCT's) as thres_expand launches."""
+    batch_encode and one batch_decode call of `profile`, or "": in the
+    encode each mask_thres launch directly follows a GEMM (the DCT's) and
+    is directly followed by power_quant or tns_autocorr, and no other GEMM
+    runs; a Profile 1 decode launches no thres_expand (dequant expands the
+    thresholds) and each of its GEMMs (the IDCT's) directly follows a
+    dequant launch; a Profile 2 decode runs as many GEMMs as thres_expand
+    launches."""
     mt = [i for i, n in enumerate(enc) if "mask_thres" in n]
     if not mt or gemm_calls(enc) != len(mt) or any(
             not gemm_kernel(enc[i - 1]) or i + 1 >= len(enc)
             or not any(k in enc[i + 1] for k in AFTER_MASK_THRES) for i in mt):
         return f"the encode's kernels around the threshold chain are {short_names(enc)}"
     te = sum("thres_expand" in n for n in dec)
-    if not te or gemm_calls(dec) != te:
+    if profile == 1:
+        starts = [i for i, n in enumerate(dec)
+                  if gemm_kernel(n) and (i == 0 or not gemm_kernel(dec[i - 1]))]
+        if te or not starts or any(i == 0 or "dequant" not in dec[i - 1] for i in starts):
+            return (f"the decode ran {te} thres_expand launches and {len(starts)} GEMMs, each "
+                    f"to follow a dequant launch: {short_names(dec)}")
+    elif not te or gemm_calls(dec) != te:
         return (f"the decode ran {te} thres_expand launches and {gemm_calls(dec)} GEMMs: "
                 f"{short_names(dec)}")
     return ""
@@ -1514,14 +1635,16 @@ def check_threshold_chains(ft, torch, dev) -> None:
         enc = traced_kernels(torch, lambda: ft.batch_encode(pcm, profile, SRATE, BITS, FSIZE,
                                                             device=dev))
         dec = traced_kernels(torch, lambda: ft.batch_decode(stream, device=dev))
-        fault = threshold_chain_fault(enc, dec)
+        fault = threshold_chain_fault(enc, dec, profile)
         if fault:
             raise AssertionError(f"profile {profile} threshold chains: {fault}")
         after = short_names([enc[i + 1] for i, n in enumerate(enc) if "mask_thres" in n])
+        expand = ("no thres_expand, dequant right before each" if profile == 1
+                  else "as many thres_expand")
         print(f"profile {profile} threshold chains, 1 s: batch_encode ran {len(enc)} kernels, "
               f"{len(after)} times a DCT GEMM -> mask_thres -> {after[0]} and no other GEMM; "
               f"batch_decode ran {len(dec)} kernels, {gemm_calls(dec)} GEMMs (the IDCT's) and "
-              f"as many thres_expand; encode kernels {short_names(enc)}; decode kernels "
+              f"{expand}; encode kernels {short_names(enc)}; decode kernels "
               f"{short_names(dec)}")
 
 
@@ -2105,7 +2228,9 @@ def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, bounds: dict,
     `torch.profiler` call, the same at STREAMING_SHAPES (`stream_thunks`)
     from a second, and each kernel's bound at both from the bytes it must
     move and the operations it does (`bounds`, `stream_bounds`: worked out
-    beside the checks, from the inputs of those same calls)."""
+    beside the checks, from the inputs of those same calls). A kernel that
+    a recording did not keep is recorded again (`kept_device_ms`); one
+    still missing fails the run."""
     if set(stream_thunks) != set(thunks) or len(thunks) != len(STREAMING_SHAPES):
         raise AssertionError(f"yardsticks: calls at the main shapes {sorted(thunks)}, at the "
                              f"streaming shapes {sorted(stream_thunks)}")
@@ -2114,8 +2239,11 @@ def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, bounds: dict,
         return {("egr_pack" if k == "egr_" else k.removesuffix("_kernel")): v
                 for k, v in ms.items()}
 
-    device_ms = profiled_device_ms(torch, thunks)
-    stream_ms = named(profiled_device_ms(torch, stream_thunks))
+    device_ms, made = kept_device_ms(torch, thunks)
+    stream_ms, stream_made = kept_device_ms(torch, stream_thunks)
+    print(f"profiler recordings the kernels' device times took: {made} at the main shapes, "
+          f"{stream_made} at the streaming shapes")
+    stream_ms = named(stream_ms)
     device_ms = {("egr_pack_kernel" if k == "egr_" else k): v for k, v in device_ms.items()}
     if set(bounds) != set(STREAMING_SHAPES) or set(stream_bounds) != set(STREAMING_SHAPES):
         raise AssertionError(f"yardsticks: bounds of {sorted(bounds)} and {sorted(stream_bounds)}")
@@ -2131,6 +2259,9 @@ def kernel_yardsticks(torch, thunks: dict, stream_thunks: dict, bounds: dict,
           "(ms): " + ", ".join(f"{k} {STREAMING_SHAPES[k]} "
                                + (f"{v:.4f}" if v is not None else "not in the trace")
                                for k, v in stream_ms.items()))
+    missing = sorted(k for ms in (device_ms, stream_ms) for k, v in ms.items() if v is None)
+    if missing:
+        raise AssertionError(f"yardsticks: no device time in the traces for {missing}")
     return {"device_ms": {k.removesuffix("_kernel"): v for k, v in device_ms.items()},
             "stream_ms": stream_ms, "bounds": bounds, "stream_bounds": stream_bounds}
 
@@ -2272,6 +2403,9 @@ def main() -> int:
     for name in P1_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    if launches["thres_expand"]:
+        raise AssertionError("the main path launched thres_expand: a Profile 1 decode expands "
+                             "its thresholds inside dequant")
     for name in ("p1_pack_batch", "frame_pack_batch", "frame_parse_batch", "p1_unpack_batch"):
         if calls[name] <= 0:
             raise AssertionError(f"native {name} was not called by the main path")
@@ -2389,7 +2523,8 @@ def main() -> int:
     if min(snr_s, snr_x) < SNR_FLOOR_DB:
         raise AssertionError(f"streaming SNR {snr_s:.4f} / exact {snr_x:.4f} dB below the "
                              f"floor {SNR_FLOOR_DB} dB")
-    if launches_s_enc["power_quant"] <= 0 or launches_s_dec["overlap_add"] <= 0:
+    if launches_s_enc["power_quant"] <= 0 or launches_s_dec["overlap_add"] <= 0 \
+            or launches_s_dec["thres_expand"]:
         raise AssertionError(f"streaming phase launches: encode {launches_s_enc}, "
                              f"decode {launches_s_dec}")
     n = len(frames)

@@ -1,6 +1,7 @@
-// The masking kernels' shared pieces: IEEE-rounded operations by type, and
-// the two-term interpolation of a row's 27 thresholds to its per-bin divisor
-// (mask_thres.cu and thres_expand.cu).
+// The masking kernels' shared pieces: IEEE-rounded operations by type, the
+// decoders' threshold expansion, and the two-term interpolation of a row's
+// 27 thresholds to its per-bin divisor (mask_thres.cu, thres_expand.cu and
+// dequant.cu).
 //
 // The interpolation repeats kernels/mask_thres.py:interpolate_plain:
 //   div[t] = th[b] * w_lo[t] + th[b + 1] * w_hi[t]   for a valid bin t of band b
@@ -98,6 +99,22 @@ __device__ __forceinline__ void load_run(Run<T>& run, const uint8_t* __restrict_
     }
 }
 
+// the divisor of bin j of a run from the row's thresholds th[27]
+template <typename T>
+__device__ __forceinline__ T interp(const T* th, const Run<T>& run, int j) {
+    const int b = run.b[j];
+    return b == NO_BAND ? (T)0 : add_rn(mul_rn(th[b], run.lo[j]), mul_rn(th[b + 1], run.hi[j]));
+}
+
+// one decoded threshold (e/2)^(sign(t) * sqrt(|t| * sqrt(|t|))) of symbol t,
+// as kernels/thres_expand.py:expand_plain computes it
+template <typename T>
+__device__ __forceinline__ T expand_threshold(T t, T e_half) {
+    const T a = abs_t(t);
+    const T sgn = (T)((t > (T)0) - (t < (T)0));
+    return pow_t(e_half, mul_rn(sgn, sqrt_rn(mul_rn(a, sqrt_rn(a)))));
+}
+
 // the run's divisors from the row's thresholds th[27] (shared memory)
 template <typename T>
 __device__ __forceinline__ void write_run(T* __restrict__ out, const T* th, const Run<T>& run,
@@ -105,11 +122,7 @@ __device__ __forceinline__ void write_run(T* __restrict__ out, const T* th, cons
     constexpr int V = Run<T>::V;
     T v[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-        const int b = run.b[j];
-        v[j] = b == NO_BAND ? (T)0
-                            : add_rn(mul_rn(th[b], run.lo[j]), mul_rn(th[b + 1], run.hi[j]));
-    }
+    for (int j = 0; j < V; ++j) v[j] = interp(th, run, j);
     if (vec) {
         if constexpr (V == 4)
             reinterpret_cast<float4*>(out + t0)[0] = make_float4(v[0], v[1], v[2], v[3]);

@@ -15,7 +15,7 @@ kernels for fourteen device programs:
   without a divisor, source csrc/power_quant.cu.
 * `overlap_add.overlap_add` — the lossy decoders' overlap-add and PCM
   emit (Pallas `crossfade_frames`), float32 or float64, source
-  csrc/overlap_add.cu.
+  csrc/overlap_add.cu with csrc/vec_io.cuh.
 * `trunc_pack.trunc_pack` — the Profile 0 encoder's truncated-float pack
   of the DCT output with each frame's max|x| (XLA `trunc_pack`), source
   csrc/trunc_pack.cu.
@@ -27,8 +27,9 @@ kernels for fourteen device programs:
   compaction of the used words (XLA `egr_pack_frames` and
   `_egr_compact_packer`), source csrc/egr_pack.cu.
 * `dequant.dequant` — the lossy decoders' dequantiser in the IDCT's
-  layout (the pre-IDCT chain of XLA `_p1_decode_jit` / `_p2_decode_jit`),
-  source csrc/dequant.cu.
+  layout, with Profile 1's threshold expansion folded in (the pre-IDCT
+  chain of XLA `_p1_decode_jit` / `_p2_decode_jit`), source
+  csrc/dequant.cu with csrc/thres_interp.cuh and csrc/vec_io.cuh.
 * `tns_autocorr.tns_autocorr` — the front of Profile 2's TNS analysis: the
   masking divide, the windowed autocorrelation and the flatness and energy
   gates (XLA `_autocorr`, `_flatness_gate`), source csrc/tns_autocorr.cu.
@@ -43,10 +44,10 @@ kernels for fourteen device programs:
   `mask_thres_mos_jnp` of |X| * factor with its band-sum product,
   `mapping_from_opus_jnp` and the symbols of `_p1_encode_jit` /
   `_p2_encode_jit`), source csrc/mask_thres.cu with csrc/thres_interp.cuh.
-* `thres_expand.thres_expand` — the lossy decoders' threshold chain from
-  the symbols to the per-bin divisor (the head of XLA `_p1_decode_jit` /
-  `_p2_decode_jit` with `mapping_from_opus_jnp`), source
-  csrc/thres_expand.cu with csrc/thres_interp.cuh.
+* `thres_expand.thres_expand` — the Profile 2 decoder's threshold chain
+  from the symbols to the per-bin divisor (the head of XLA
+  `_p2_decode_jit` with `mapping_from_opus_jnp`; Profile 1's runs inside
+  `dequant`), source csrc/thres_expand.cu with csrc/thres_interp.cuh.
 * `i24_pack.i24_pack` — the Profile 0 decoder's PCM as int24 fixed-point
   words for the copy back (XLA `pcm_to_i24_words`), source
   csrc/i24_pack.cu.

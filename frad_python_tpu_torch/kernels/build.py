@@ -37,7 +37,7 @@ SIGNATURES = {
     "frad_trunc_unpack": (_P, _P, _I, _I, _I, _I, _I, _P),
     "frad_tns_iir": (_P, _P, _P, _I, _I, _I, _P),
     "frad_egr_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "frad_dequant": (_P, _P, _P, _I, _I, _I, _D, _D, _I, _P),
+    "frad_dequant": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _D, _D, _D, _I, _P),
     "frad_mask_thres": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _D, _D, _D, _D, _D,
                         _I, _I, _P),
     "frad_thres_expand": (_P, _P, _I, _I, _I, _P, _P, _P, _D, _I, _P),

@@ -11,17 +11,18 @@ kernel after the second.
 Encode: PCM -> DCT-II GEMM -> `mask_thres` kernel (band sums of
 (|X| * factor)^2, RMS^0.8, AHT floor, x loss, the log-companded threshold
 symbols and the per-bin divisor) -> `power_quant` kernel. Decode:
-`thres_expand` kernel (thresholds and the per-bin divisor) -> `dequant`
-kernel -> IDCT GEMM (`p1_decode_core`) -> `overlap_add` kernel
-(`p1_decode_oa_core`). The GEMMs are `torch.matmul` at full float32; the
+`dequant` kernel (the symbols' powers times the per-bin divisor that it
+expands from the threshold symbols in the same launch) -> IDCT GEMM
+(`p1_decode_core`) -> `overlap_add` kernel (`p1_decode_oa_core`). The GEMMs are `torch.matmul` at full float32; the
 stages between them are the hand-written CUDA kernels of `kernels/`.
 
 Profile 2 is Profile 1's chain with Temporal Noise Shaping (`ops/tns.py`)
 between the masking divide and the quantiser: the encoder runs the TNS
 analysis (`tns_autocorr`, which divides, and `tns_fir_gate`, which runs the
 Levinson recursion, kernels) and quantises the residual with
-the `power_quant` kernel's no-divisor form; the decoder dequantises, runs
-the TNS synthesis (`tns_iir` kernel), multiplies the divisors back and
+the `power_quant` kernel's no-divisor form; the decoder dequantises
+(`dequant` without thresholds), runs the TNS synthesis (`tns_iir`
+kernel), multiplies by the divisors of the `thres_expand` kernel and
 ends like Profile 1.
 
 The lossy cores compute in the dtype of their input: float32 (int32
@@ -111,8 +112,8 @@ def p1_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
     freqs_flat [B, N, C] symbols (int16, or float32 / float64),
     thres_flat [B, 27, C] in the compute dtype -> [B, N, C] PCM in that
     dtype (a transposed view of the IDCT's [B, C, N] output)."""
-    div = thres_expand(thres_flat.contiguous(), freqs_flat.shape[1], srate)   # [B, C, N]
-    return idct2(dequant(freqs_flat.contiguous(), div, factor)).transpose(1, 2)
+    masked = dequant(freqs_flat.contiguous(), thres_flat.contiguous(), factor, srate)
+    return idct2(masked).transpose(1, 2)
 
 
 def _overlap_add_emit(pcm: torch.Tensor, olap: int, cut: int, i16: bool):

@@ -83,7 +83,7 @@ def test_crossfade_window_matches_jax_within_ulps():
         np.testing.assert_allclose(wt, wj, rtol=0, atol=2e-7)
 
 
-@pytest.mark.parametrize("olap,cut", [(16, 240), (128, 128), (0, 256)])
+@pytest.mark.parametrize("olap,cut", [(16, 240), (128, 128), (0, 256), (77, 923)])
 def test_overlap_add_plain_matches_overlap_add_core(olap, cut):
     n = olap + cut
     frames = _frames(olap, n=n)
@@ -103,6 +103,22 @@ def test_overlap_add_plain_matches_overlap_add_core(olap, cut):
     assert np.abs(out16.numpy().astype(np.int64) - want16.astype(np.int64)).max() <= 1
     assert kernels.overlap_add(pcm, w, cut, True)[0].equal(out16)
     assert tbatch.overlap_add_core(torch.from_numpy(frames), olap, cut).equal(out)
+
+
+@pytest.mark.parametrize("ch,olap,cut", [(1, 128, 1920), (3, 32, 480), (1, 77, 923)])
+def test_overlap_add_plain_any_channel_count(ch, olap, cut):
+    """The forms that take the kernel's other paths on the card (one
+    channel, three, odd cut and overlap): the plain version against the
+    JAX package's overlap_add_core, the fragment exact."""
+    frames = _frames(ch * 100 + olap, b=5, n=olap + cut, c=ch)
+    want = np.asarray(jbatch.overlap_add_core(jnp.asarray(frames), olap, cut))
+    pcm = torch.from_numpy(frames).transpose(1, 2).contiguous()
+    out, frag = kernels.overlap_add_plain(pcm, crossfade_window(olap, CPU), cut, False)
+    assert out.shape == (5, cut, ch) and frag.shape == (olap, ch)
+    # the window's last-ulp difference times |x| <= ~2 (as above)
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(frag.numpy(), frames[-1, cut:cut + olap, :])
+    np.testing.assert_array_equal(out[0].numpy(), frames[0, :cut, :])
 
 
 def test_overlap_add_plain_matches_crossfade_frames_interpret():
@@ -140,6 +156,9 @@ def test_wrappers_refuse_devices_they_cannot_launch_on():
         kernels.egr_pack(torch.empty((4, 8), dtype=torch.int32, device="meta"), 16)
     with pytest.raises(ValueError):
         kernels.dequant(torch.empty((2, 8, 2), device="meta"), None, FACTOR)
+    with pytest.raises(ValueError):
+        kernels.dequant(torch.empty((2, 8, 2), device="meta"),
+                        torch.empty((2, 27, 2), device="meta"), FACTOR, 44100)
     with pytest.raises(ValueError):
         kernels.tns_autocorr(meta, None, torch.empty(13, device="meta"))
     with pytest.raises(ValueError):

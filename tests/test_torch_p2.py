@@ -449,8 +449,8 @@ def smoke_form_tables() -> set:
         forms |= {("power_quant", shape, dtype, with_div) for shape in shapes}
     for dtype, shape, olap, i16 in chip_smoke.P2_OVERLAP_FORMS:
         forms.add(("overlap_add", shape, dtype, olap, shape[2] - olap, i16))
-    forms |= {("dequant", shape, dtype, with_div)
-              for dtype, shape, with_div in chip_smoke.DEQUANT_FORMS}
+    forms |= {("dequant", shape, dtype, with_thres, chip_smoke.SRATE if with_thres else 0)
+              for dtype, shape, with_thres in chip_smoke.DEQUANT_FORMS}
     # the TNS analysis kernels are held at the TNS shapes, with a divisor
     for dtype, shapes in chip_smoke.TNS_SHAPES.items():
         for lanes, n in shapes:

@@ -271,9 +271,10 @@ def test_float64_batch_streams_equal_jax(profile):
 
 
 def test_chip_smoke_threshold_forms():
-    """The card check's tables: thres_expand's forms follow the decoders'
-    runs, a small encode and decode on the CPU call both wrappers at forms
-    of the tables' kind, and the check's inputs meet every case of the
+    """The card check's tables: thres_expand's forms follow the Profile 2
+    decoders' runs, a small Profile 1 encode and decode on the CPU call
+    mask_thres and dequant (with thresholds, no thres_expand) at forms of
+    the tables' kind, and the check's inputs meet every case of the
     chain."""
     assert ("float32", chip_smoke.OVERLAP_SHAPE[0], 2048, 2) in chip_smoke.THRES_EXPAND_FORMS
     assert ("float64", 114, 2048, 2) in chip_smoke.THRES_EXPAND_FORMS
@@ -283,12 +284,16 @@ def test_chip_smoke_threshold_forms():
         assert {f[0] for f in forms} == set(DTYPES)
         assert any(f[1] == f[3] == 1 for f in forms) and any(f[1] % 2 for f in forms)
     pcm = chip_smoke.make_audio(0.3, 44100, 2)
-    with chip_smoke.FormTally(only=("mask_thres", "thres_expand"), device_type="cpu") as tally:
+    with chip_smoke.FormTally(only=("mask_thres", "thres_expand", "dequant"),
+                              device_type="cpu") as tally:
         ft.batch_decode(ft.batch_encode(pcm, 1, 44100, 16, 2048, device="cpu"), device="cpu")
     assert set(tally.seen) == {("mask_thres", (12, 2048), "float32", 44100, 2),
                                ("mask_thres", (2, 1792), "float32", 44100, 2),   # the tail
-                               ("thres_expand", (6, 27, 2), "float32", 2048, 44100),
-                               ("thres_expand", (1, 27, 2), "float32", 1792, 44100)}
+                               ("dequant", (6, 2048, 2), "int16", True, 44100),
+                               ("dequant", (1, 1792, 2), "int16", True, 44100)}
+    # Profile 1's runs (at 8192 samples only Profile 1 runs) are dequant's
+    assert ("float32", 172, 8192, 2) not in chip_smoke.THRES_EXPAND_FORMS
+    assert ("int16", (172, 8192, 2), True) in chip_smoke.DEQUANT_FORMS
     assert set(tally.unchecked()) == set(tally.seen)           # nothing was held here
     assert tbatch.mask_thres is kernels.mask_thres
     met = set()
@@ -302,27 +307,42 @@ def test_chip_smoke_threshold_forms():
 
 def test_chip_smoke_threshold_chain_check():
     """The card check of a lossy call's trace passes the one-launch chains
-    and fails the chains of six and two launches they replaced."""
+    (Profile 1's decode: dequant straight into the IDCT GEMM) and fails the
+    chains of six and two launches they replaced, and a Profile 1 decode
+    that still launches thres_expand."""
     dct, idct = "void cutlass::Kernel2<cutlass_80_simt_sgemm_128x64_8x5_nn_align1>", \
         "sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x64x8"
     enc = ["at::native::vectorized_elementwise_kernel<4, CUDAFunctorOnSelf_add<float>>", dct,
            "void (anonymous namespace)::mask_thres_kernel<float, int>(...)",
            "void (anonymous namespace)::power_quant_kernel<float, int>(...)", "egr_lengths"]
-    dec = ["void (anonymous namespace)::thres_expand_kernel<float>(...)",
-           "void (anonymous namespace)::dequant_kernel<short, float>(...)", idct,
-           "void (anonymous namespace)::overlap_add_kernel<float, true>(...)"]
+    dequant = "void (anonymous namespace)::dequant_kernel<short, float, 2, true>(...)"
+    emit = "void (anonymous namespace)::overlap_add_kernel<float, short, 2>(...)"
+    dec = [dequant, idct, emit]
+    p2_dec = ["void (anonymous namespace)::dequant_kernel<short, float, 2, false>(...)",
+              "void (anonymous namespace)::tns_iir_kernel<float>(...)",
+              "void (anonymous namespace)::thres_expand_kernel<float>(...)",
+              "at::native::vectorized_elementwise_kernel<4, MulFunctor<float>>", idct, emit]
     p2 = enc[:3] + ["void (anonymous namespace)::tns_autocorr_kernel<float, 8>(...)"]
-    assert chip_smoke.threshold_chain_fault(enc + enc[1:], dec + dec) == ""
+    assert chip_smoke.threshold_chain_fault(enc + enc[1:], dec + dec, 1) == ""
     split_k = enc[:2] + ["void cublasLt::splitKreduce_kernel<32, 16, int, float>"] + enc[2:]
-    assert chip_smoke.threshold_chain_fault(split_k, dec) == ""
+    assert chip_smoke.threshold_chain_fault(split_k, dec, 1) == ""
+    assert chip_smoke.threshold_chain_fault(enc, [dequant, idct, split_k[2], emit], 1) == ""
     assert chip_smoke.short_names(enc[2:3]) == ["mask_thres_kernel"]
-    assert chip_smoke.threshold_chain_fault(p2, dec) == ""
+    assert chip_smoke.threshold_chain_fault(p2, p2_dec + p2_dec, 2) == ""
+    # Profile 1's decode before dequant took the thresholds, and a GEMM
+    # that does not follow dequant
+    p1_parent = ["void (anonymous namespace)::thres_expand_kernel<float>(...)"] + dec
+    assert "1 thres_expand" in chip_smoke.threshold_chain_fault(enc, p1_parent, 1)
+    assert chip_smoke.threshold_chain_fault(enc, [dequant, emit, idct], 1)
+    assert chip_smoke.threshold_chain_fault(enc, [dequant, emit], 1)
+    assert chip_smoke.threshold_chain_fault(p2, p1_parent, 2) == ""
+    assert "0 thres_expand" in chip_smoke.threshold_chain_fault(p2, dec, 2)
     parent = enc[:2] + ["at::native::vectorized_elementwise_kernel<4, AbsFunctor<float>>",
                         "at::native::vectorized_elementwise_kernel<4, MulFunctor<float>>",
                         "at::native::vectorized_elementwise_kernel<4, MulFunctor<float>>",
                         "void gemv2T_kernel_val<int, int, float, float, float, float, 128>",
                         enc[2], "void gemmSN_NN_kernel<float, 256, 4, 2, 8, 4, 4>", enc[3]]
-    assert "around the threshold chain" in chip_smoke.threshold_chain_fault(parent, dec)
-    parent_dec = dec[:1] + ["void gemmk1_kernel<int, float, 256, 5>"] + dec[1:]
-    assert "2 GEMMs" in chip_smoke.threshold_chain_fault(enc, parent_dec)
-    assert chip_smoke.threshold_chain_fault(enc[:2] + enc[3:], dec)      # no mask_thres at all
+    assert "around the threshold chain" in chip_smoke.threshold_chain_fault(parent, dec, 1)
+    parent_dec = p1_parent[:1] + ["void gemmk1_kernel<int, float, 256, 5>"] + p1_parent[1:]
+    assert "2 GEMMs" in chip_smoke.threshold_chain_fault(enc, parent_dec, 2)
+    assert chip_smoke.threshold_chain_fault(enc[:2] + enc[3:], dec, 1)   # no mask_thres at all

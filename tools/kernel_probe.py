@@ -77,6 +77,37 @@ SECTIONs (default: all, in this order):
   largest relative difference of the divisors; the decoders' divisors of
   the same symbols through the parent's `thres_expand` + GEMM and this
   tree's `thres_expand`;
+* `decode`: `dequant` with threshold symbols (int16 symbols at float32,
+  and float64) and `overlap_add` (float32 with the int16 and the float32
+  emit, float64) at 4 and 689 frames of [2048, 2]: equal to plain or
+  not, the mean device time of a call, and `dequant` without thresholds;
+  with `--parent DIR` (a `git archive` of a tree whose Profile 1 decode
+  was `thres_expand` then `dequant` with the divisor), that tree's
+  `dequant.cu`, `thres_expand.cu` and `overlap_add.cu` built beside, its
+  pair and its `overlap_add` timed in this process on the same inputs,
+  and their outputs held bit for bit against this tree's; then the SASS
+  of every `dequant` and `overlap_add` kernel of both trees: operations,
+  integer divisions by a run-time value (`INT_DIVISION`), calls, and
+  16-byte loads and stores;
+* `decode_variants`: csrc/dequant.cu and csrc/overlap_add.cu as built and
+  with each choice of `DECODE_VARIANTS` turned the other way (the source
+  text patched into a temporary copy, each built by its own nvcc, all
+  started together), bit-equality with plain and the mean device
+  time of the `decode` section's calls through the wrappers, timed twice
+  (variants in order, then in reverse order);
+* `decode_registers`: the registers and spills of every `dequant` and
+  `overlap_add` kernel (`-Xptxas -v`);
+* `trace`: six hand kernels on small inputs in one `torch.profiler`
+  window, three windows of each way of opening it (one lead kernel, as
+  an older `chip_smoke.profiled_device_ms` did, none, a synchronize, 1 or
+  5 ms of host time after the start, a schedule's warmup step, and
+  `chip_smoke.profiled_device_ms` as it is): which kernels each window
+  recorded; then TRACE_WINDOWS recordings each after a warmup step, of
+  the calls once or twice, with or without chip_smoke.py's lead kernels
+  (`chip_smoke.profiled_device_ms`: the leads, the calls once): the
+  kernels each lost; and TRACE_WINDOWS runs of `chip_smoke.kept_device_ms`
+  (recorded again until every kernel is kept): the recordings each made
+  and the kernels still lost;
 * `sass`: the opcode counts of the float32 `tns_iir` kernel, the 24-bit
   C = 2 `trunc_pack` kernel, the float32 8-step `tns_autocorr` kernel
   and the float32 2048-sample `tns_fir_gate` kernel from
@@ -109,7 +140,8 @@ import torch
 
 REPS = 10
 SECTIONS = ("tns_iir", "egr_pack", "i24", "trunc_pack", "tns_autocorr", "autocorr_variants",
-            "fir_gate", "fir_gate_variants", "thres", "thres_registers", "flips", "sass")
+            "fir_gate", "fir_gate_variants", "thres", "thres_registers", "flips", "decode",
+            "decode_variants", "decode_registers", "trace", "sass")
 
 
 def device_us(fn, names: tuple[str, ...]) -> dict:
@@ -134,20 +166,37 @@ def device_us(fn, names: tuple[str, ...]) -> dict:
 
 
 def call_us(fn) -> float:
-    """Mean device time in µs of every kernel that one call of `fn` runs,
-    over REPS calls in one profiler call."""
+    """Mean device time in µs of every kernel that one call of `fn` runs:
+    REPS calls recorded after a profiler warmup step of REPS calls (a fresh
+    recording drops its first kernels, `trace`); each kernel's mean over the
+    launches the trace kept, times its launches a call (counted when more
+    than REPS were kept), summed, so that a dropped record does not read as
+    a faster call; a recording that kept none is taken again (up to three
+    times) and reads 0 if none keeps any."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    return round(sum(e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith(("Memcpy", "Memset"))) / REPS, 2)
+    for _ in range(3):                      # a recording that kept no kernel is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        kept = collections.defaultdict(list)
+        for e in prof.events():
+            # (the step's own span on the device timeline is no kernel)
+            if e.device_type == DeviceType.CUDA \
+                    and not e.name.startswith(("Memcpy", "Memset", "ProfilerStep")):
+                kept[e.name].append(e.time_range.elapsed_us())
+        if kept:
+            break
+    return round(sum(sum(v) / len(v) * max(1, round(len(v) / REPS)) for v in kept.values()), 2)
 
 
 def smi(query: str) -> str:
@@ -929,9 +978,379 @@ def probe_flips(cs, kernels, dev, parent: Path | None, build) -> None:
               f"of {got.numel()} bins differ, by at most {rel(got, want):.3g} relative")
 
 
-def probe_thres_registers(build) -> None:
+#: frames of the decode probes (the streaming engines' micro-batch and the
+#: 30 s track's run) at the main path's geometry
+DECODE_FRAMES = (4, 689)
+#: the C entries of a parent tree whose Profile 1 decode was `thres_expand`
+#: then `dequant` with the divisor, as declared there
+PARENT_DECODE_SIGNATURES = {
+    "frad_dequant": (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_double,) * 2
+    + (ctypes.c_int, ctypes.c_void_p),
+    "frad_thres_expand": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_double, ctypes.c_int, ctypes.c_void_p),
+    "frad_overlap_add": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)}
+#: SASS opcodes of an integer division by a value known only at run time
+#: (the reciprocal's first step, 32- and 64-bit)
+INT_DIVISION = ("I2F.U32.RP", "I2F.U64.RP")
+
+
+def parent_decode(parent: Path, build, dev):
+    """(Profile 1 pair, overlap_add, library path) of a parent tree whose
+    Profile 1 decode was two launches: its dequant.cu, thres_expand.cu and
+    overlap_add.cu built here, driven as its models/batch.py and wrappers
+    drove them."""
+    from frad_python_tpu_torch.kernels.mask_thres import E_HALF
+    from frad_python_tpu_torch.ops import psycho
+
     tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
-    for src in ("mask_thres.cu", "thres_expand.cu"):
+    so = tmp / "parent_decode.so"
+    srcs = [str(parent / "frad_python_tpu_torch" / "csrc" / f) for f in
+            ("dequant.cu", "thres_expand.cu", "overlap_add.cu")]
+    res = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), *srcs],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc of the parent's decode kernels:\n{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for name, args in PARENT_DECODE_SIGNATURES.items():
+        getattr(lib, name).argtypes = list(args)
+        getattr(lib, name).restype = ctypes.c_int
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def pair(sym, thres, factor, srate):            # sym [B, N, C], thres [B, 27, C]
+        b, n, c = sym.shape
+        dtype = thres.dtype
+        k = psycho.device_consts(n, srate, dev, dtype)
+        div = torch.empty((b, c, n), dtype=dtype, device=dev)
+        build.check("parent frad_thres_expand", lib.frad_thres_expand(
+            ctypes.c_void_p(thres.data_ptr()), ctypes.c_void_p(div.data_ptr()), b, c, n,
+            *(ctypes.c_void_p(k[t].data_ptr()) for t in ("band8", "w_lo", "w_hi")), E_HALF,
+            int(dtype == torch.float64), stream()))
+        out = torch.empty((b, c, n), dtype=dtype, device=dev)
+        kind = {torch.int16: 0, torch.float32: 1, torch.float64: 2}[sym.dtype]
+        build.check("parent frad_dequant", lib.frad_dequant(
+            ctypes.c_void_p(sym.data_ptr()), ctypes.c_void_p(div.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), b, n, c, float(factor),
+            1.0 / psycho.QUANT_ALPHA, kind, stream()))
+        return out
+
+    def overlap_add(pcm, w, cut, i16):
+        b, c, n = pcm.shape
+        olap = w.shape[0]
+        out = torch.empty((b, cut, c), dtype=torch.int16 if i16 else pcm.dtype, device=dev)
+        frag = torch.empty((olap, c), dtype=pcm.dtype, device=dev)
+        build.check("parent frad_overlap_add", lib.frad_overlap_add(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (pcm, w, out, frag)), b, c, n, olap, cut,
+            int(i16), int(pcm.dtype == torch.float64), stream()))
+        return out, frag
+
+    return pair, overlap_add, so
+
+
+def sass_functions(cuobjdump: Path, lib: Path, key: str) -> dict:
+    """{kernel name: opcode Counter} of the kernels of `lib` whose name holds
+    `key` (`cuobjdump -sass`)."""
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    out = {}
+    for fn in re.split(r"(?=\n\s+Function : )", sass):
+        name = re.search(r"Function : (\S+)", fn)
+        if name and key in name.group(1):
+            out[name.group(1)] = collections.Counter(
+                re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)", fn))
+    return out
+
+
+def probe_decode(cs, kernels, dev, parent: Path | None, build) -> bool:
+    """See the module docstring (`decode`)."""
+    import numpy as np
+    from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
+
+    ok = True
+    factor, srate, n, ch = 2.0 ** 15, cs.SRATE, cs.FSIZE, cs.CHANNELS
+    pair = oa_parent = None
+    if parent:
+        pair, oa_parent, parent_so = parent_decode(parent, build, dev)
+    for dtype in ("int16", "float64"):
+        compute = "float64" if dtype == "float64" else "float32"
+        for frames in DECODE_FRAMES:
+            rng = np.random.default_rng(frames)
+            sym = torch.from_numpy(np.rint(rng.laplace(0, 20, (frames, n, ch))).astype(dtype)
+                                   ).to(dev)
+            thres = torch.from_numpy(np.rint(rng.laplace(0, 6, (frames, 27, ch))).astype(compute)
+                                     ).to(dev)
+            got = kernels.dequant(sym, thres, factor, srate)
+            same = cs.bits_equal(torch, got, kernels.dequant_plain(sym, thres, factor, srate)
+                                 .contiguous())
+            ok &= same
+            line = (f"dequant {dtype} [{frames}, {n}, {ch}] + thresholds: "
+                    f"{'equal' if same else 'DIFFERS'}, device "
+                    f"{call_us(lambda: kernels.dequant(sym, thres, factor, srate))} us a call")
+            if pair:
+                same_p = cs.bits_equal(torch, got, pair(sym, thres, factor, srate))
+                ok &= same_p
+                line += (f"; the parent's thres_expand + dequant "
+                         f"{call_us(lambda: pair(sym, thres, factor, srate))} us "
+                         f"({'bit-equal' if same_p else 'DIFFERENT'} output)")
+            print(line)
+            print(f"dequant {dtype} [{frames}, {n}, {ch}] no thresholds (Profile 2): device "
+                  f"{call_us(lambda: kernels.dequant(sym, None, factor))} us a call")
+    w = {d: crossfade_window(cs.OLAP, dev, d) for d in (torch.float32, torch.float64)}
+    for dtype, i16 in (("float32", True), ("float32", False), ("float64", False)):
+        for frames in DECODE_FRAMES:
+            pcm = torch.from_numpy((np.random.default_rng(frames).standard_normal(
+                (frames, ch, n)) * 0.3).astype(dtype)).to(dev)
+            wt = w[pcm.dtype]
+            got = kernels.overlap_add(pcm, wt, cs.CUT, i16)
+            want = kernels.overlap_add_plain(pcm, wt, cs.CUT, i16)
+            same = all(cs.bits_equal(torch, g, x) for g, x in zip(got, want))
+            ok &= same
+            line = (f"overlap_add {dtype} [{frames}, {ch}, {n}] {'i16' if i16 else dtype} emit: "
+                    f"{'equal' if same else 'DIFFERS'}, device "
+                    f"{call_us(lambda: kernels.overlap_add(pcm, wt, cs.CUT, i16))} us a call")
+            if oa_parent:
+                same_p = all(cs.bits_equal(torch, g, x)
+                             for g, x in zip(got, oa_parent(pcm, wt, cs.CUT, i16)))
+                ok &= same_p
+                line += (f"; the parent's {call_us(lambda: oa_parent(pcm, wt, cs.CUT, i16))} us "
+                         f"({'bit-equal' if same_p else 'DIFFERENT'} output)")
+            print(line)
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    libs = [("this tree", build.library_path())] + ([("parent", parent_so)] if parent else [])
+    for label, lib in libs:
+        for key in ("dequant_kernel", "overlap_add_kernel"):
+            for name, ops in sass_functions(cuobjdump, lib, key).items():
+                wide = {op: sum(v for k, v in ops.items() if k.startswith(op) and ".128" in k)
+                        for op in ("LD", "ST")}
+                print(f"SASS {label} {name}: {sum(ops.values())} operations, integer divisions "
+                      f"{sum(ops[o] for o in INT_DIVISION)} ({', '.join(INT_DIVISION)}), calls "
+                      f"{sum(v for k, v in ops.items() if k.startswith('CALL'))}, 16-byte "
+                      f"loads {wide['LD']}, 16-byte stores {wide['ST']}")
+    return ok
+
+
+#: the choices of dequant.cu and overlap_add.cu turned the other way, each
+#: timed beside the package's own build: {label: (file, [(text as built,
+#: text of the variant), ...])}
+DECODE_VARIANTS = {
+    "512 dequant run threads a block at most": (
+        "dequant.cu", [("constexpr int MAX_RUNNERS = 256;", "constexpr int MAX_RUNNERS = 512;")]),
+    "no power table (powf for every symbol)": (
+        "dequant.cu", [("constexpr int POW_TABLE = 256;", "constexpr int POW_TABLE = 1;"),
+                       ("return a < (T)POW_TABLE;", "return false;"),
+                       ("return a < (T)POW_TABLE && a == trunc_t(a);", "return false;")]),
+    "overlap_add blocks of 128 threads at least": (
+        "overlap_add.cu", [("int MIN_THREADS = 32;", "int MIN_THREADS = 128;")]),
+    "overlap_add blocks never narrowed": (
+        "overlap_add.cu", [("int MIN_THREADS = 32;", "int MIN_THREADS = 512;")]),
+}
+
+
+def decode_variant_sources(csrc: Path) -> dict:
+    """{label: {file: source}}: dequant.cu and overlap_add.cu of `csrc`
+    with each choice of DECODE_VARIANTS turned the other way (the other
+    file as built); a text that is not in its file once raises."""
+    out = {}
+    for label, (name, edits) in DECODE_VARIANTS.items():
+        srcs = {f: (csrc / f).read_text() for f in ("dequant.cu", "overlap_add.cu")}
+        for old, new in edits:
+            if srcs[name].count(old) != 1:
+                raise AssertionError(f"decode_variants: {old!r} is not in {name} once")
+            srcs[name] = srcs[name].replace(old, new)
+        out[label] = srcs
+    return out
+
+
+def probe_decode_variants(cs, kernels, dev, build) -> bool:
+    """See the module docstring (`decode_variants`)."""
+    import numpy as np
+    from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    libs = {"as built": build.library()}
+    jobs = {}
+    for i, (label, srcs) in enumerate(decode_variant_sources(build.CSRC_DIR).items()):
+        cus = []
+        for f, text in srcs.items():
+            cus.append(tmp / f"v{i}_{f}")
+            cus[-1].write_text(text)
+        so = tmp / f"v{i}.so"
+        jobs[label] = (so, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR), "-o", str(so),
+             *map(str, cus)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for label, (so, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of variant {label}:\n{err}")
+        lib = ctypes.CDLL(str(so))
+        for name in ("frad_dequant", "frad_overlap_add"):
+            getattr(lib, name).argtypes = list(build.SIGNATURES[name])
+            getattr(lib, name).restype = ctypes.c_int
+        libs[label] = lib
+    factor, srate, n, ch = 2.0 ** 15, cs.SRATE, cs.FSIZE, cs.CHANNELS
+    calls = {}
+    for dtype in ("int16", "float64"):
+        compute = "float64" if dtype == "float64" else "float32"
+        for frames in DECODE_FRAMES:
+            rng = np.random.default_rng(frames)
+            sym = torch.from_numpy(np.rint(rng.laplace(0, 20, (frames, n, ch))).astype(dtype)
+                                   ).to(dev)
+            thres = torch.from_numpy(np.rint(rng.laplace(0, 6, (frames, 27, ch))).astype(compute)
+                                     ).to(dev)
+            calls[f"dequant {dtype} [{frames}] + thresholds"] = (
+                lambda s=sym, t=thres: kernels.dequant(s, t, factor, srate),
+                kernels.dequant_plain(sym, thres, factor, srate).contiguous())
+            if dtype == "int16":
+                calls[f"dequant {dtype} [{frames}] no thresholds"] = (
+                    lambda s=sym: kernels.dequant(s, None, factor),
+                    kernels.dequant_plain(sym, None, factor).contiguous())
+    for dtype, i16 in (("float32", True), ("float32", False), ("float64", False)):
+        for frames in DECODE_FRAMES:
+            pcm = torch.from_numpy((np.random.default_rng(frames).standard_normal(
+                (frames, ch, n)) * 0.3).astype(dtype)).to(dev)
+            wt = crossfade_window(cs.OLAP, dev, pcm.dtype)
+            calls[f"overlap_add {dtype} [{frames}] {'i16' if i16 else dtype} emit"] = (
+                lambda p=pcm, w=wt, e=i16: kernels.overlap_add(p, w, cs.CUT, e)[0],
+                kernels.overlap_add_plain(pcm, wt, cs.CUT, i16)[0])
+    ok = True
+    times = {label: {} for label in libs}
+    saved = build._lib
+    try:
+        for order in (list(libs), list(libs)[::-1]):
+            for label in order:
+                build._lib = libs[label]
+                for what, (fn, want) in calls.items():
+                    same = cs.bits_equal(torch, fn(), want)
+                    ok &= same
+                    times[label].setdefault(what, []).append(
+                        call_us(fn) if same else float("nan"))
+    finally:
+        build._lib = saved
+    for label, t in times.items():
+        print(f"variant {label}: " + ", ".join(f"{what} {v[0]} / {v[1]} us"
+                                               for what, v in t.items()))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
+#: recordings of each way that `trace` counts the lost kernels of
+TRACE_WINDOWS = 20
+#: what `trace` launches in each window: six hand kernels on small inputs
+TRACE_KERNELS = ("power_quant", "overlap_add", "dequant", "mask_thres", "tns_iir",
+                 "thres_expand")
+
+
+def probe_trace(cs, kernels, dev) -> None:
+    """See the module docstring (`trace`)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.standard_normal((8, 2048)) * 1e-2).astype(np.float32)).to(dev)
+    div = torch.from_numpy(np.exp(rng.standard_normal((8, 2048))).astype(np.float32)).to(dev)
+    pcm = torch.from_numpy(rng.standard_normal((4, 2, 2048)).astype(np.float32)).to(dev)
+    sym = torch.from_numpy(np.rint(rng.laplace(0, 20, (4, 2048, 2))).astype(np.int16)).to(dev)
+    thres = torch.from_numpy(np.rint(rng.laplace(0, 6, (4, 27, 2))).astype(np.float32)).to(dev)
+    coeffs = torch.zeros((8, 13), device=dev)
+    coeffs[:, 0] = 1.0
+    w = crossfade_window(cs.OLAP, dev)
+    calls = (lambda: kernels.power_quant(x, div, 2.0 ** 15),
+             lambda: kernels.overlap_add(pcm, w, cs.CUT, True),
+             lambda: kernels.dequant(sym, thres, 2.0 ** 15, cs.SRATE),
+             lambda: kernels.mask_thres(x, 2.0 ** 15, 0.5, cs.SRATE, 2),
+             lambda: kernels.tns_iir(x, coeffs),
+             lambda: kernels.thres_expand(thres, 2048, cs.SRATE))
+    lead = torch.zeros(1, device=dev)
+
+    def seen(prof) -> str:
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return " ".join("+" if any(k + "_kernel" in nm for nm in names) else "-"
+                        for k in TRACE_KERNELS)
+
+    def window(before, settle):
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            before()
+            if settle:
+                torch.cuda.synchronize()
+                time.sleep(settle)
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        return seen(prof)
+
+    def warmed(leads=0, passes=1):
+        """a schedule's warmup step of the calls, then a recorded step of
+        `leads` lead kernels and `passes` passes of the calls"""
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(leads):
+                lead.add_(1)
+            torch.cuda.synchronize()
+            for _ in range(passes):
+                for fn in calls:
+                    fn()
+                torch.cuda.synchronize()
+        return seen(prof)
+
+    thunks = {k + "_kernel": fn for k, fn in zip(TRACE_KERNELS, calls)}
+
+    print(f"trace: which of {TRACE_KERNELS} one profiler window recorded (+) or dropped (-), "
+          f"three windows each")
+    variants = {
+        "one lead kernel, then the calls": lambda: window(lambda: lead.add_(1), 0),
+        "no lead": lambda: window(lambda: None, 0),
+        "lead kernel, synchronize": lambda: window(lambda: lead.add_(1), 1e-9),
+        "synchronize and 1 ms": lambda: window(lambda: None, 0.001),
+        "synchronize and 5 ms": lambda: window(lambda: None, 0.005),
+        "schedule: a warmup step of the calls, then the calls": warmed,
+        "chip_smoke.profiled_device_ms": lambda: " ".join(
+            "+" if v is not None else "-" for v in cs.profiled_device_ms(torch, thunks).values()),
+    }
+    for label, run in variants.items():
+        print(f"  {label}: " + " | ".join(run() for _ in range(3)))
+    if not hasattr(cs, "kept_device_ms"):
+        return
+    print(f"trace: kernels of the {len(calls)} that each of {TRACE_WINDOWS} recordings lost")
+    recordings = {
+        "a warmup step, the calls once": warmed,
+        "a warmup step, the calls twice": lambda: warmed(0, 2),
+        f"a warmup step, {cs.TRACE_LEADS} lead kernels, the calls twice":
+            lambda: warmed(cs.TRACE_LEADS, 2),
+        "chip_smoke.profiled_device_ms": variants["chip_smoke.profiled_device_ms"],
+    }
+    for label, run in recordings.items():
+        lost = [run().count("-") for _ in range(TRACE_WINDOWS)]
+        print(f"  {label}: {lost}; {sum(n > 0 for n in lost)} of {TRACE_WINDOWS} recordings "
+              f"lost a kernel, {sum(lost)} of {len(calls) * TRACE_WINDOWS} kernels lost")
+    made, left = [], 0
+    for _ in range(TRACE_WINDOWS):
+        ms, n = cs.kept_device_ms(torch, thunks)
+        made.append(n)
+        left += sum(v is None for v in ms.values())
+    print(f"  chip_smoke.kept_device_ms, {TRACE_WINDOWS} times: recordings made {made}; "
+          f"kernels still lost after them {left} of {len(calls) * TRACE_WINDOWS}")
+
+
+def probe_registers(build, sources: tuple[str, ...]) -> None:
+    """Registers, stack frame and spill stores of every kernel of `sources`
+    (`-Xptxas -v`)."""
+    tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    for src in sources:
         res = subprocess.run([build.nvcc(), *[f for f in build.NVCC_FLAGS if f != "-shared"],
                               "-Xptxas", "-v", "-c", "-o", str(tmp / (src + ".o")),
                               str(build.CSRC_DIR / src)], capture_output=True, text=True)
@@ -1031,7 +1450,15 @@ def main() -> int:
         elif name == "thres":
             ok &= probe_thres(cs, kernels, dev, parent, build)
         elif name == "thres_registers":
-            probe_thres_registers(build)
+            probe_registers(build, ("mask_thres.cu", "thres_expand.cu"))
+        elif name == "decode":
+            ok &= probe_decode(cs, kernels, dev, parent, build)
+        elif name == "decode_variants":
+            ok &= probe_decode_variants(cs, kernels, dev, build)
+        elif name == "decode_registers":
+            probe_registers(build, ("dequant.cu", "overlap_add.cu"))
+        elif name == "trace":
+            probe_trace(cs, kernels, dev)
         elif name == "flips":
             probe_flips(cs, kernels, dev, parent, build)
         else:
