@@ -16,7 +16,10 @@ pushes and in `exact` mode, and the (96, 24) stream, damaged, through
 `Repairer` and an error-correcting `Decoder`, with the kernels held
 against their plain versions at the streaming shapes first. Last, the
 lossless phase: `trunc_pack` and `trunc_unpack` held byte for byte against
-their plain versions at its shapes and on the truncation edges, then
+their plain versions at its shapes and on the truncation edges
+(`trunc_unpack` also bit for bit on random payload words with NaN, Inf,
+signed-zero and subnormal patterns, as they lie and one element past a
+16-byte boundary), then
 `p0_stereo_44k1` (profile 0, 24-bit, the float32 fast path, and its int24
 transfer variant, whose `i24_pack` and `i24_unpack` kernels are held bit
 for bit against their plain versions first, on NaN, infinities, +-1 and
@@ -180,11 +183,13 @@ HIRES_SNR_FLOOR_DB = 97.393
 #: frames and its 2040-sample tail frame, the streaming run's
 #: micro-batches of 2, and the hires run's frames and 1536-sample tail
 TRUNC_SHAPES = ((645, 2, 2048), (1, 2, 2040), (2, 2, 2048), (117, 8, 8192), (1, 8, 1536))
-#: trunc_pack's other paths, which no run here takes (a mono Profile 0
-#: stream would take the first): C = 1 in 16-byte pieces, and rows of C * N
-#: not a multiple of 16 (value-by-value loads, byte stores); the last at 16
-#: and 32 bits only
-TRUNC_ODD_SHAPES = ((2, 1, 2048), (3, 3, 1004), (2, 1, 1001))
+#: the trunc kernels' other paths, which no run here takes (a mono Profile 0
+#: stream would take the first): C = 1 in 16-byte pieces; rows of C * N not
+#: a multiple of 16 (trunc_pack's value-by-value loads and byte stores),
+#: which are also trunc_unpack's run-time channel path (C = 3) and rows of N
+#: not whole groups (its element-wise loads and stores, at C = 1 and 8); the
+#: third at 16 and 32 bits only
+TRUNC_ODD_SHAPES = ((2, 1, 2048), (3, 3, 1004), (2, 1, 1001), (2, 8, 1001))
 #: the int24 transfer kernels' shapes, PCM [B, N, C]: the p0_stereo_44k1 i24
 #: run's uniform frames, its 2040-sample tail frame and its warm-up's 4
 #: frames. i24_unpack takes the words [B, N * C * 3 / 4]; i24_pack is handed
@@ -706,6 +711,41 @@ def trunc_inputs(shape: tuple[int, int, int], seed: int) -> np.ndarray:
     return y
 
 
+def trunc_random_words(shape: tuple[int, int, int], bits: int, little: bool,
+                       seed: int) -> np.ndarray:
+    """Payload words for trunc_unpack at [B, C, N] (int16 [B, C*N] at 16
+    bits, int32 [B, C*N*bits/32] at 24 and 32) of random bytes, whose values
+    are in part forced into the classes the unpacking treats apart: the
+    most significant byte 0x7F or 0xFF (a NaN at 16 bits; at 24 and 32 a
+    NaN or Inf where the next byte's top bit, the exponent's last, is set),
+    Inf and NaN of either sign, signed zeros, subnormals of either sign;
+    the byte order as `little` says."""
+    b, c, n = shape
+    bpv = bits // 8
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 256, (b, c * n, bpv), dtype=np.uint8)   # most significant byte first
+    kind = rng.integers(0, 12, (b, c * n))
+    sign = (rng.integers(0, 2, (b, c * n)) * 0x80).astype(np.uint8)
+    exp_top = 0x7C if bits == 16 else 0x7F          # the exponent's bits in the first byte
+    v[kind == 0, 0] = np.where(sign[kind == 0] != 0, 0xFF, 0x7F)
+    for k, mantissa in ((1, False), (2, True)):     # Inf, NaN
+        v[kind == k, 0] = sign[kind == k] | exp_top
+        v[kind == k, 1:] = 0
+        if bits != 16:
+            v[kind == k, 1] = 0x80
+        if mantissa:
+            v[kind == k, -1] |= 1
+    v[kind == 3, 0] = sign[kind == 3]               # signed zeros
+    v[kind == 3, 1:] = 0
+    v[kind == 4, 0] &= 0x80 | (0x7F ^ exp_top)      # subnormals (or zeros)
+    if bits != 16:
+        v[kind == 4, 1] &= 0x7F
+    if little:
+        v = v[..., ::-1]
+    raw = np.ascontiguousarray(v).reshape(b, -1)
+    return raw.view(np.int16 if bits == 16 else np.int32)
+
+
 def nan_words(torch, y, bits: int):
     """The payload words of trunc_pack(y, bits) that hold a NaN of y
     [B, C, N]: value t*C + c of frame b is word t*C + c at 16 and 32 bits,
@@ -729,12 +769,16 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
     at TRUNC_SHAPES, every depth and byte order: every payload word equal
     but the one (16, 32 bits) or three (24 bits) that hold the NaN (its f16
     bits are the converter's own, and its frame leaves the fast path on its
-    NaN max|x|), max|x| equal with the NaN in place, unpacked floats
-    equal; at TRUNC_ODD_SHAPES too. Returns the max |d| and the CUDA-event
-    times of kernel and plain at the p0_stereo_44k1 shape, with a call of
-    each there (`thunks`) and at the streaming shape (`stream_thunks`), and
-    the bounds of those calls (`bounds`, `stream_bounds`)."""
+    NaN max|x|), max|x| equal with the NaN in place; trunc_unpack's floats
+    equal bit for bit (-0.0 is not +0.0) on trunc_pack's words, and on
+    `trunc_random_words` as they lie and on a copy that starts one element
+    past a 16-byte boundary; at TRUNC_ODD_SHAPES too. Returns the max |d|
+    and the CUDA-event times of kernel and plain at the p0_stereo_44k1
+    shape, with a call of each there (`thunks`) and at the streaming shape
+    (`stream_thunks`), and the bounds of those calls (`bounds`,
+    `stream_bounds`)."""
     out = {"pack_err": 0.0, "unpack_err": 0.0}
+    unpacked = 0
     for si, shape in enumerate(TRUNC_SHAPES + TRUNC_ODD_SHAPES):
         b, c, n = shape
         y = torch.from_numpy(trunc_inputs(shape, 99 + si)).to(dev)
@@ -747,21 +791,26 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
             for little in (False, True):
                 w_k, m_k = kernels.trunc_pack(y, bits, little)
                 w_p, m_p = kernels.trunc_pack_plain(y, bits, little)
-                u_k = kernels.trunc_unpack(w_k, bits, little, n, c)
-                u_p = kernels.trunc_unpack_plain(w_k, bits, little, n, c)
                 torch.cuda.synchronize()
                 d_w = float((w_k[keep].to(torch.int64) - w_p[keep].to(torch.int64)).abs().max())
-                d_u = float((u_k - u_p).abs().max())
                 out["pack_err"] = max(out["pack_err"], d_w)
-                out["unpack_err"] = max(out["unpack_err"], d_u)
                 if not (torch.equal(w_k[keep], w_p[keep])
                         and torch.equal(m_k.nan_to_num(-1.0), m_p.nan_to_num(-1.0))
                         and (b == 1 or bool(torch.isnan(m_k[-1])))):
                     raise AssertionError(f"trunc_pack {shape} bits={bits} little={little} "
                                          f"differs from its plain version: max |d| {d_w}")
-                if not torch.equal(u_k, u_p):
-                    raise AssertionError(f"trunc_unpack {shape} bits={bits} little={little} "
-                                         f"differs from its plain version: max |d| {d_u}")
+                w_r = torch.from_numpy(trunc_random_words(shape, bits, little, 7 + si)).to(dev)
+                for kind, w in (("packed", w_k), ("random", w_r),
+                                ("random, offset", offset_view(torch, w_r))):
+                    u_k = kernels.trunc_unpack(w, bits, little, n, c)
+                    u_p = kernels.trunc_unpack_plain(w, bits, little, n, c)
+                    d_u = float((u_k - u_p).abs().max())
+                    out["unpack_err"] = max(out["unpack_err"], d_u)
+                    unpacked += 1
+                    if not bits_equal(torch, u_k, u_p):
+                        raise AssertionError(f"trunc_unpack {shape} bits={bits} little={little} "
+                                             f"on {kind} words differs from its plain version "
+                                             f"bit for bit: max |d| {d_u}")
         if si == 0:
             w, _ = kernels.trunc_pack(y, P0_BITS, False)
             out["pack_ms"] = cuda_ms(torch, lambda: kernels.trunc_pack(y, P0_BITS, False))
@@ -784,8 +833,9 @@ def check_trunc_kernels(torch, kernels, dev) -> dict:
                     w, P0_BITS, False, n, c)}
             out["stream_bounds"] = trunc_bounds(b, c, n)
     print(f"kernels trunc_pack / trunc_unpack at {list(TRUNC_SHAPES + TRUNC_ODD_SHAPES)}, bits "
-          f"16/24/32 (24 where C * N % 4 == 0), both "
-          f"byte orders: equal to plain (max|d| {out['pack_err']} / {out['unpack_err']}); "
+          f"16/24/32 (24 where C * N % 4 == 0), both byte orders: equal to plain (max|d| "
+          f"{out['pack_err']} / {out['unpack_err']}; trunc_unpack bit for bit on {unpacked} "
+          f"packed, random and offset random payloads); "
           f"at {TRUNC_SHAPES[0]} {P0_BITS}-bit: trunc_pack {out['pack_ms']:.4f} ms vs plain "
           f"{out['pack_plain_ms']:.4f} ms, trunc_unpack {out['unpack_ms']:.4f} ms vs plain "
           f"{out['unpack_plain_ms']:.4f} ms")

@@ -34,7 +34,7 @@ SIGNATURES = {
     "frad_power_quant": (_P, _P, _P, _LL, _D, _I, _P),
     "frad_overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "frad_trunc_pack": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "frad_trunc_unpack": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "frad_trunc_unpack": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "frad_tns_iir": (_P, _P, _P, _I, _I, _I, _P),
     "frad_egr_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "frad_dequant": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _D, _D, _D, _I, _P),

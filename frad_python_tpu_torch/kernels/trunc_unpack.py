@@ -6,6 +6,10 @@ bitpack.py:trunc_unpack before the IDCT in models/batch.py:
 _p0_unpack_decode_jit). `trunc_unpack` launches the CUDA kernel
 (csrc/trunc_unpack.cu) for CUDA tensors and runs `trunc_unpack_plain` for
 CPU tensors.
+
+The kernel gives each thread one group of `bins(C)` bins of every channel
+(G*C consecutive payload values) and each frame a row of chunks of at most
+`BLOCK` threads; `geometry` picks the chunks and threads.
 """
 
 from __future__ import annotations
@@ -16,6 +20,26 @@ import torch
 
 from ..ops import bitpack
 from . import build
+
+#: threads a block at most
+BLOCK = 128
+
+
+def bins(c: int) -> int:
+    """Bins of every channel a thread of the kernel owns at c channels (the
+    kernel's `group_bins`): 2 at C = 8, else 4, so that each channel's bins
+    are one 8- or 16-byte store."""
+    return 2 if c == 8 else 4
+
+
+def geometry(c: int, n: int) -> tuple[int, int]:
+    """(chunks a frame, threads a block) of the kernel for frames of c
+    channels of n bins: one group a thread, in as few blocks of at most
+    BLOCK threads as hold them, threads a whole number of warps."""
+    groups = -(-n // bins(c))
+    chunks = -(-groups // BLOCK)
+    threads = (-(-groups // chunks) + 31) // 32 * 32
+    return chunks, threads
 
 
 def trunc_unpack_plain(words: torch.Tensor, bits: int, little: bool, n: int,
@@ -43,10 +67,11 @@ def trunc_unpack(words: torch.Tensor, bits: int, little: bool, n: int,
                          f"words required, got {tuple(words.shape)} {words.dtype}")
     b = words.shape[0]
     out = torch.empty((b, ch, n), dtype=torch.float32, device=words.device)
+    chunks, threads = geometry(ch, n)
     lib = build.library()
     err = lib.frad_trunc_unpack(
         ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        b, ch, n, bits, int(bool(little)),
+        b, ch, n, bits, int(bool(little)), chunks, threads,
         ctypes.c_void_p(torch.cuda.current_stream(words.device).cuda_stream))
     build.check("frad_trunc_unpack", err)
     trunc_unpack.launches += 1

@@ -21,6 +21,18 @@ SECTIONs (default: all, in this order):
   pieces; the codec shapes alone in an older tree), bits
   16/24/32 and both byte orders: every payload word but the NaN's and
   max|x| equal to plain or not; mean device time at 24 bits, big-endian;
+* `trunc_unpack`: on `chip_smoke.trunc_random_words` at TRUNC_SHAPES and
+  TRUNC_ODD_SHAPES, bits 16/24/32 and both byte orders: bit-equal to
+  plain or not, and the mean device time at TRUNC_SHAPES, big-endian, of
+  this tree's kernel through its wrapper, of the same source with each
+  choice of `TRUNC_UNPACK_VARIANTS` turned the other way (at the channel
+  counts it changes), of each build at `TRUNC_UNPACK_BLOCKS` threads a
+  block (24 bits) and, with `--parent DIR`, of that tree's
+  trunc_unpack.cu (each built alone, from a patched temporary copy for a
+  variant); then ptxas's registers, stack and spill
+  stores of every build's kernels and the SASS of this tree's and the
+  parent's: operations, integer divisions by a run-time value
+  (`INT_DIVISION`) and 16-byte loads and stores;
 * `tns_autocorr`: at TNS_SHAPES, float32 and float64, with a divisor, at
   each dtype's first shape without, and on storage-offset views whose
   rows are not 16-byte aligned: x, ac and
@@ -126,6 +138,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import importlib
 import itertools
 import re
 import shutil
@@ -139,9 +152,9 @@ from pathlib import Path
 import torch
 
 REPS = 10
-SECTIONS = ("tns_iir", "egr_pack", "i24", "trunc_pack", "tns_autocorr", "autocorr_variants",
-            "fir_gate", "fir_gate_variants", "thres", "thres_registers", "flips", "decode",
-            "decode_variants", "decode_registers", "trace", "sass")
+SECTIONS = ("tns_iir", "egr_pack", "i24", "trunc_pack", "trunc_unpack", "tns_autocorr",
+            "autocorr_variants", "fir_gate", "fir_gate_variants", "thres", "thres_registers",
+            "flips", "decode", "decode_variants", "decode_registers", "trace", "sass")
 
 
 def device_us(fn, names: tuple[str, ...]) -> dict:
@@ -1236,6 +1249,147 @@ def probe_decode_variants(cs, kernels, dev, build) -> bool:
     return ok
 
 
+#: the C entry of a parent tree's trunc_unpack, which took no launch geometry
+PARENT_TRUNC_UNPACK_SIGNATURE = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+#: trunc_unpack.cu's choices turned the other way: {label: (text as built,
+#: the variant's text, {channels: bins a thread} where the variant differs)}
+_BINS = "return cc == 8 ? 2 : 4; }"
+TRUNC_UNPACK_VARIANTS = {
+    "16 values a thread at C = 1, 2 (16-byte loads, two 16-byte stores a channel)": (
+        _BINS, "return cc == 1 ? 16 : cc == 2 ? 8 : cc == 8 ? 2 : 4; }", {1: 16, 2: 8}),
+    "4 bins a thread at C = 8 (16-byte stores)": (_BINS, "return 4; }", {8: 4}),
+}
+#: threads a block each build is also timed at (24 bits)
+TRUNC_UNPACK_BLOCKS = (64, 128, 256)
+
+
+def trunc_unpack_builds(parent: Path | None, build) -> dict:
+    """{label: (library, its path, ptxas log)}: this tree's trunc_unpack.cu
+    as built and with each TRUNC_UNPACK_VARIANTS choice, and a parent
+    tree's, each built alone by nvcc with `-Xptxas -v`, all started
+    together; a variant's text that is not in the source once raises."""
+    tmp = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    text = (build.CSRC_DIR / "trunc_unpack.cu").read_text()
+    srcs = {"as built": text}
+    for label, (old, new, _) in TRUNC_UNPACK_VARIANTS.items():
+        if text.count(old) != 1:
+            raise AssertionError(f"trunc_unpack: {old!r} is not in trunc_unpack.cu once")
+        srcs[label] = text.replace(old, new)
+    if parent:
+        srcs["parent"] = (parent / "frad_python_tpu_torch" / "csrc" / "trunc_unpack.cu").read_text()
+    jobs = {}
+    for i, (label, src) in enumerate(srcs.items()):
+        cu, so = tmp / f"u{i}.cu", tmp / f"u{i}.so"
+        cu.write_text(src)
+        jobs[label] = (so, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(build.CSRC_DIR),
+             "-o", str(so), str(cu)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    for label, (so, proc) in jobs.items():
+        o, e = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc of trunc_unpack ({label}):\n{e}")
+        lib = ctypes.CDLL(str(so))
+        lib.frad_trunc_unpack.argtypes = list(
+            PARENT_TRUNC_UNPACK_SIGNATURE if label == "parent"
+            else build.SIGNATURES["frad_trunc_unpack"])
+        lib.frad_trunc_unpack.restype = ctypes.c_int
+        out[label] = (lib, so, o + e)
+    return out
+
+
+def unpack_geometry(n: int, bins: int, block: int) -> tuple[int, int]:
+    """(chunks, threads) as kernels/trunc_unpack.py:geometry picks them, for
+    `bins` a thread and blocks of at most `block` threads."""
+    groups = -(-n // bins)
+    chunks = -(-groups // block)
+    return chunks, (-(-groups // chunks) + 31) // 32 * 32
+
+
+def unpack_call(build, lib, w, bits: int, little: bool, n: int, c: int, geo=None):
+    """trunc_unpack of `lib` on words w: a parent's entry (geo None) or this
+    tree's with the launch geometry `geo` (chunks, threads)."""
+    out = torch.empty((w.shape[0], c, n), dtype=torch.float32, device=w.device)
+    build.check("frad_trunc_unpack", lib.frad_trunc_unpack(
+        ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(out.data_ptr()), w.shape[0], c, n, bits,
+        int(little), *(geo or ()), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)))
+    return out
+
+
+def unpack_registers(log: str) -> dict:
+    """{"C=2 24-bit vec": "40 (stack 0, spill 0)", ...} from `-Xptxas -v`
+    output of a trunc_unpack build (a parent's one kernel: "any")."""
+    out, name, stack, spill = {}, None, "?", "?"
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line):
+            stack, spill = m.group(1), m.group(2)
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            k = re.search(r"trunc_unpack_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+            key = (f"C={k[1] if k[1] != '0' else 'any'} {k[2]}-bit {'vec' if k[3] == '1' else 'elem'}"
+                   if k else "any")
+            out[key] = f"{m.group(1)} (stack {stack}, spill {spill})"
+    return out
+
+
+def probe_trunc_unpack(cs, kernels, dev, parent: Path | None, build) -> bool:
+    """See the module docstring (`trunc_unpack`)."""
+    ktu = importlib.import_module("frad_python_tpu_torch.kernels.trunc_unpack")
+    builds = trunc_unpack_builds(parent, build)
+    ok = True
+    for si, shape in enumerate(cs.TRUNC_SHAPES + cs.TRUNC_ODD_SHAPES):
+        b, c, n = shape
+        for bits in (16, 24, 32):
+            if bits == 24 and (c * n) % 4:
+                continue
+            bad, times = [], {}
+            for little in (True, False):          # big-endian last: the one timed
+                w = torch.from_numpy(cs.trunc_random_words(shape, bits, little, 7 + si)).to(dev)
+                want = kernels.trunc_unpack_plain(w, bits, little, n, c)
+                calls = {"this tree": lambda: kernels.trunc_unpack(w, bits, little, n, c)}
+                if parent:
+                    calls["parent"] = lambda: unpack_call(build, builds["parent"][0], w, bits,
+                                                          little, n, c)
+                for label, (_, _, bins) in TRUNC_UNPACK_VARIANTS.items():
+                    if c in bins:
+                        calls[label] = lambda lib=builds[label][0], g=bins[c]: unpack_call(
+                            build, lib, w, bits, little, n, c, unpack_geometry(n, g, ktu.BLOCK))
+                if bits == 24:
+                    for label, (_, _, bins) in [("as built", (0, 0, {}))] + [
+                            v for v in TRUNC_UNPACK_VARIANTS.items() if c in v[1][2]]:
+                        for block in TRUNC_UNPACK_BLOCKS:
+                            calls[f"{label}, {block} threads"] = \
+                                lambda lib=builds[label][0], g=bins.get(c, ktu.bins(c)), \
+                                block=block: unpack_call(build, lib, w, bits, little, n, c,
+                                                         unpack_geometry(n, g, block))
+                for label, fn in calls.items():
+                    if not cs.bits_equal(torch, fn(), want):
+                        bad.append((label, "little" if little else "big"))
+            ok &= not bad
+            if shape in cs.TRUNC_SHAPES:
+                times = {label: call_us(fn) for label, fn in calls.items()}
+            m = b * c * n
+            print(f"trunc_unpack {shape} {bits}-bit: "
+                  f"{'bit-equal to plain' if not bad else f'DIFFERS {bad}'} (random words, both "
+                  f"orders), bound {m * (bits // 8 + 4) / cs.HBM_BYTES_PER_S * 1e6:.2f} us; "
+                  + ", ".join(f"{label} {us} us" for label, us in times.items()))
+    for label, (_, _, log) in builds.items():
+        print(f"ptxas trunc_unpack {label}: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(unpack_registers(log).items())))
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    for label in ("as built", "parent"):
+        if label not in builds:
+            continue
+        for name, ops in sass_functions(cuobjdump, builds[label][1], "trunc_unpack_kernel").items():
+            wide = {op: sum(v for k, v in ops.items() if k.startswith(op) and ".128" in k)
+                    for op in ("LD", "ST")}
+            print(f"SASS {label} {name}: {sum(ops.values())} operations, integer divisions "
+                  f"{sum(ops[o] for o in INT_DIVISION)} ({', '.join(INT_DIVISION)}), 16-byte "
+                  f"loads {wide['LD']}, 16-byte stores {wide['ST']}")
+    return ok
+
+
 #: recordings of each way that `trace` counts the lost kernels of
 TRACE_WINDOWS = 20
 #: what `trace` launches in each window: six hand kernels on small inputs
@@ -1453,6 +1607,8 @@ def main() -> int:
             probe_registers(build, ("mask_thres.cu", "thres_expand.cu"))
         elif name == "decode":
             ok &= probe_decode(cs, kernels, dev, parent, build)
+        elif name == "trunc_unpack":
+            ok &= probe_trunc_unpack(cs, kernels, dev, parent, build)
         elif name == "decode_variants":
             ok &= probe_decode_variants(cs, kernels, dev, build)
         elif name == "decode_registers":
