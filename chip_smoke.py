@@ -59,7 +59,18 @@ s16le file through `frad_python_tpu_torch.app.main` on the card: `encode`
 (the file must be the metadata header plus `batch_encode`'s bytes),
 `decode`, `--no-turbo` through the engines, profile 0 at 24 bits, `repair`
 of a damaged armored file, the `meta` actions, and one
-`python3 -m frad_python_tpu_torch encode` subprocess.
+`python3 -m frad_python_tpu_torch encode` subprocess. Then the sharded
+phase: `overlap_add` with a halo (the tail of the frame before the first,
+from another shard) held bit for bit against its plain version at one
+rank's block when four share the track and at 4 frames, float32 and int16
+emits and float64; `training_step_equivalent` on a one-rank NCCL mesh over
+the 30 s track at float32 and float64 against the single-device cores;
+the per-rank overlap-add by hand over four blocks of the track, each halo
+the previous block's last tail; and the track encoded in four spans
+(`multihost.host_span`, final only on the last) as `p1_stereo_44k1` and
+`p0_stereo_44k1`, joined by `gather_bitstream` and held against one
+`batch_encode`; a tally of the phase's launches holds every form it
+launched against the plain versions.
 Every phase prints one line; any failure exits non-zero. The
 second-to-last line is a JSON object with one entry per kernel (thirteen,
 each with its device time at the main path's shape and at the streaming
@@ -317,6 +328,19 @@ THRES_EXPAND_FORMS = tuple(sorted({
 #: (tests/test_torch_app_floors.py measures both)
 CLI_P1_SNR_FLOOR_DB = 17.570
 CLI_P0_SNR_FLOOR_DB = 97.423
+#: the sharded phase: ranks that share the 30 s track in the by-hand run and
+#: in the spanwise encodes
+SHARDS = 4
+#: overlap_add's halo form, [B, C, N]: one rank's block when four share the
+#: track's 688 uniform frames, and when they share its 689 frames padded to
+#: 692 (the by-hand run), and the engines' micro-batch of 4 frames
+HALO_SHAPES = ((172, 2, 2048), (173, 2, 2048), (4, 2, 2048))
+#: ... at each (input dtype, int16 emit): the float emit, the int16 emit and
+#: float64
+HALO_EMITS = (("float32", False), ("float32", True), ("float64", False))
+#: the spanwise encodes: (name, profile, bits, compact, options, SNR floor)
+SPAN_CONFIGS = (("p1_stereo_44k1", 1, BITS, True, dict(i16_upload=True), SNR_FLOOR_DB),
+                ("p0_stereo_44k1", 0, P0_BITS, False, {}, P0_SNR_FLOOR_DB))
 
 #: every form (`kernel_form`) at which a kernel was held against its plain
 #: version in this run
@@ -328,7 +352,8 @@ def kernel_form(name: str, *args) -> tuple:
     wrapper's name, its first tensor's shape and dtype, and for power_quant
     and tns_autocorr whether it has a divisor, for dequant whether it has
     threshold symbols and then the sample rate, for overlap_add the
-    overlap, cut and emit, for egr_pack max_words, for mask_thres the
+    overlap, cut and emit (and "halo" where frame 0 is blended with one),
+    for egr_pack max_words, for mask_thres the
     sample rate and the channels, for thres_expand the samples a frame
     and the sample rate, for i24_pack whether the PCM is contiguous (the
     kernel reads a view through its strides)."""
@@ -337,7 +362,8 @@ def kernel_form(name: str, *args) -> tuple:
     if name == "power_quant":
         return form + (args[1] is not None,)
     if name == "overlap_add":
-        return form + (int(args[1].numel()), int(args[2]), bool(args[3]))
+        halo = ("halo",) if len(args) > 4 and args[4] is not None else ()
+        return form + (int(args[1].numel()), int(args[2]), bool(args[3])) + halo
     if name == "egr_pack":
         return form + (int(args[1]),)
     if name == "dequant":
@@ -374,10 +400,11 @@ class FormTally:
         leaves the plain versions' calls out, "cpu" serves the CPU tests."""
         from frad_python_tpu_torch.models import batch
         from frad_python_tpu_torch.ops import tns
-        from frad_python_tpu_torch.parallel import pipeline
+        from frad_python_tpu_torch.parallel import pipeline, sharded
 
         self.targets = [(mod, name) for mod, name in (
-            (batch, "power_quant"), (batch, "overlap_add"), (tns, "tns_iir"),
+            (batch, "power_quant"), (batch, "overlap_add"), (sharded, "overlap_add"),
+            (tns, "tns_iir"),
             (pipeline, "egr_pack"), (batch, "dequant"),
             (tns, "tns_autocorr"), (tns, "tns_fir_gate"), (batch, "mask_thres"),
             (batch, "thres_expand"), (batch, "i24_pack"), (batch, "i24_unpack"))
@@ -2248,6 +2275,282 @@ def cli_phase(ft, torch, kernels, dev, pcm: np.ndarray, smi: str) -> dict:
     return walls
 
 
+def halo_bound(shape: tuple[int, int, int], dtype: str, i16: bool) -> tuple[float, str]:
+    """overlap_add's bound with a halo at [B, C, N] (olap = OLAP, cut =
+    CUT): the frames, the window, the halo, the output and the fragment
+    moved once; every frame's head blended (3 operations a sample) and each
+    output sample emitted (2)."""
+    b, c, n = shape
+    item = 8 if dtype == "float64" else 4
+    nbytes = (b * c * n * item + OLAP * item + c * OLAP * item
+              + b * CUT * c * (2 if i16 else item) + OLAP * c * item)
+    return bound(nbytes, b * c * CUT * 2 + b * c * OLAP * 3, dtype)
+
+
+def check_halo_kernel(torch, kernels, dev) -> dict:
+    """overlap_add with a halo at HALO_SHAPES x HALO_EMITS, bit for bit
+    against overlap_add_plain with the same halo; at each also without a
+    halo (a data-rank 0 block), with the halo and the frames each on storage
+    not 16-byte aligned. CUDA-event times of the kernel with a halo, without
+    one and of the plain version at [172] and [4] (float emit), device times
+    there from the profiler, and their bounds."""
+    from frad_python_tpu_torch.parallel.sharded import halo_window
+
+    rng = np.random.default_rng(8642)
+    res = {"err": 0.0}
+    for shape in HALO_SHAPES:
+        for dtype, i16 in HALO_EMITS:
+            pcm = torch.from_numpy((rng.standard_normal(shape) * 0.6).astype(dtype)).to(dev)
+            halo = torch.from_numpy(
+                (rng.standard_normal((shape[1], OLAP)) * 0.6).astype(dtype)).to(dev)
+            w = halo_window(OLAP, pcm.dtype, dev)
+            for x, h in ((pcm, halo), (pcm, offset_view(torch, halo)),
+                         (offset_view(torch, pcm), halo), (pcm, None)):
+                (out_k, frag_k), (out_p, frag_p) = held(kernels, "overlap_add", x, w, CUT, i16,
+                                                        h)
+                torch.cuda.synchronize()
+                res["err"] = max(res["err"], max_abs(torch, out_k, out_p),
+                                 max_abs(torch, frag_k, frag_p))
+                if not (bits_equal(torch, out_k, out_p) and bits_equal(torch, frag_k, frag_p)):
+                    raise AssertionError(
+                        f"overlap_add {shape} {dtype} i16={i16} halo={h is not None} aligned="
+                        f"{(x.data_ptr() % 16, 0 if h is None else h.data_ptr() % 16)} differs "
+                        f"from its plain version: max |d| {res['err']}")
+            if shape != HALO_SHAPES[1] and (dtype, i16) == ("float32", False):
+                key = shape[0]
+                res[key] = {
+                    "ms": cuda_ms(torch, lambda: kernels.overlap_add(pcm, w, CUT, False, halo)),
+                    "ms_no_halo": cuda_ms(torch, lambda: kernels.overlap_add(pcm, w, CUT, False)),
+                    "plain_ms": cuda_ms(
+                        torch, lambda: kernels.overlap_add_plain(pcm, w, CUT, False, halo)),
+                    "bound": halo_bound(shape, dtype, False),
+                    "thunks": {
+                        "device_ms": lambda p=pcm, w=w, h=halo: kernels.overlap_add(p, w, CUT,
+                                                                                    False, h),
+                        "device_ms_no_halo": lambda p=pcm, w=w: kernels.overlap_add(p, w, CUT,
+                                                                                    False)}}
+    for key in (HALO_SHAPES[0][0], HALO_SHAPES[2][0]):
+        for name, thunk in res[key].pop("thunks").items():
+            ms, made = kept_device_ms(torch, {"overlap_add_kernel": thunk})
+            if ms["overlap_add_kernel"] is None:
+                raise AssertionError(f"overlap_add [{key}] {name}: no device time in {made} "
+                                     f"recordings")
+            res[key][name] = ms["overlap_add_kernel"]
+    print(f"kernel overlap_add with a halo at {list(HALO_SHAPES)} x {list(HALO_EMITS)} (and "
+          f"without one, halo and frames each also not 16-byte aligned): equal to plain bit "
+          f"for bit; f32 emit, CUDA events (ms): "
+          + "; ".join(f"[{k}] halo {res[k]['ms']:.4f}, no halo {res[k]['ms_no_halo']:.4f}, plain "
+                      f"{res[k]['plain_ms']:.4f}, profiler {res[k]['device_ms']:.4f} (no halo "
+                      f"{res[k]['device_ms_no_halo']:.4f}), bound {res[k]['bound'][0]:.5f} by "
+                      f"{res[k]['bound'][1]}"
+                      for k in (HALO_SHAPES[0][0], HALO_SHAPES[2][0])))
+    return res
+
+
+def track_frames(pcm: np.ndarray) -> np.ndarray:
+    """The track's frames as the batch pipeline plans them, [frames, FSIZE,
+    C] float64, the last one zero-padded."""
+    from frad_python_tpu_torch.parallel.pipeline import plan_frames
+
+    frames = plan_frames(len(pcm), FSIZE, 16, True)[0]
+    out = np.zeros((len(frames), FSIZE, pcm.shape[1]))
+    for i, (start, ln) in enumerate(frames):
+        out[i, :ln] = pcm[start:start + ln]
+    return out
+
+
+def held_form(torch, kernels, dev, form: tuple, seed: int) -> None:
+    """Holds a kernel against its plain version at `form` (a
+    `kernel_form`) on synthetic inputs of that shape, dtype and options,
+    bit for bit; raises where they differ or no inputs can be made."""
+    from frad_python_tpu_torch.kernels.overlap_add import crossfade_window
+
+    name, shape, dtype = form[:3]
+    rng = np.random.default_rng(seed)
+    if name == "overlap_add":
+        olap, cut, i16 = form[3:6]
+        pcm = torch.from_numpy((rng.standard_normal(shape) * 0.6).astype(dtype)).to(dev)
+        args = (pcm, crossfade_window(olap, dev, pcm.dtype), cut, i16)
+        if len(form) > 6:
+            args += (torch.from_numpy((rng.standard_normal((shape[1], olap)) * 0.6)
+                                      .astype(dtype)).to(dev),)
+    elif name == "power_quant":
+        freqs = rng.standard_normal(shape) * 1e-2
+        div = np.exp(rng.standard_normal(shape) * 2.0) * 0.1
+        div[:, -shape[1] // 16:] = 0.0
+        args = (torch.from_numpy((freqs if form[3] else freqs * 30.0).astype(dtype)).to(dev),
+                torch.from_numpy(div.astype(dtype)).to(dev) if form[3] else None, 2.0 ** 15)
+    elif name == "mask_thres":
+        x = torch.from_numpy(mask_thres_inputs(shape[0], shape[1], dtype, seed)).to(dev)
+        args = (x, 2.0 ** 15, 0.5, form[3], form[4])
+    elif name == "dequant":
+        s_d, t_d = dequant_inputs(torch, rng, dtype, shape, dev)
+        args = (s_d, t_d if form[3] else None, 2.0 ** 15, form[4] or SRATE)
+    elif name == "egr_pack":
+        args = (torch.from_numpy(egr_inputs(shape[0], shape[1], seed)).to(dev), form[3])
+    else:
+        raise AssertionError(f"no inputs to hold {form} with")
+    got, want = held(kernels, name, *args)
+    torch.cuda.synchronize()
+    if kernel_form(name, *args) != form or len(got) != len(want) or not all(
+            bits_equal(torch, g, w) if g.is_floating_point()
+            else g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name} at {form} differs from its plain version")
+
+
+def spanwise_encode(ft, torch, multihost, dev, pcm, name: str, profile: int, bits: int,
+                    compact: bool, floor: float, kw: dict) -> None:
+    """`pcm` encoded in SHARDS spans (`host_span`, final only on the last),
+    joined by `gather_bitstream` (the identity at one process), against one
+    `batch_encode` of it with the same options. At float64 the bytes must
+    be equal. At float32 the DCT GEMM sums a span's fewer rows in another
+    order than the whole batch's (cuBLAS picks its kernel by shape), so a
+    symbol may round the other way: the frame plan and headers must be
+    equal and the joined stream must decode above `floor`; the payloads
+    that differ are counted."""
+    from frad_python_tpu_torch.parallel.pipeline import _parse_frames
+
+    ratio = 16 if compact else 0
+    ref = ft.batch_encode(pcm, profile, SRATE, bits, FSIZE, device=dev, **kw)
+    parts, t0 = [], time.perf_counter()
+    for pid in range(SHARDS):
+        span = multihost.host_span(len(pcm), FSIZE, ratio, compact, pid, SHARDS)
+        parts.append(ft.batch_encode(pcm[span.start:span.stop], profile, SRATE, bits, FSIZE,
+                                     final=pid == SHARDS - 1, device=dev, **kw))
+    torch.cuda.synchronize()
+    t_spans = time.perf_counter() - t0
+    joined = multihost.gather_bitstream(b"".join(parts))
+    (h_j, p_j, tail_j), (h_r, p_r, tail_r) = _parse_frames(joined), _parse_frames(ref)
+    differ = sum(a != b for a, b in zip(p_j, p_r))
+    out, _ = ft.batch_decode(joined, device=dev)
+    snr = snr_db(pcm, out)
+    equal = joined == ref
+    plan_equal = ([(h.profile, h.srate, h.channels, h.fsize) for h in h_j]
+                  == [(h.profile, h.srate, h.channels, h.fsize) for h in h_r]
+                  and [p is None for p in p_j] == [p is None for p in p_r]
+                  and tail_j == tail_r == b"")
+    dtype = kw["compute_dtype"]
+    print(f"spanwise {name} {dtype}: {SHARDS} spans ({[len(p) for p in parts]} bytes, "
+          f"{t_spans:.3f} s) joined by gather_bitstream against one batch_encode "
+          f"({len(ref)} bytes): equal {equal}, {differ} of {len(p_r)} payloads differ, decode "
+          f"SNR {snr:.4f} dB (floor {floor})")
+    if not plan_equal or snr < floor or (dtype == "float64" and not equal):
+        raise AssertionError(f"spanwise {name} {dtype}: equal {equal}, frame plan equal "
+                             f"{plan_equal}, {differ} payloads differ, SNR {snr:.4f} dB")
+
+
+def shard_phase(ft, torch, kernels, dev) -> dict:
+    """The sharded path on the card (see the module docstring): the halo
+    form of overlap_add, training_step_equivalent at world size 1 over NCCL
+    at float32 and float64 against the single-device cores, the per-rank
+    overlap-add by hand over SHARDS blocks, and spanwise encodes of two
+    configurations joined against one encode. A tally over the runs holds
+    every form they launch (those no table above holds, after them, on
+    inputs of that form). Returns the halo checks and the launches."""
+    import torch.distributed as dist
+
+    from frad_python_tpu_torch.models import batch
+    from frad_python_tpu_torch.ops.policy import to_device, to_host
+    from frad_python_tpu_torch.parallel import multihost, sharded
+
+    res = {"halo": check_halo_kernel(torch, kernels, dev), "launches": {}}
+    pcm = make_audio(SECONDS, SRATE, CHANNELS)
+    frames = track_frames(pcm)
+    factor, loss = 2.0 ** 15, 0.5
+    t0 = time.perf_counter()
+    mesh = sharded.make_mesh(1)
+    t_mesh = time.perf_counter() - t0
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError(f"the CUDA mesh runs on {dist.get_backend()} / {mesh.device_type}")
+    tally = FormTally()
+    lines = []
+    with contextlib.ExitStack() as group, tally:
+        group.callback(dist.destroy_process_group)
+        sharded.training_step_equivalent(mesh, frames[:4], SRATE, loss, factor)   # warm-up
+        step = {}
+        for dtype in ("float32", "float64"):
+            x = frames.astype(dtype)
+            kernels.reset_launches()
+            (out, t_step) = timed(torch, lambda: sharded.training_step_equivalent(
+                mesh, x, SRATE, loss, factor))
+            res["launches"][dtype] = {k.__name__: k.launches for k in kernels.KERNELS}
+            fq, tq = sharded.sharded_p1_encode(mesh, x, SRATE, loss, factor)
+            rfq, rtq = to_host(*batch.p1_encode_core(to_device(x, dev), SRATE, loss, factor))
+            if not (np.array_equal(fq, rfq) and np.array_equal(tq, rtq)):
+                raise AssertionError(f"sharded_p1_encode {dtype}: {int((fq != rfq).sum())} "
+                                     f"symbols differ from p1_encode_core")
+            dec = batch.p1_decode_core(to_device(fq.astype(np.float64), dev),
+                                       to_device(tq.astype(np.float64), dev), SRATE, factor)
+            (ref,) = to_host(batch.overlap_add_core(dec, OLAP, CUT))
+            # the decode is float64 at either input dtype, as in the JAX
+            # package: the same cores on the same card give the same bits
+            d = float(np.abs(out - ref).max()) if out.shape == ref.shape else float("inf")
+            same = out.shape == ref.shape and np.array_equal(out, ref)
+            if not (same and np.isfinite(out).all()):
+                raise AssertionError(f"training_step_equivalent {dtype}: max |d| {d} from "
+                                     f"p1_decode_core + overlap_add_core")
+            used = [k for k in ("mask_thres", "power_quant", "dequant", "overlap_add")
+                    if res["launches"][dtype][k] <= 0]
+            if used:
+                raise AssertionError(f"training_step_equivalent {dtype} launched no {used}")
+            step[dtype] = (out, to_host(dec.contiguous())[0])
+            lines.append(f"{dtype} {out.shape} {t_step:.3f} s, bit-equal {same} (max |d| {d}), "
+                         f"launches {res['launches'][dtype]}")
+        print(f"sharded: NCCL mesh of 1 in {t_mesh:.3f} s; training_step_equivalent on the "
+              f"{SECONDS:.0f} s track against the single-device cores (symbols equal): "
+              + "; ".join(lines))
+
+        # the per-rank body by hand: SHARDS blocks, each halo the previous
+        # block's last tail
+        decoded = step["float64"][1]
+        for dtype in ("float64", "float32"):
+            padded, pad = sharded.pad_to_multiple(decoded.astype(dtype), SHARDS)
+            bl = len(padded) // SHARDS
+            blocks = [to_device(padded[k * bl:(k + 1) * bl], dev).transpose(1, 2).contiguous()
+                      for k in range(SHARDS)]
+            kernels.reset_launches()
+            outs = [sharded.local_overlap_add(
+                blocks[k], None if k == 0 else blocks[k - 1][-1, :, CUT:CUT + OLAP].contiguous(),
+                OLAP, CUT) for k in range(SHARDS)]
+            launches = kernels.overlap_add.launches
+            (joined,) = to_host(torch.cat(outs)[:len(decoded)])
+            if dtype == "float64":
+                want = step["float64"][0]
+            else:
+                whole = to_device(decoded.astype(dtype), dev).transpose(1, 2).contiguous()
+                (want,) = to_host(kernels.overlap_add_plain(
+                    whole, sharded.halo_window(OLAP, whole.dtype, dev), CUT, False)[0])
+            if launches != SHARDS or joined.shape != want.shape \
+                    or not np.array_equal(joined, want):
+                raise AssertionError(f"by-hand {SHARDS} shards {dtype} ({launches} launches, "
+                                     f"pad {pad}) differ from the world-size-1 result "
+                                     f"(float64) or the plain blend (float32)")
+        print(f"sharded by hand: {SHARDS} blocks of {bl} frames ({pad} padding), halos passed "
+              f"by hand, one overlap_add launch each: float64 equal to the world-size-1 result, "
+              f"float32 equal to the plain blend, bit for bit")
+
+        # spanwise encodes: SHARDS spans, final only on the last, joined
+        for dtype in ("float64", "float32"):
+            for name, profile, bits, compact, kw, floor in SPAN_CONFIGS:
+                spanwise_encode(ft, torch, multihost, dev, pcm, name, profile, bits, compact,
+                                floor, dict(kw, compute_dtype=dtype))
+        from frad_python_tpu_torch.ops.dct import dct2
+
+        x = to_device(frames[:-1].astype(np.float32), dev).transpose(1, 2)
+        part = len(x) // SHARDS
+        (whole, alone) = to_host(dct2(x)[:part], dct2(x[:part].contiguous()))
+        print(f"the DCT GEMM at float32 on the card: the first {part} of {len(x)} frames "
+              f"transformed alone differ from the same rows of the whole batch in "
+              f"{int((whole != alone).sum())} of {whole.size} coefficients (max |d| "
+              f"{float(np.abs(whole - alone).max())})")
+    for i, form in enumerate(tally.unchecked()):
+        held_form(torch, kernels, dev, form, 9000 + i)
+    tally.require_held("the sharded phase")
+    print(f"forms the sharded phase launched ({len(tally.seen)}), each held against its plain "
+          f"version: " + ", ".join(f"{f}: {c}" for f, c in sorted(tally.seen.items(), key=str)))
+    return res
+
+
 def _frames_of(pcm: np.ndarray) -> list:
     from frad_python_tpu_torch.parallel.pipeline import plan_frames
     return plan_frames(len(pcm), FSIZE, 16, True)[0]
@@ -2640,6 +2943,10 @@ def main() -> int:
           "held against its plain version above (form: launches): "
           + ", ".join(f"{f}: {c}" for f, c in sorted(new_forms.seen.items(), key=str)))
 
+    # 11. the sharded path: NCCL at world size 1, the per-rank body by hand,
+    # spanwise encodes
+    shard = shard_phase(ft, torch, kernels, dev)
+
     i24 = lossless["i24"]
     f_s, d_s, pcm_s = f_d[:8].contiguous(), d_d[:8].contiguous(), pcm_k[:4].contiguous()
     yards = kernel_yardsticks(torch, {
@@ -2672,7 +2979,17 @@ def main() -> int:
         if name in P2_KERNELS:
             out.update(launches_p2=p2["launches"][name],
                        streaming_launches_p2=p2["stream_launches"][name])
+        out["launches_sharded_step"] = sum(shard["launches"][dt][name] for dt in shard["launches"])
         return out
+
+    halo = {f"{k}_{b}": v for b in (HALO_SHAPES[0][0], HALO_SHAPES[2][0])
+            for k, v in (("ms", shard["halo"][b]["ms"]),
+                         ("ms_no_halo", shard["halo"][b]["ms_no_halo"]),
+                         ("plain_ms", shard["halo"][b]["plain_ms"]),
+                         ("device_ms", shard["halo"][b]["device_ms"]),
+                         ("device_ms_no_halo", shard["halo"][b]["device_ms_no_halo"]),
+                         ("bound_ms", shard["halo"][b]["bound"][0]),
+                         ("bound_by", shard["halo"][b]["bound"][1]))}
 
     print(json.dumps({"kernels": [
         {"name": "power_quant", "route": "cuda",
@@ -2695,7 +3012,8 @@ def main() -> int:
          "streaming_launches": stream_launches["overlap_add"],
          "ms_8192": mid["oa_ms"], "plain_ms_8192": mid["oa_plain_ms"],
          "ms_16384": long["oa_ms"], "plain_ms_16384": long["oa_plain_ms"],
-         "ms_f64": p2["oa_f64"][0], "plain_ms_f64": p2["oa_f64"][1], **yard("overlap_add")},
+         "ms_f64": p2["oa_f64"][0], "plain_ms_f64": p2["oa_f64"][1],
+         "max_abs_err_halo": shard["halo"]["err"], "halo": halo, **yard("overlap_add")},
         {"name": "trunc_pack", "route": "cuda",
          "source": "frad_python_tpu_torch/csrc/trunc_pack.cu",
          "replaces": "frad_python_tpu/ops/bitpack.py:184",

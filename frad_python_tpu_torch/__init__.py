@@ -7,10 +7,14 @@ float32 and float64: the streaming engines `Encoder`, `Decoder` and
 `batch_encode` and `batch_decode` of whole PCM arrays and streams, with
 ECC armor and error repair, `batch_repair` of streams, and the command
 line with the FrAD file header (`python -m frad_python_tpu_torch`,
-`app/`, `container/head.py`). The JAX package's Pallas kernels and the
-device programs around them are eight hand-written CUDA kernels
-(`kernels/`, `csrc/`), built with nvcc at first use; the host byte work
-runs in the C++ host module (`native/`), built with g++ at first use.
+`app/`, `container/head.py`), and the sharded cores over a device mesh
+with the overlap-add's halo exchange and the multi-process span encode and
+stream gather over `torch.distributed` (`parallel/sharded.py`,
+`parallel/multihost.py`; NCCL on CUDA, gloo on the CPU). The JAX
+package's Pallas kernels and the device programs around them are thirteen
+hand-written CUDA kernels (`kernels/`, `csrc/`), built with nvcc at first
+use; the host byte work runs in the C++ host module (`native/`), built
+with g++ at first use.
 Every entry point runs on CUDA unless the caller asks for the CPU
 (`device="cpu"`, `--device cpu`). Importing the package has no side
 effects and never imports jax.

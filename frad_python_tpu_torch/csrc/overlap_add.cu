@@ -7,19 +7,26 @@
 //
 //   out[b, t, c] = pcm[b, c, t]                                   b == 0 or t >= olap
 //                = pcm[b, c, t] * w[t] + pcm[b-1, c, cut+t] * w[olap-1-t]   b >= 1, t < olap
+//                = pcm[0, c, t] * w[t] + halo[c, t] * w[olap-1-t]           b == 0, t < olap,
+//                                                                 with a halo
 //   out         -> clamp(rint(out * 32768), -32768, 32767) as int16 when i16
 //   frag[t, c]  = pcm[B-1, c, cut+t]                               (raw)
 //
 // Input is the IDCT output in its [B, C, N] layout; output is [B, cut, C]
 // interleaved, so the transpose is folded into the kernel. float32, or
 // float64 (pcm, w, frag and the float emit) for the float64 compute path.
+// The optional halo [C, olap] is the raw tail of the frame before frame 0,
+// held by another shard of a batch split along its frames
+// (frad_python_tpu/parallel/sharded.py:overlap_add_sharded, whose
+// `ppermute` brings it); without it frame 0's head passes through.
 // The blend uses __fmul_rn / __fadd_rn (__dmul_rn / __dadd_rn): nvcc would
 // otherwise contract it into an FMA and round differently from eager
 // PyTorch, and the kernel is held bit-identical to
 // frad_python_tpu_torch/kernels/overlap_add.py:overlap_add_plain.
 //
 // Bound: bytes, each input sample read once and each output written once
-// (16.6 MB at [689, 2, 2048] with the int16 emit: 4.9 us at 3.35 TB/s).
+// (16.6 MB at [689, 2, 2048] with the int16 emit: 4.9 us at 3.35 TB/s; a
+// halo adds its C * olap samples).
 // Design:
 // - A grid of (frame, chunk of cut); the last row of blocks (frame B)
 //   copies the fragment, so one launch does the whole emit. Indices within
@@ -74,14 +81,15 @@ __device__ __forceinline__ T blend(T x, T p, const T* __restrict__ w, int olap, 
     return add_rn(mul_rn(x, __ldg(w + t)), mul_rn(p, __ldg(w + olap - 1 - t)));
 }
 
-// the run at t0 of every channel: cur / prev point at sample 0 of channel
-// 0's row of this frame / of the previous frame's tail (null: no blend),
-// rows N apart; dst at sample 0 of the interleaved output; samples from
-// `end` on are not this run's
+// the run at t0 of every channel: cur points at sample 0 of channel 0's row
+// of this frame, rows N apart; prev at the previous frame's tail (null: no
+// blend), rows P apart (N for a frame of the batch, olap for the halo); dst
+// at sample 0 of the interleaved output; samples from `end` on are not
+// this run's
 template <typename T, typename O, int CC>
 __device__ __forceinline__ void emit_run(const T* __restrict__ cur, const T* __restrict__ prev,
                                          const T* __restrict__ w, O* __restrict__ dst, int C,
-                                         int N, int olap, int t0, int end, bool vec) {
+                                         int N, int P, int olap, int t0, int end, bool vec) {
     constexpr int V = 16 / sizeof(T);
     if constexpr (CC > 0) {
         O o[V * CC];                                         // [j * CC + c]
@@ -90,12 +98,12 @@ __device__ __forceinline__ void emit_run(const T* __restrict__ cur, const T* __r
             T x[V], p[V];
             if (vec) {
                 vio::load(x, cur + c * N + t0);
-                if (prev) vio::load(p, prev + c * N + t0);
+                if (prev) vio::load(p, prev + c * P + t0);
             } else {
 #pragma unroll
                 for (int j = 0; j < V; ++j) {
                     x[j] = t0 + j < end ? cur[c * N + t0 + j] : (T)0;
-                    p[j] = prev && t0 + j < olap ? prev[c * N + t0 + j] : (T)0;
+                    p[j] = prev && t0 + j < olap ? prev[c * P + t0 + j] : (T)0;
                 }
             }
 #pragma unroll
@@ -117,7 +125,7 @@ __device__ __forceinline__ void emit_run(const T* __restrict__ cur, const T* __r
                 const int t = t0 + j;
                 if (t >= end) break;
                 T x = cur[c * N + t];
-                if (prev && t < olap) x = blend(x, prev[c * N + t], w, olap, t);
+                if (prev && t < olap) x = blend(x, prev[c * P + t], w, olap, t);
                 dst[t * C + c] = emit<O>(x);
             }
         }
@@ -126,9 +134,9 @@ __device__ __forceinline__ void emit_run(const T* __restrict__ cur, const T* __r
 
 template <typename T, typename O, int CC>
 __global__ void __launch_bounds__(MAX_THREADS)
-overlap_add_kernel(const T* __restrict__ pcm, const T* __restrict__ w, O* __restrict__ out,
-                   T* __restrict__ frag, int B, int channels, int N, int olap, int cut,
-                   int chunk, int vec) {
+overlap_add_kernel(const T* __restrict__ pcm, const T* __restrict__ w,
+                   const T* __restrict__ halo, O* __restrict__ out, T* __restrict__ frag, int B,
+                   int channels, int N, int olap, int cut, int chunk, int vec) {
     constexpr int V = 16 / sizeof(T);
     const int C = CC ? CC : channels;
     const int b = (int)blockIdx.x;
@@ -136,39 +144,42 @@ overlap_add_kernel(const T* __restrict__ pcm, const T* __restrict__ w, O* __rest
     if (b == B) {                                            // the fragment: frame B-1's tail
         if (t0 < olap)
             emit_run<T, T, CC>(pcm + (long long)(B - 1) * C * N + cut, nullptr, w, frag, C, N,
-                               olap, t0, olap, vec != 0);
+                               N, olap, t0, olap, vec != 0);
         return;
     }
     if (t0 >= cut) return;
     const T* cur = pcm + (long long)b * C * N;
-    const T* prev = b > 0 && t0 < olap ? cur - (long long)C * N + cut : nullptr;
-    emit_run<T, O, CC>(cur, prev, w, out + (long long)b * cut * C, C, N, olap, t0, cut,
-                       vec != 0);
+    const T* prev = t0 >= olap ? nullptr : b > 0 ? cur - (long long)C * N + cut : halo;
+    emit_run<T, O, CC>(cur, prev, w, out + (long long)b * cut * C, C, N, b > 0 ? N : olap, olap,
+                       t0, cut, vec != 0);
 }
 
 template <typename T, typename O>
-void launch(dim3 grid, int threads, cudaStream_t s, const void* pcm, const void* w, void* out,
-            void* frag, int B, int C, int N, int olap, int cut, int chunk, int vec) {
+void launch(dim3 grid, int threads, cudaStream_t s, const void* pcm, const void* w,
+            const void* halo, void* out, void* frag, int B, int C, int N, int olap, int cut,
+            int chunk, int vec) {
     const T* x = (const T*)pcm;
     const T* wt = (const T*)w;
+    const T* h = (const T*)halo;
     if (C == 1)
-        overlap_add_kernel<T, O, 1><<<grid, threads, 0, s>>>(x, wt, (O*)out, (T*)frag, B, C, N,
-                                                             olap, cut, chunk, vec);
+        overlap_add_kernel<T, O, 1><<<grid, threads, 0, s>>>(x, wt, h, (O*)out, (T*)frag, B, C,
+                                                             N, olap, cut, chunk, vec);
     else if (C == 2)
-        overlap_add_kernel<T, O, 2><<<grid, threads, 0, s>>>(x, wt, (O*)out, (T*)frag, B, C, N,
-                                                             olap, cut, chunk, vec);
+        overlap_add_kernel<T, O, 2><<<grid, threads, 0, s>>>(x, wt, h, (O*)out, (T*)frag, B, C,
+                                                             N, olap, cut, chunk, vec);
     else
-        overlap_add_kernel<T, O, 0><<<grid, threads, 0, s>>>(x, wt, (O*)out, (T*)frag, B, C, N,
-                                                             olap, cut, chunk, vec);
+        overlap_add_kernel<T, O, 0><<<grid, threads, 0, s>>>(x, wt, h, (O*)out, (T*)frag, B, C,
+                                                             N, olap, cut, chunk, vec);
 }
 
 bool aligned(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
 
-extern "C" int frad_overlap_add(const void* pcm, const void* w, void* out,
-                                void* frag, int B, int C, int N, int olap,
-                                int cut, int i16, int is_f64, void* stream) {
+// halo: null, or [C, olap] in pcm's type (frame 0 is then blended with it)
+extern "C" int frad_overlap_add(const void* pcm, const void* w, const void* halo, void* out,
+                                void* frag, int B, int C, int N, int olap, int cut, int i16,
+                                int is_f64, void* stream) {
     if ((long long)B * C * cut + (long long)C * olap <= 0) return 0;
     const int V = is_f64 ? 2 : 4;
     const int runs = (cut + V - 1) / V;
@@ -178,22 +189,22 @@ extern "C" int frad_overlap_add(const void* pcm, const void* w, void* out,
     const int chunk = V * nthr;
     const dim3 grid((unsigned int)(B + 1), (unsigned int)((cut + chunk - 1) / chunk));
     const int vec = N % V == 0 && cut % V == 0 && olap % V == 0 && aligned(pcm) && aligned(out)
-                    && aligned(frag);
+                    && aligned(frag) && aligned(halo);
     cudaStream_t s = (cudaStream_t)stream;
     if (is_f64) {
         if (i16)
-            launch<double, int16_t>(grid, nthr, s, pcm, w, out, frag, B, C, N, olap, cut, chunk,
-                                    vec);
+            launch<double, int16_t>(grid, nthr, s, pcm, w, halo, out, frag, B, C, N, olap, cut,
+                                    chunk, vec);
         else
-            launch<double, double>(grid, nthr, s, pcm, w, out, frag, B, C, N, olap, cut, chunk,
-                                   vec);
+            launch<double, double>(grid, nthr, s, pcm, w, halo, out, frag, B, C, N, olap, cut,
+                                   chunk, vec);
     } else {
         if (i16)
-            launch<float, int16_t>(grid, nthr, s, pcm, w, out, frag, B, C, N, olap, cut, chunk,
-                                   vec);
+            launch<float, int16_t>(grid, nthr, s, pcm, w, halo, out, frag, B, C, N, olap, cut,
+                                   chunk, vec);
         else
-            launch<float, float>(grid, nthr, s, pcm, w, out, frag, B, C, N, olap, cut, chunk,
-                                 vec);
+            launch<float, float>(grid, nthr, s, pcm, w, halo, out, frag, B, C, N, olap, cut,
+                                 chunk, vec);
     }
     return (int)cudaGetLastError();
 }

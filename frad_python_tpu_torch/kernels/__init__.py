@@ -14,7 +14,8 @@ kernels for fourteen device programs:
   (Pallas `power_quant`), float32 -> int32 or float64 -> int64, with or
   without a divisor, source csrc/power_quant.cu.
 * `overlap_add.overlap_add` — the lossy decoders' overlap-add and PCM
-  emit (Pallas `crossfade_frames`), float32 or float64, source
+  emit (Pallas `crossfade_frames`), float32 or float64, with an optional
+  halo for the first frame (the sharded overlap-add's), source
   csrc/overlap_add.cu with csrc/vec_io.cuh.
 * `trunc_pack.trunc_pack` — the Profile 0 encoder's truncated-float pack
   of the DCT output with each frame's max|x| (XLA `trunc_pack`), source

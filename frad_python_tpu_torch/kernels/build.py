@@ -32,7 +32,7 @@ _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_dou
 #: C entry points and their argument types
 SIGNATURES = {
     "frad_power_quant": (_P, _P, _P, _LL, _D, _I, _P),
-    "frad_overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "frad_overlap_add": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "frad_trunc_pack": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "frad_trunc_unpack": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "frad_tns_iir": (_P, _P, _P, _I, _I, _I, _P),

@@ -3,8 +3,11 @@
 The port of the Pallas kernel `crossfade_frames` (frad_python_tpu/
 research/pallas_kernels.py), widened to all of the JAX package's
 `overlap_add_core` plus the s16 emit and the fragment slice of its fused
-P1 decode. `overlap_add` launches the CUDA kernel (csrc/overlap_add.cu)
-for CUDA tensors and runs `overlap_add_plain` for CPU tensors.
+P1 decode, and to the local blend of `overlap_add_sharded`
+(frad_python_tpu/parallel/sharded.py), whose first frame is blended with
+a halo, the tail of the frame before it on another shard. `overlap_add`
+launches the CUDA kernel (csrc/overlap_add.cu) for CUDA tensors and runs
+`overlap_add_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,30 +33,55 @@ def crossfade_window(olap: int, device: torch.device,
     return torch.from_numpy(w.astype(ft)).to(device)
 
 
-def overlap_add_plain(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
+def overlap_add_plain(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool,
+                      halo: torch.Tensor | None = None):
     """pcm [B, C, N] float32 or float64 frames, w [olap] window of the
-    same dtype -> (out [B, cut, C] int16 (x32768, clamped) or that dtype,
-    frag [olap, C] of that dtype).
+    same dtype, halo None or [C, olap] of that dtype -> (out [B, cut, C]
+    int16 (x32768, clamped) or that dtype, frag [olap, C] of that dtype).
 
-    Frame 0's head passes through; frame b >= 1's first olap samples are
-    head*w + prev[cut:cut+olap]*reverse(w); samples [olap:cut] are copied;
-    frag is the last frame's raw [cut:cut+olap] tail."""
+    Frame 0's head passes through, or with a halo (the raw tail of the
+    frame before frame 0, held by another shard of the batch) is blended
+    with it as frame b >= 1's first olap samples are with
+    prev[cut:cut+olap]: head*w + tail*reverse(w); samples [olap:cut] are
+    copied; frag is the last frame's raw [cut:cut+olap] tail."""
     olap = w.shape[0]
     frames = pcm.transpose(1, 2)                               # [B, N, C]
     out = frames[:, :cut, :].clone()
     if olap:
         out[1:, :olap, :] = (frames[1:, :olap, :] * w[:, None]
                              + frames[:-1, cut:cut + olap, :] * w.flip(0)[:, None])
+        if halo is not None:
+            out[0, :olap, :] = frames[0, :olap, :] * w[:, None] + halo.T * w.flip(0)[:, None]
     frag = frames[-1, cut:cut + olap, :].clone()
     if i16:
         out = torch.clamp(torch.round(out * 32768.0), -32768, 32767).to(torch.int16)
     return out, frag
 
 
-def overlap_add(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
+def _check_halo(pcm: torch.Tensor, w: torch.Tensor, halo: torch.Tensor) -> None:
+    """Raises where `halo` is not a contiguous [C, olap] tensor of pcm's
+    dtype on pcm's device (pcm's and w's own faults are the caller's)."""
+    if pcm.dim() != 3 or w.dim() != 1:
+        return
+    want = (pcm.shape[1], w.shape[0])
+    if halo.device != pcm.device:
+        raise ValueError(f"overlap_add: halo on {halo.device}, pcm on {pcm.device}")
+    if halo.dtype != pcm.dtype:
+        raise TypeError(f"overlap_add: halo of {halo.dtype}, pcm of {pcm.dtype}")
+    if tuple(halo.shape) != want:
+        raise ValueError(f"overlap_add: halo [C, olap] = {want} required, got "
+                         f"{tuple(halo.shape)}")
+    if not halo.is_contiguous():
+        raise ValueError("overlap_add: contiguous halo required")
+
+
+def overlap_add(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool,
+                halo: torch.Tensor | None = None):
     """See `overlap_add_plain`; one kernel launch for CUDA tensors."""
+    if halo is not None:
+        _check_halo(pcm, w, halo)
     if pcm.device.type == "cpu" and w.device.type == "cpu":
-        return overlap_add_plain(pcm, w, cut, i16)
+        return overlap_add_plain(pcm, w, cut, i16, halo)
     if pcm.device.type != "cuda" or w.device != pcm.device:
         raise ValueError(f"overlap_add: tensors on {pcm.device} and {w.device}")
     if pcm.dtype not in (torch.float32, torch.float64) or w.dtype != pcm.dtype:
@@ -74,6 +102,7 @@ def overlap_add(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool):
     lib = build.library()
     err = lib.frad_overlap_add(
         ctypes.c_void_p(pcm.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+        ctypes.c_void_p(None if halo is None else halo.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(frag.data_ptr()),
         b, c, n, olap, cut, int(bool(i16)), int(pcm.dtype == torch.float64),
         ctypes.c_void_p(torch.cuda.current_stream(pcm.device).cuda_stream))

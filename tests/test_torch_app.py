@@ -486,6 +486,9 @@ def test_module_entry_point_never_imports_jax(tmp_path):
         "from frad_python_tpu_torch.app.main import main\n"
         "from frad_python_tpu_torch.app import decode, encode, metadata, repair\n"
         "from frad_python_tpu_torch.utils import hostmem, tracing\n"
+        "from frad_python_tpu_torch.parallel import multihost, sharded\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "main(['frad-torch', 'help', 'encode'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'frad_python_tpu')]\n"
         "print('BAD', bad)\n"
