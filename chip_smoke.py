@@ -70,7 +70,16 @@ the previous block's last tail; and the track encoded in four spans
 (`multihost.host_span`, final only on the last) as `p1_stereo_44k1` and
 `p0_stereo_44k1`, joined by `gather_bitstream` and held against one
 `batch_encode`; a tally of the phase's launches holds every form it
-launched against the plain versions.
+launched against the plain versions. Last, the local split phase: the
+frame-batch split of the batch cores (`models/batch.py`'s `place_rows`)
+over four logical blocks of the card, and over every card when the
+machine shows more (the earlier phases then run with the split off):
+`p1_stereo_44k1`, `p0_stereo_44k1` (and its int24 forms), `hires_96k_8ch`
+(10 s) and Profile 2 (5 s), at float32 and float64, each against the same
+calls in one piece: float64 byte for byte, float32 to the frame plan, the
+SNR floors and the decode of one stream (the payloads that differ
+printed), with a tally that counts the halo launches and holds every form
+against the plain versions.
 Every phase prints one line; any failure exits non-zero. The
 second-to-last line is a JSON object with one entry per kernel (thirteen,
 each with its device time at the main path's shape and at the streaming
@@ -2388,6 +2397,28 @@ def held_form(torch, kernels, dev, form: tuple, seed: int) -> None:
         args = (s_d, t_d if form[3] else None, 2.0 ** 15, form[4] or SRATE)
     elif name == "egr_pack":
         args = (torch.from_numpy(egr_inputs(shape[0], shape[1], seed)).to(dev), form[3])
+    elif name == "tns_iir":
+        x, coeffs, _ = tns_inputs(shape[0], shape[1], dtype, seed)
+        args = (torch.from_numpy(x).to(dev), torch.from_numpy(coeffs).to(dev))
+    elif name in ("tns_autocorr", "tns_fir_gate"):
+        from frad_python_tpu_torch.ops import tns
+
+        freqs, div = (torch.from_numpy(a).to(dev)
+                      for a in analysis_inputs(shape[0], shape[1], dtype, seed))
+        window = tns._lag_window(freqs.dtype, dev)
+        if name == "tns_autocorr":
+            args = (freqs, div if form[3] else None, window)
+        else:
+            args = tuple(t.contiguous() for t in kernels.tns_autocorr_plain(freqs, div, window))
+    elif name == "thres_expand":
+        sym = np.rint(rng.laplace(0, 6, shape)).astype(dtype)
+        args = (torch.from_numpy(sym).to(dev), form[3], form[4])
+    elif name == "i24_unpack":
+        args = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64)
+                                 .astype(np.int32)).to(dev),)
+    elif name == "i24_pack":
+        view = torch.from_numpy(i24_inputs(shape, seed)).to(dev).transpose(1, 2)
+        args = (view.contiguous() if form[3] else view,)
     else:
         raise AssertionError(f"no inputs to hold {form} with")
     got, want = held(kernels, name, *args)
@@ -2551,6 +2582,189 @@ def shard_phase(ft, torch, kernels, dev) -> dict:
     return res
 
 
+#: the local split's logical devices on one card (`batch._data_devices`)
+LOCAL_BLOCKS = 4
+#: decoded float32 PCM of one stream, split against one call, at 2048-sample
+#: frames: the GEMMs of a block's rows sum in another order than the whole
+#: batch's. A float32 sum's rounding grows with its terms: at N samples a
+#: frame the bound is N / 2048 times this (hires_96k_8ch: 8e-6)
+LOCAL_SPLIT_MAX_ABS = 2e-6
+#: the same with the int16 emit (`i16_transfer`): a sample whose float32
+#: value moves by an ulp may round one int16 step the other way
+LOCAL_SPLIT_I16_MAX_ABS = 1.0 / 32768.0
+#: the local split's configurations: (name, seconds, srate, channels,
+#: profile, bits, frame size, float32 encode / decode options, float32 SNR
+#: floor, frames the floor is taken over (None: all)); Profile 2 at 5 s is
+#: held to the floor of that content at float64 (the JAX package's SNR
+#: there minus 0.1 dB) and to the unsplit call's SNR
+LOCAL_SPLIT_CASES = (
+    ("p1_stereo_44k1", SECONDS, SRATE, CHANNELS, 1, BITS, FSIZE, dict(i16_upload=True),
+     dict(i16_transfer=True), SNR_FLOOR_DB, None),
+    ("p0_stereo_44k1", SECONDS, SRATE, CHANNELS, 0, P0_BITS, FSIZE, {}, {}, P0_SNR_FLOOR_DB,
+     None),
+    ("p0_stereo_44k1_i24", SECONDS, SRATE, CHANNELS, 0, P0_BITS, FSIZE, dict(i24_upload=True),
+     dict(i24_transfer=True), P0_SNR_FLOOR_DB, None),
+    ("hires_96k_8ch", HIRES["seconds"], HIRES["srate"], HIRES["channels"], 0, HIRES["bits"],
+     HIRES["fsize"], {}, {}, HIRES_SNR_FLOOR_DB, HIRES_FLOOR_FRAMES),
+    ("p2_stereo_44k1_5s", F64_SECONDS, SRATE, CHANNELS, 2, BITS, FSIZE, {}, {},
+     F64_SNR_FLOOR_DB[2], None),
+)
+
+
+def sync_all(torch) -> None:
+    """Wait for every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def header_plan(stream: bytes) -> list:
+    from frad_python_tpu_torch.parallel.pipeline import _parse_frames
+
+    hs, ps, tail = _parse_frames(stream)
+    return [(h.profile, h.bit_depth_index, h.channels, h.srate, h.fsize, p is None)
+            for h, p in zip(hs, ps)] + [tail]
+
+
+def local_split_case(ft, torch, kernels, batch, devices, case: tuple, dtype: str) -> dict:
+    """One configuration at `dtype` split over `devices` (patched into
+    `batch._data_devices`) against the same calls in one piece
+    (`sharding_disabled`): at float64 the stream and the decoded PCM bit
+    for bit; at float32 the frame plan, the SNR floor and the decode of the
+    unsplit stream within LOCAL_SPLIT_MAX_ABS scaled to the frame (as
+    floats; with the int16 emit too, within LOCAL_SPLIT_I16_MAX_ABS), the
+    payloads that differ
+    counted. Returns walls, launches, blocks and the halo launches."""
+    from frad_python_tpu_torch.parallel.pipeline import _parse_frames
+
+    name, seconds, srate, ch, profile, bits, fsize, ekw, dkw, floor, floor_frames = case
+    pcm = make_audio(seconds, srate, ch)
+    if dtype == "float64":
+        ekw, dkw = {}, {}
+    dev = torch.device(DEVICE)
+
+    def enc():
+        return ft.batch_encode(pcm, profile, srate, bits, fsize, compute_dtype=dtype,
+                               device=dev, **ekw)
+
+    def dec(stream, **kw):
+        return ft.batch_decode(stream, compute_dtype=dtype, device=dev, **{**dkw, **kw})[0]
+
+    def walled(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(torch)
+        return out, time.perf_counter() - t0
+
+    with batch.sharding_disabled():
+        dec(enc())                                          # first-use set-up
+        ref, t_enc1 = walled(enc)
+        ref_out, t_dec1 = walled(lambda: dec(ref))
+        ref_float = dec(ref, i16_transfer=False)
+    real_devices, real_place = batch._data_devices, batch.place_rows
+    placed = []
+
+    def place(arr, device=None, upload=None):
+        got = real_place(arr, device, upload)
+        placed.append((arr.shape[0], len(got.blocks), got.pad,
+                       sorted({str(b.device) for b in got.blocks})))
+        return got
+
+    batch._data_devices, batch.place_rows = (lambda d: list(devices)), place
+    try:
+        dec(enc())
+        placed.clear()
+        sync_all(torch)
+        kernels.reset_launches()
+        got, t_enc = walled(enc)
+        got_ref_out, t_dec = walled(lambda: dec(ref))
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        got_out = dec(got)
+        got_ref_float = dec(ref, i16_transfer=False)
+    finally:
+        batch._data_devices, batch.place_rows = real_devices, real_place
+    split = [p for p in placed if p[1] > 1]
+    if not split or any(p[1] != len(devices) for p in split):
+        raise AssertionError(f"local split {name} {dtype}: blocks {placed}")
+    differ = sum(a != b for a, b in zip(_parse_frames(got)[1], _parse_frames(ref)[1]))
+    m = len(pcm) if floor_frames is None else floor_frames * fsize
+    snr = snr_db(pcm[:m], got_out[:m])
+    d, d_float = (float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+                  for a, b in ((got_ref_out, ref_out), (got_ref_float, ref_float)))
+    tol = LOCAL_SPLIT_MAX_ABS * max(fsize, FSIZE) / FSIZE
+    need = {0: ("trunc_pack", "trunc_unpack") if dtype == "float32" else (),
+            1: P1_KERNELS if dtype == "float32" else
+            tuple(k for k in P1_KERNELS if k != "egr_pack"), 2: P2_KERNELS}[profile]
+    if ekw.get("i24_upload"):
+        need = need + ("i24_pack", "i24_unpack")
+    missing = [k for k in need if launches[k] <= 0]
+    if dtype == "float64":
+        ok = got == ref and got_ref_out.shape == ref_out.shape \
+            and np.array_equal(got_ref_out, ref_out) and np.array_equal(got_out, ref_out)
+    else:
+        ok = header_plan(got) == header_plan(ref) and snr >= floor \
+            and d_float <= tol and d <= (
+                LOCAL_SPLIT_I16_MAX_ABS if dkw.get("i16_transfer") else tol) \
+            and (profile != 2 or snr >= snr_db(
+                pcm[:m], ref_out[:m]) - 0.1)
+    if not ok or missing or not np.isfinite(got_out).all():
+        raise AssertionError(
+            f"local split {name} {dtype} over {len(devices)} blocks: stream equal "
+            f"{got == ref}, plan equal {header_plan(got) == header_plan(ref)}, {differ} payloads "
+            f"differ, SNR {snr:.4f} dB (floor {floor}), max |split - one call| {d} (as floats "
+            f"{d_float}; tolerance {tol}), kernels not launched {missing}")
+    over = "" if floor_frames is None else f" over the first {floor_frames} frames"
+    print(f"local split {name} {dtype} over {sorted(set(map(str, devices)))} x "
+          f"{len(devices)}: blocks (rows, blocks, pad, cards) {sorted(set(map(str, split)))}; "
+          f"stream equal {got == ref}, {differ} of {len(header_plan(ref)) - 1} payloads differ, "
+          f"SNR {snr:.4f} dB (floor {floor}{over}), "
+          f"max |split - one call| decoding one stream {d} (as floats {d_float}; tolerance "
+          f"{tol}); walls enc {t_enc:.4f} s (one call "
+          f"{t_enc1:.4f} s), dec {t_dec:.4f} s (one call {t_dec1:.4f} s); launches {launches}")
+    return {"launches": launches, "t_enc": t_enc, "t_dec": t_dec, "t_enc1": t_enc1,
+            "t_dec1": t_dec1, "differ": differ}
+
+
+def local_split_phase(ft, torch, kernels) -> dict:
+    """The frame-batch split of `models/batch.py` on the card: every
+    LOCAL_SPLIT_CASES configuration at float32 and float64 over
+    LOCAL_BLOCKS logical devices of one card ([cuda:0] * 4 patched into
+    `_data_devices`), and when the machine shows more than one card, over
+    all of them, each against the same calls in one piece
+    (`local_split_case`). A tally over the split runs holds every form they
+    launch against the plain versions (on inputs of that form) and counts
+    the overlap-adds with a halo. Returns each run's results."""
+    from frad_python_tpu_torch.models import batch
+
+    dev = torch.device(DEVICE)
+    sharding, batch.SHARDING = batch.SHARDING, True
+    card = torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" else dev
+    layouts = [[card] * LOCAL_BLOCKS]
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        layouts.append([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    res = {}
+    tally = FormTally()
+    with tally, contextlib.ExitStack() as restore:
+        restore.callback(setattr, batch, "SHARDING", sharding)
+        for devices in layouts:
+            for case in LOCAL_SPLIT_CASES:
+                # the int24 transfer forms are float32's: at float64 that
+                # case is p0_stereo_44k1's
+                for dtype in ("float32",) if case[7].get("i24_upload") else ("float32", "float64"):
+                    res[(len(set(devices)), case[0], dtype)] = local_split_case(
+                        ft, torch, kernels, batch, devices, case, dtype)
+    halos = {f: c for f, c in tally.seen.items() if f[0] == "overlap_add" and f[-1] == "halo"}
+    if not halos:
+        raise AssertionError("the local split launched no overlap_add with a halo")
+    for i, form in enumerate(tally.unchecked()):
+        held_form(torch, kernels, dev, form, 9500 + i)
+    tally.require_held("the local split phase")
+    print(f"local split: overlap_add launches with a halo {sum(halos.values())} ({halos}); "
+          f"forms launched ({len(tally.seen)}), each held against its plain version: "
+          + ", ".join(f"{f}: {c}" for f, c in sorted(tally.seen.items(), key=str)))
+    res["halo_launches"] = sum(halos.values())
+    return res
+
+
 def _frames_of(pcm: np.ndarray) -> list:
     from frad_python_tpu_torch.parallel.pipeline import plan_frames
     return plan_frames(len(pcm), FSIZE, 16, True)[0]
@@ -2636,6 +2850,15 @@ def main() -> int:
     from frad_python_tpu_torch.parallel.pipeline import _parse_frames, plan_frames
     from frad_python_tpu_torch.utils.damage import damage_stream
     from frad_python_tpu_torch.utils.tracing import StageTimer
+
+    # the phases before the local split hold one card's forms and launches:
+    # on a machine with more cards they run on one, as does the command
+    # line's subprocess (the local split turns the split on for itself)
+    from frad_python_tpu_torch.models import batch
+
+    if torch.cuda.device_count() > 1:
+        batch.SHARDING = False
+        os.environ["FRAD_TORCH_NO_SHARD"] = "1"
 
     # 1. card
     smi = subprocess.run(
@@ -2946,6 +3169,10 @@ def main() -> int:
     # 11. the sharded path: NCCL at world size 1, the per-rank body by hand,
     # spanwise encodes
     shard = shard_phase(ft, torch, kernels, dev)
+
+    # 12. the frame-batch split of the batch cores over a card's logical
+    # blocks, and over every card when there are more
+    local_split_phase(ft, torch, kernels)
 
     i24 = lossless["i24"]
     f_s, d_s, pcm_s = f_d[:8].contiguous(), d_d[:8].contiguous(), pcm_k[:4].contiguous()

@@ -7,11 +7,15 @@ library already built. The build runs at the first kernel launch (or
 from `python -m frad_python_tpu_torch.kernels.build`); importing this
 module builds nothing. The library is loaded with ctypes: every pointer
 and the stream are passed as `c_void_p`, and each entry returns
-`cudaGetLastError()`.
+`cudaGetLastError()`. Every entry is called inside `on_device`, which
+makes the tensors' card the current device: a `<<<>>>` launch and
+`cudaFuncSetAttribute` act on the host thread's current device, not on
+the stream's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +24,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -124,6 +130,19 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+@contextlib.contextmanager
+def on_device(name: str, *tensors: torch.Tensor | None):
+    """Launch context of the C entry `name`: the one CUDA device of
+    `tensors` (None entries skipped) is made current, and its current
+    stream is yielded as a `c_void_p`. Raises ValueError when the tensors
+    lie on more than one device or off CUDA."""
+    devs = list(dict.fromkeys(t.device for t in tensors if t is not None))
+    if len(devs) != 1 or devs[0].type != "cuda":
+        raise ValueError(f"{name}: tensors on {[str(d) for d in devs]}, one CUDA device required")
+    with torch.cuda.device(devs[0]):
+        yield ctypes.c_void_p(torch.cuda.current_stream(devs[0]).cuda_stream)
 
 
 def check(name: str, err: int) -> None:

@@ -93,12 +93,13 @@ def dequant(symbols: torch.Tensor, thres_flat: torch.Tensor | None, factor: floa
         k = psycho.device_consts(n, srate, symbols.device, dtype)
         tables = tuple(ctypes.c_void_p(k[t].data_ptr()) for t in ("band8", "w_lo", "w_hi"))
     lib = build.library()
-    err = lib.frad_dequant(
-        ctypes.c_void_p(symbols.data_ptr()),
-        ctypes.c_void_p(thres_flat.data_ptr()) if thres_flat is not None else None,
-        ctypes.c_void_p(out.data_ptr()), b, n, c, *tables, 1.0 / factor, _EXPONENT, E_HALF,
-        _SYM_KINDS[symbols.dtype],
-        ctypes.c_void_p(torch.cuda.current_stream(symbols.device).cuda_stream))
+    with build.on_device("dequant", symbols, thres_flat) as stream:
+        err = lib.frad_dequant(
+            ctypes.c_void_p(symbols.data_ptr()),
+            ctypes.c_void_p(thres_flat.data_ptr()) if thres_flat is not None else None,
+            ctypes.c_void_p(out.data_ptr()), b, n, c, *tables, 1.0 / factor, _EXPONENT, E_HALF,
+            _SYM_KINDS[symbols.dtype],
+            stream)
     build.check("frad_dequant", err)
     dequant.launches += 1
     return out

@@ -74,12 +74,13 @@ def egr_pack(symbols: torch.Tensor, max_words: int, padded: bool = False, to_hos
     meta = torch.empty((4, b), dtype=torch.int32, device=dev)
     offs = torch.empty(b + 1, dtype=torch.int64, device=dev)
     lib = build.library()
-    err = lib.frad_egr_pack(
-        ctypes.c_void_p(symbols.data_ptr()),
-        ctypes.c_void_p(words.data_ptr() if padded else None),
-        ctypes.c_void_p(meta.data_ptr()), ctypes.c_void_p(offs.data_ptr()),
-        ctypes.c_void_p(flat.data_ptr()), b, m, int(max_words),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with build.on_device("egr_pack", symbols) as stream:
+        err = lib.frad_egr_pack(
+            ctypes.c_void_p(symbols.data_ptr()),
+            ctypes.c_void_p(words.data_ptr() if padded else None),
+            ctypes.c_void_p(meta.data_ptr()), ctypes.c_void_p(offs.data_ptr()),
+            ctypes.c_void_p(flat.data_ptr()), b, m, int(max_words),
+            stream)
     build.check("frad_egr_pack", err)
     egr_pack.launches += 1
     rows = _rows_to_host(meta, to_host)

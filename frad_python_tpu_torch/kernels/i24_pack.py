@@ -52,9 +52,10 @@ def i24_pack(pcm: torch.Tensor) -> torch.Tensor:
     words = torch.empty((b, m * 3 // 4), dtype=torch.int32, device=pcm.device)
     sb, sn, sc = pcm.stride()
     lib = build.library()
-    err = lib.frad_i24_pack(
-        ctypes.c_void_p(pcm.data_ptr()), ctypes.c_void_p(words.data_ptr()), b, m, ch,
-        sb, sn, sc, ctypes.c_void_p(torch.cuda.current_stream(pcm.device).cuda_stream))
+    with build.on_device("i24_pack", pcm) as stream:
+        err = lib.frad_i24_pack(
+            ctypes.c_void_p(pcm.data_ptr()), ctypes.c_void_p(words.data_ptr()), b, m, ch,
+            sb, sn, sc, stream)
     build.check("frad_i24_pack", err)
     i24_pack.launches += 1
     return words

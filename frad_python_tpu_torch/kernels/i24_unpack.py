@@ -41,9 +41,10 @@ def i24_unpack(words: torch.Tensor) -> torch.Tensor:
     b, w = words.shape
     pcm = torch.empty((b, w * 4 // 3), dtype=torch.float32, device=words.device)
     lib = build.library()
-    err = lib.frad_i24_unpack(
-        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(pcm.data_ptr()), b * w,
-        ctypes.c_void_p(torch.cuda.current_stream(words.device).cuda_stream))
+    with build.on_device("i24_unpack", words) as stream:
+        err = lib.frad_i24_unpack(
+            ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(pcm.data_ptr()), b * w,
+            stream)
     build.check("frad_i24_unpack", err)
     i24_unpack.launches += 1
     return pcm

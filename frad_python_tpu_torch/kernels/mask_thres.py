@@ -140,15 +140,16 @@ def mask_thres(freqs: torch.Tensor, factor: float, loss_level: float, srate: int
     tq = torch.empty((rows // channels, psycho.SUBBANDS, channels),
                      dtype=torch.int64 if f64 else torch.int32, device=freqs.device)
     lib = build.library()
-    err = lib.frad_mask_thres(
-        ctypes.c_void_p(freqs.data_ptr()), ctypes.c_void_p(div.data_ptr()),
-        ctypes.c_void_p(tq.data_ptr()), rows, n, channels,
-        starts.ctypes.data_as(ctypes.c_void_p), inv_w.ctypes.data_as(ctypes.c_void_p),
-        aht.ctypes.data_as(ctypes.c_void_p), nb, *(ctypes.c_void_p(k[t].data_ptr())
-                                                   for t in ("band8", "w_lo", "w_hi")),
-        float(factor), float(loss_level), psycho.SPREAD_ALPHA, _EXPONENT, E_HALF, int(f64),
-        geometry(rows),
-        ctypes.c_void_p(torch.cuda.current_stream(freqs.device).cuda_stream))
+    with build.on_device("mask_thres", freqs) as stream:
+        err = lib.frad_mask_thres(
+            ctypes.c_void_p(freqs.data_ptr()), ctypes.c_void_p(div.data_ptr()),
+            ctypes.c_void_p(tq.data_ptr()), rows, n, channels,
+            starts.ctypes.data_as(ctypes.c_void_p), inv_w.ctypes.data_as(ctypes.c_void_p),
+            aht.ctypes.data_as(ctypes.c_void_p), nb, *(ctypes.c_void_p(k[t].data_ptr())
+                                                       for t in ("band8", "w_lo", "w_hi")),
+            float(factor), float(loss_level), psycho.SPREAD_ALPHA, _EXPONENT, E_HALF, int(f64),
+            geometry(rows),
+            stream)
     build.check("frad_mask_thres", err)
     mask_thres.launches += 1
     return div, tq

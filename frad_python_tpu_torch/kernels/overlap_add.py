@@ -18,15 +18,21 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import policy
 from . import build
 
 
-@functools.lru_cache(maxsize=32)
-def crossfade_window(olap: int, device: torch.device,
+def crossfade_window(olap: int, device: str | torch.device,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The [olap] fade-in window, computed in `dtype` (float32 or float64)
     in the same operation order as the JAX overlap-add (its cos may differ
-    from numpy's by an ulp)."""
+    from numpy's by an ulp); cached once per card (`policy.device_key`)."""
+    return _crossfade_window(olap, policy.device_key(device), dtype)
+
+
+#: room for the overlaps and dtypes of a run on four cards
+@functools.lru_cache(maxsize=128)
+def _crossfade_window(olap: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     ft = np.float64 if dtype == torch.float64 else np.float32
     a = np.arange(1, olap + 1, dtype=ft)
     w = ft(0.5) * (ft(1.0) - np.cos(ft(np.pi) * a / ft(olap + 1)))
@@ -100,12 +106,13 @@ def overlap_add(pcm: torch.Tensor, w: torch.Tensor, cut: int, i16: bool,
                       device=pcm.device)
     frag = torch.empty((olap, c), dtype=pcm.dtype, device=pcm.device)
     lib = build.library()
-    err = lib.frad_overlap_add(
-        ctypes.c_void_p(pcm.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-        ctypes.c_void_p(None if halo is None else halo.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(frag.data_ptr()),
-        b, c, n, olap, cut, int(bool(i16)), int(pcm.dtype == torch.float64),
-        ctypes.c_void_p(torch.cuda.current_stream(pcm.device).cuda_stream))
+    with build.on_device("overlap_add", pcm, w, halo) as stream:
+        err = lib.frad_overlap_add(
+            ctypes.c_void_p(pcm.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+            ctypes.c_void_p(None if halo is None else halo.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(frag.data_ptr()),
+            b, c, n, olap, cut, int(bool(i16)), int(pcm.dtype == torch.float64),
+            stream)
     build.check("frad_overlap_add", err)
     overlap_add.launches += 1
     return out, frag

@@ -55,12 +55,13 @@ def power_quant(freqs: torch.Tensor, div: torch.Tensor | None,
         raise ValueError("power_quant: contiguous inputs required")
     out = torch.empty(freqs.shape, dtype=_int_dtype(freqs.dtype), device=freqs.device)
     lib = build.library()
-    err = lib.frad_power_quant(
-        ctypes.c_void_p(freqs.data_ptr()),
-        ctypes.c_void_p(div.data_ptr()) if div is not None else None,
-        ctypes.c_void_p(out.data_ptr()), freqs.numel(), float(factor),
-        int(freqs.dtype == torch.float64),
-        ctypes.c_void_p(torch.cuda.current_stream(freqs.device).cuda_stream))
+    with build.on_device("power_quant", freqs, div) as stream:
+        err = lib.frad_power_quant(
+            ctypes.c_void_p(freqs.data_ptr()),
+            ctypes.c_void_p(div.data_ptr()) if div is not None else None,
+            ctypes.c_void_p(out.data_ptr()), freqs.numel(), float(factor),
+            int(freqs.dtype == torch.float64),
+            stream)
     build.check("frad_power_quant", err)
     power_quant.launches += 1
     return out

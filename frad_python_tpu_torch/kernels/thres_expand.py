@@ -59,11 +59,12 @@ def thres_expand(thres_flat: torch.Tensor, n: int, srate: int) -> torch.Tensor:
     k = psycho.device_consts(n, srate, thres_flat.device, thres_flat.dtype)
     out = torch.empty((b, c, n), dtype=thres_flat.dtype, device=thres_flat.device)
     lib = build.library()
-    err = lib.frad_thres_expand(
-        ctypes.c_void_p(thres_flat.data_ptr()), ctypes.c_void_p(out.data_ptr()), b, c, n,
-        *(ctypes.c_void_p(k[t].data_ptr()) for t in ("band8", "w_lo", "w_hi")), E_HALF,
-        int(thres_flat.dtype == torch.float64),
-        ctypes.c_void_p(torch.cuda.current_stream(thres_flat.device).cuda_stream))
+    with build.on_device("thres_expand", thres_flat) as stream:
+        err = lib.frad_thres_expand(
+            ctypes.c_void_p(thres_flat.data_ptr()), ctypes.c_void_p(out.data_ptr()), b, c, n,
+            *(ctypes.c_void_p(k[t].data_ptr()) for t in ("band8", "w_lo", "w_hi")), E_HALF,
+            int(thres_flat.dtype == torch.float64),
+            stream)
     build.check("frad_thres_expand", err)
     thres_expand.launches += 1
     return out

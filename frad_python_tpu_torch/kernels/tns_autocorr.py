@@ -143,14 +143,15 @@ def tns_autocorr(freqs: torch.Tensor, div: torch.Tensor | None, window: torch.Te
     ac = torch.empty((lanes, MAX_ORDER + 1), dtype=freqs.dtype, device=freqs.device)
     gate = torch.empty((lanes,), dtype=torch.bool, device=freqs.device)
     lib = build.library()
-    err = lib.frad_tns_autocorr(
-        ctypes.c_void_p(freqs.data_ptr()),
-        ctypes.c_void_p(div.data_ptr()) if div is not None else None,
-        ctypes.c_void_p(window.data_ptr()),
-        ctypes.c_void_p(x.data_ptr()) if div is not None else None,
-        ctypes.c_void_p(ac.data_ptr()), ctypes.c_void_p(gate.data_ptr()), lanes, n,
-        int(freqs.dtype == torch.float64),
-        ctypes.c_void_p(torch.cuda.current_stream(freqs.device).cuda_stream))
+    with build.on_device("tns_autocorr", freqs, div, window) as stream:
+        err = lib.frad_tns_autocorr(
+            ctypes.c_void_p(freqs.data_ptr()),
+            ctypes.c_void_p(div.data_ptr()) if div is not None else None,
+            ctypes.c_void_p(window.data_ptr()),
+            ctypes.c_void_p(x.data_ptr()) if div is not None else None,
+            ctypes.c_void_p(ac.data_ptr()), ctypes.c_void_p(gate.data_ptr()), lanes, n,
+            int(freqs.dtype == torch.float64),
+            stream)
     build.check("frad_tns_autocorr", err)
     tns_autocorr.launches += 1
     return x, ac, gate

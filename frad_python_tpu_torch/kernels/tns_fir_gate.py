@@ -129,12 +129,13 @@ def tns_fir_gate(x: torch.Tensor, ac: torch.Tensor, gate: torch.Tensor
     lpc_out = torch.empty_like(ac)
     run = torch.empty_like(gate)
     lib = build.library()
-    err = lib.frad_tns_fir_gate(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(ac.data_ptr()),
-        ctypes.c_void_p(gate.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(lpc_out.data_ptr()), ctypes.c_void_p(run.data_ptr()), lanes, n,
-        int(x.dtype == torch.float64),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    with build.on_device("tns_fir_gate", x, ac, gate) as stream:
+        err = lib.frad_tns_fir_gate(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(ac.data_ptr()),
+            ctypes.c_void_p(gate.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(lpc_out.data_ptr()), ctypes.c_void_p(run.data_ptr()), lanes, n,
+            int(x.dtype == torch.float64),
+            stream)
     build.check("frad_tns_fir_gate", err)
     tns_fir_gate.launches += 1
     return out, lpc_out, run

@@ -58,11 +58,12 @@ def tns_iir(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
         raise ValueError("tns_iir: contiguous inputs required")
     y = torch.empty_like(x)
     lib = build.library()
-    err = lib.frad_tns_iir(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(coeffs.data_ptr()),
-        ctypes.c_void_p(y.data_ptr()), x.shape[0], x.shape[1],
-        int(x.dtype == torch.float64),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    with build.on_device("tns_iir", x, coeffs) as stream:
+        err = lib.frad_tns_iir(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(coeffs.data_ptr()),
+            ctypes.c_void_p(y.data_ptr()), x.shape[0], x.shape[1],
+            int(x.dtype == torch.float64),
+            stream)
     build.check("frad_tns_iir", err)
     tns_iir.launches += 1
     return y

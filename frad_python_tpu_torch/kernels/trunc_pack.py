@@ -77,10 +77,11 @@ def trunc_pack(y: torch.Tensor, bits: int, little: bool):
     maxabs = torch.empty(b, dtype=torch.float32, device=y.device)
     blocks, threads = geometry(c, n)
     lib = build.library()
-    err = lib.frad_trunc_pack(
-        ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(words.data_ptr()),
-        ctypes.c_void_p(maxabs.data_ptr()), b, c, n, bits, int(bool(little)), blocks, threads,
-        ctypes.c_void_p(torch.cuda.current_stream(y.device).cuda_stream))
+    with build.on_device("trunc_pack", y) as stream:
+        err = lib.frad_trunc_pack(
+            ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(words.data_ptr()),
+            ctypes.c_void_p(maxabs.data_ptr()), b, c, n, bits, int(bool(little)), blocks, threads,
+            stream)
     build.check("frad_trunc_pack", err)
     trunc_pack.launches += 1
     return words, maxabs

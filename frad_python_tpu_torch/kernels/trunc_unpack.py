@@ -69,10 +69,11 @@ def trunc_unpack(words: torch.Tensor, bits: int, little: bool, n: int,
     out = torch.empty((b, ch, n), dtype=torch.float32, device=words.device)
     chunks, threads = geometry(ch, n)
     lib = build.library()
-    err = lib.frad_trunc_unpack(
-        ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        b, ch, n, bits, int(bool(little)), chunks, threads,
-        ctypes.c_void_p(torch.cuda.current_stream(words.device).cuda_stream))
+    with build.on_device("trunc_unpack", words) as stream:
+        err = lib.frad_trunc_unpack(
+            ctypes.c_void_p(words.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            b, ch, n, bits, int(bool(little)), chunks, threads,
+            stream)
     build.check("frad_trunc_unpack", err)
     trunc_unpack.launches += 1
     return out

@@ -1,5 +1,6 @@
 """Batched Profile 0, 1 and 2 cores over a frame batch [B, N, C], as torch
-ops on one device.
+ops, with the automatic frame-batch data parallelism of the JAX package's
+`models/batch.py` over a process's own cards.
 
 Profile 0: the DCT-II / IDCT of `ops/dct.py` (the float32 GEMM, or the
 FFT form at float64 and above N = 8192), and the fast path's fused
@@ -27,9 +28,29 @@ ends like Profile 1.
 
 The lossy cores compute in the dtype of their input: float32 (int32
 symbols), or float64 (int64 symbols, the FFT form of the DCT).
+
+The cores take tensors and run on their device as one call: they are the
+per-block programs, as the JAX package's jitted functions are, and the
+streaming engines' per-frame path and `parallel/sharded.py` (whose ranks
+each own a card) call them so. The batch pipeline hands host arrays and a
+device to `run_rows(core, ...)` (and the decode's overlap-add to
+`decode_oa_rows`), the counterpart of the JAX package's `place_rows` +
+core + `_unpad`: with more than one card in `_data_devices(device)` and
+at least `_MIN_ROWS_PER_DEVICE` rows a card, `place_rows` cuts the batch
+into contiguous row blocks, one a card (zero rows appended so that B
+divides the card count), the core runs on every block before anything
+waits, and the `Rows` result's `fetch` brings it to the host without the
+padding. Rows never interact, so a block's rows are those of one call
+over the whole batch, but for the overlap-add, which takes the tail of
+the frame before a block from the previous block's card. With one card,
+or sharding off, it is one upload and one call, as before the split.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,8 +64,143 @@ from ..kernels.power_quant import power_quant
 from ..kernels.thres_expand import thres_expand
 from ..kernels.trunc_pack import trunc_pack
 from ..kernels.trunc_unpack import trunc_unpack
-from ..ops import tns
+from ..ops import policy, tns
 from ..ops.dct import dct2, idct2
+
+#: no split under 2 rows a card: the streaming engines' small calls stay
+#: on one card
+_MIN_ROWS_PER_DEVICE = 2
+
+#: master switch of the split (FRAD_TORCH_NO_SHARD=1 turns it off for a
+#: process, `sharding_disabled` for a scope), the counterpart of the JAX
+#: package's FRAD_TPU_NO_SHARD
+SHARDING = not os.environ.get("FRAD_TORCH_NO_SHARD")
+
+
+@contextlib.contextmanager
+def sharding_disabled():
+    """Force the single-device path within the scope (for comparisons)."""
+    global SHARDING
+    old, SHARDING = SHARDING, False
+    try:
+        yield
+    finally:
+        SHARDING = old
+
+
+def _data_devices(device: torch.device) -> list[torch.device]:
+    """The cards a batch for `device` may be split over: every visible
+    CUDA device for a `cuda` without an index (what `device=None`
+    resolves to), else `device` alone (an explicit `cuda:k`, or `cpu`).
+    While a `torch.distributed` group of more than one rank is up, each
+    rank keeps to its own current card, as the JAX package keeps to a
+    process's local devices: the ranks split the work between them."""
+    if device.type != "cuda" or device.index is not None:
+        return [device]
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def data_sharding(nbatch: int, device: str | torch.device) -> list[torch.device] | None:
+    """The cards a [nbatch, ...] batch is split over, or None for one call
+    on `device`: sharding off, one card, or under 2 rows a card."""
+    if not SHARDING:
+        return None
+    devs = _data_devices(torch.device(device))
+    if len(devs) < 2 or nbatch < _MIN_ROWS_PER_DEVICE * len(devs):
+        return None
+    return devs
+
+
+class Placed(NamedTuple):
+    """A [B, ...] host array laid out by `place_rows`: equal contiguous row
+    blocks in row order, block i on its card, the batch's last `pad` rows
+    zeros."""
+    blocks: list[torch.Tensor]
+    pad: int
+
+
+def place_rows(arr: np.ndarray, device: str | torch.device | None = None,
+               upload=None) -> Placed:
+    """Upload a [B, ...] host array row-split over `data_sharding`'s cards,
+    each block through `upload` (default `policy.to_device`: a pinned,
+    non-blocking copy), with zero rows appended so that B divides the card
+    count; with no split, one upload to `device` and pad 0. float64 splits
+    too: the JAX package keeps float64 off an accelerator mesh only because
+    it routes float64 to the host CPU, and the H100 runs float64 itself."""
+    dev = policy.resolve_device(device)
+    upload = upload or policy.to_device
+    devs = data_sharding(arr.shape[0], dev)
+    if devs is None:
+        return Placed([upload(arr, dev)], 0)
+    pad = (-arr.shape[0]) % len(devs)
+    rows = (arr.shape[0] + pad) // len(devs)
+    blocks = []
+    for i, d in enumerate(devs):
+        blk = arr[i * rows:(i + 1) * rows]
+        if len(blk) < rows:
+            blk = np.concatenate([blk, np.zeros((rows - len(blk),) + arr.shape[1:], arr.dtype)])
+        blocks.append(upload(blk, d))
+    return Placed(blocks, pad)
+
+
+class Rows:
+    """A core's outputs over a `Placed` batch: `blocks[i]` is the tuple of
+    block i's outputs, each [rows, ...] on block i's card; the batch's last
+    `pad` rows are padding. `extra` holds outputs that are not rows (the
+    decode's fragment)."""
+
+    def __init__(self, blocks: list[tuple[torch.Tensor, ...]], pad: int,
+                 extra: tuple[torch.Tensor, ...] = ()):
+        self.blocks, self.pad, self.extra = blocks, pad, extra
+
+    @property
+    def nreal(self) -> int:
+        """Rows of the batch without the padding."""
+        return sum(b[0].shape[0] for b in self.blocks) - self.pad
+
+    def real(self) -> list[int]:
+        """Each block's rows that are not padding (the padding trails)."""
+        left, out = self.nreal, []
+        for b in self.blocks:
+            out.append(min(b[0].shape[0], left))
+            left -= out[-1]
+        return out
+
+    def fetch(self, to_host=None, which: tuple[int, ...] | None = None) -> list[np.ndarray]:
+        """Outputs `which` (all, then the extras, when None) on the host,
+        each joined in row order without the padding: one `to_host` call
+        (default `policy.to_host`: a pinned copy a block, one synchronise a
+        card)."""
+        picks = range(len(self.blocks[0])) if which is None else which
+        parts = [[b[j] if k == b[j].shape[0] else b[j][:k]
+                  for b, k in zip(self.blocks, self.real()) if k] for j in picks]
+        extra = self.extra if which is None else ()
+        hs = (to_host or policy.to_host)(*(t for p in parts for t in p), *extra)
+        out, at = [], 0
+        for p in parts:
+            out.append(hs[at] if len(p) == 1 else np.concatenate(hs[at:at + len(p)]))
+            at += len(p)
+        return out + list(hs[at:])
+
+
+def _placed(x, device, upload) -> Placed:
+    return x if isinstance(x, Placed) else place_rows(x, device, upload)
+
+
+def run_rows(core, arrays, device, *args, upload=None) -> Rows:
+    """`core(*block_tensors, *args)`, a core below, on every block of
+    `arrays` (host arrays or `Placed`, all of the same B) on its card, each
+    launched before any is waited for: nothing in a core synchronises.
+    With one block it is one call of `core`, as without the split."""
+    placed = [_placed(a, device, upload) for a in arrays]
+    outs = []
+    for parts in zip(*(p.blocks for p in placed)):
+        out = core(*parts, *args)
+        outs.append(out if isinstance(out, tuple) else (out,))
+    return Rows(outs, placed[0].pad)
 
 
 def p0_encode_core(frames: torch.Tensor) -> torch.Tensor:
@@ -116,11 +272,41 @@ def p1_decode_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,
     return idct2(masked).transpose(1, 2)
 
 
-def _overlap_add_emit(pcm: torch.Tensor, olap: int, cut: int, i16: bool):
+def _overlap_add_emit(pcm: torch.Tensor, olap: int, cut: int, i16: bool,
+                      halo: torch.Tensor | None = None):
     """[B, N, C] decoded frames (a view of [B, C, N]) -> the `overlap_add`
     kernel's (out, frag)."""
     pcm = pcm.transpose(1, 2).contiguous()                           # [B, C, N]
-    return overlap_add(pcm, crossfade_window(olap, pcm.device, pcm.dtype), cut, i16)
+    return overlap_add(pcm, crossfade_window(olap, pcm.device, pcm.dtype), cut, i16, halo)
+
+
+def decode_oa_rows(decode, arrays, device, args, olap: int, cut: int, i16: bool,
+                   upload=None) -> Rows:
+    """The split decode + overlap-add of one uniform run, the counterpart of
+    the JAX package's collective-permute: `decode(*block_tensors, *args)`
+    (`p1_decode_core` or `p2_decode_core`) on every block of `arrays` on
+    its card; then block i >= 1 gets the raw [C, olap] tail of block i-1's
+    last frame as its halo (a copy between the two cards), and one
+    `overlap_add` launch a block blends its first frame with it. Rows of
+    [B, cut, C] out; `extra` holds the fragment [olap, C] for the next run:
+    the tail of the last real frame, never of a padding row. With one block
+    this is `p1_decode_oa_core` / `p2_decode_oa_core`, launch for launch."""
+    placed = [_placed(a, device, upload) for a in arrays]
+    pcms = [decode(*parts, *args) for parts in zip(*(p.blocks for p in placed))]
+    blocks, frags = [], []
+    for i, pcm in enumerate(pcms):
+        halo = None
+        if i and olap:
+            tail = pcms[i - 1][-1, cut:cut + olap, :].T.contiguous()     # [C, olap]
+            halo = tail.to(pcm.device, non_blocking=True)
+        out, frag = _overlap_add_emit(pcm, olap, cut, i16, halo)
+        blocks.append((out,))
+        frags.append(frag)
+    rows = Rows(blocks, placed[0].pad)
+    at, last = divmod(rows.nreal - 1, pcms[0].shape[0])
+    rows.extra = (frags[at] if last == pcms[at].shape[0] - 1
+                  else pcms[at][last, cut:cut + olap, :],)
+    return rows
 
 
 def p1_decode_oa_core(freqs_flat: torch.Tensor, thres_flat: torch.Tensor,

@@ -26,6 +26,8 @@ import functools
 import numpy as np
 import torch
 
+from . import policy
+
 MATMUL_MAX_N = 8192
 
 #: cuBLAS's float32 GEMM sums a contraction in one pass, and its error
@@ -55,17 +57,28 @@ def _dct_matrices(n: int, dtype_name: str) -> tuple[np.ndarray, np.ndarray]:
     return np.ascontiguousarray(fwd, dtype=dt), np.ascontiguousarray(inv, dtype=dt)
 
 
-@functools.lru_cache(maxsize=16)
-def device_matrices(n: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(forward, inverse) float32 DCT matrices on `device`, cached."""
+def device_matrices(n: int, device: str | torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(forward, inverse) float32 DCT matrices on `device`, cached once per
+    (N, card): 'cuda' and 'cuda:k' of the current card share an entry."""
+    return _device_matrices(n, policy.device_key(device))
+
+
+#: room for every transform length a run uses, on four cards
+@functools.lru_cache(maxsize=64)
+def _device_matrices(n: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     fwd, inv = _dct_matrices(n, "float32")
     return (torch.from_numpy(fwd).to(device), torch.from_numpy(inv).to(device))
 
 
-@functools.lru_cache(maxsize=32)
 def _twiddle(n: int, dtype: torch.dtype, sign: float, device: torch.device) -> torch.Tensor:
     """exp(sign * i*pi*k/(2n)), built in complex128 on the host and cast
-    to the complex type of `dtype` (complex64 for float32)."""
+    to the complex type of `dtype` (complex64 for float32); cached per
+    card as `device_matrices` is."""
+    return _twiddle_on(n, dtype, sign, policy.device_key(device))
+
+
+@functools.lru_cache(maxsize=128)
+def _twiddle_on(n: int, dtype: torch.dtype, sign: float, device: torch.device) -> torch.Tensor:
     cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
     k = np.arange(n, dtype=np.float64)
     return torch.from_numpy(np.exp(sign * 1j * np.pi * k / (2.0 * n))).to(device=device,

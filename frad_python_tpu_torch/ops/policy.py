@@ -86,9 +86,27 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return staged.to(device, non_blocking=True)
 
 
+def device_key(device: str | torch.device) -> torch.device:
+    """`device` as a cache key: a `torch.device` with its index, so that
+    'cuda', 'cuda:k' of the current card and a string name one entry."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def synchronize(tensors) -> None:
+    """Wait once for the current stream of each distinct CUDA device among
+    `tensors`: a copy from a card is queued on that card's stream, which
+    need not be the current device's."""
+    for dev in dict.fromkeys(t.device for t in tensors if t.device.type == "cuda"):
+        torch.cuda.current_stream(dev).synchronize()
+
+
 def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Tensors -> numpy arrays. CUDA tensors are copied into pinned
-    buffers with non-blocking copies and one stream synchronise."""
+    buffers with non-blocking copies, then each card they lie on is
+    synchronised once."""
     outs = []
     for t in tensors:
         if t.device.type == "cuda":
@@ -97,6 +115,5 @@ def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
             outs.append(h)
         else:
             outs.append(t)
-    if any(t.device.type == "cuda" for t in tensors):
-        torch.cuda.current_stream().synchronize()
+    synchronize(tensors)
     return [o.numpy() for o in outs]

@@ -26,6 +26,8 @@ import functools
 import numpy as np
 import torch
 
+from . import policy
+
 MODIFIED_OPUS_SUBBANDS = (
     0, 200, 400, 600, 800, 1000, 1200, 1400,
     1600, 2000, 2400, 2800, 3200, 4000, 4800, 5600,
@@ -113,9 +115,15 @@ def kernel_tables(dlen: int, srate: int) -> tuple[np.ndarray, np.ndarray, np.nda
     return np.ascontiguousarray(starts, dtype=np.int32), w, a, nb
 
 
-@functools.lru_cache(maxsize=32)
-def device_consts(dlen: int, srate: int, device: torch.device,
+def device_consts(dlen: int, srate: int, device: str | torch.device,
                   dtype: torch.dtype = torch.float32) -> dict:
+    """`_device_consts`, cached once per card (`policy.device_key`)."""
+    return _device_consts(dlen, srate, policy.device_key(device), dtype)
+
+
+#: room for the frame lengths, rates and dtypes of a run on four cards
+@functools.lru_cache(maxsize=128)
+def _device_consts(dlen: int, srate: int, device: torch.device, dtype: torch.dtype) -> dict:
     """The masking and mapping tables of the plain versions as tensors on
     `device`, floats in `dtype` (float32 or float64): `inv_w` and `aht`
     [nb'], the active band count `nb`; `sum_index` [nb, S, SUM_LANES], the

@@ -41,7 +41,7 @@ from ..kernels.tns_fir_gate import quantise as _quantise  # noqa: F401
 from ..kernels.tns_levinson import MAX_ORDER, tns_levinson_plain
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def _lag_window(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """exp(-0.5 * (0.01 l)^2) for l = 0..12, computed in `dtype`."""
     ft = np.float64 if dtype == torch.float64 else np.float32

@@ -188,6 +188,43 @@ def _gather(pcm: np.ndarray, frs: list[tuple[int, int]], length: int) -> np.ndar
     return out
 
 
+def _egr_pack_rows(rows: batch.Rows, max_words: int):
+    """The `egr_pack` kernel on each block's real rows of int32 symbols, on
+    its card -> (compacted words, used, total bits, k, overflow, threshold
+    symbols), joined in frame order on the host, and {frame: symbols} of
+    the frames whose stream overflowed `max_words` (for the host coder).
+    The wrapper waits for a block's row sums to know its length, so the
+    packs drain card by card, after every block's core was launched."""
+    packs, syms = [], []
+    with _stage("enc:egr-pack"):
+        for (fq, _), k in zip(rows.blocks, rows.real()):
+            if k:
+                sym = (fq if k == len(fq) else fq[:k]).contiguous()
+                syms.append(sym)
+                packs.append(egr_pack(sym, max_words, False, _down))
+    tqs = [tq if k == len(tq) else tq[:k] for (_, tq), k in zip(rows.blocks, rows.real()) if k]
+    with _stage("enc:d2h"):
+        hs = _down(*(p[0] for p in packs), *tqs)
+    join = (lambda a: a[0]) if len(packs) == 1 else np.concatenate
+    flat_h = join(hs[:len(packs)]).view(np.uint32)   # int32 words hold the uint32 bit pattern
+    used_h, nbits_h, ks_h, ovf_h = (join([p[j] for p in packs]) for j in range(1, 5))
+    fq_ovf: dict[int, np.ndarray] = {}
+    if ovf_h.any():
+        # (rare) frames whose stream overflowed max_words: host EGR, their
+        # symbols fetched from the cards that hold them
+        picks, first = [], 0
+        for sym, p in zip(syms, packs):
+            local = np.flatnonzero(p[4])
+            if local.size:
+                picks.append((first + local, sym[torch.as_tensor(local, device=sym.device)]))
+            first += len(sym)
+        with _stage("enc:d2h"):
+            got = _down(*(t for _, t in picks))
+        for (idx, _), h in zip(picks, got):
+            fq_ovf.update(zip(idx.tolist(), h))
+    return flat_h, used_h, nbits_h, ks_h, ovf_h, join(hs[len(packs):]), fq_ovf
+
+
 def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, srate: int,
                    bit_depth: int, loss_level: float, dtype: str, i16_upload: bool,
                    device: torch.device) -> list[tuple[bytes, int, int]]:
@@ -211,24 +248,27 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
     b = len(frs)
 
     if profile == 2:
-        # one core call, then the host EGR coder and DEFLATE per frame
+        # one core call a card, then the host EGR coder and DEFLATE per frame
         with _stage("enc:core"):
-            fq, tq, lq = batch.p2_encode_core(_up(arr.astype(dtype), device), srate_v, ll,
-                                              factor)
+            rows = batch.run_rows(batch.p2_encode_core, (arr.astype(dtype),), device, srate_v,
+                                  ll, factor, upload=_up)
         with _stage("enc:d2h"):
-            fqh, tqh, lqh = _down(fq, tq, lq)
+            fqh, tqh, lqh = rows.fetch(_down)
         with _stage("enc:pack"):
             return [(profile2.pack_streams(fqh[i].ravel(), tqh[i].ravel(), lqh[i].ravel()),
                      bdi, frs[i][1]) for i in range(b)]
 
     with _stage("enc:core"):
         if i16_upload and dtype == "float32":
-            fq, tq = batch.p1_encode_core_i16(_up(_to_i16(arr), device), srate_v, ll, factor)
+            rows = batch.run_rows(batch.p1_encode_core_i16, (_to_i16(arr),), device, srate_v,
+                                  ll, factor, upload=_up)
         else:
-            fq, tq = batch.p1_encode_core(_up(arr.astype(dtype), device), srate_v, ll, factor)
+            rows = batch.run_rows(batch.p1_encode_core, (arr.astype(dtype),), device, srate_v,
+                                  ll, factor, upload=_up)
     m = dlen * channels
-    fq = fq.reshape(b, m)                   # [B, N, C] -> interleaved rows
-    tq = tq.reshape(b, psycho.SUBBANDS * channels)
+    # [B, N, C] -> interleaved rows, on each block's card
+    rows = batch.Rows([(fq.reshape(-1, m), tq.reshape(-1, psycho.SUBBANDS * channels))
+                       for fq, tq in rows.blocks], rows.pad)
 
     # single frames, depths over 24 bits (symbols may pass 2^23) and the
     # int64 symbols of float64 take the host EGR coder; the rest bit-pack
@@ -236,26 +276,14 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
     # of int32 symbols
     if bits > 24 or b == 1 or dtype != "float32":
         with _stage("enc:d2h"):
-            fqh, tqh = _down(fq, tq)
+            fqh, tqh = rows.fetch(_down)
         with _stage("enc:pack"):
             return [(profile1.pack_streams(fqh[i], tqh[i]), bdi, frs[i][1])
                     for i in range(b)]
 
     max_words = max(m * 12 // 32, 16)
-    with _stage("enc:egr-pack"):
-        # the per-row sums come back with the stream's length (one wait)
-        flat, used_h, nbits_h, ks_h, ovf_h = egr_pack(fq.contiguous(), max_words, False, _down)
-    with _stage("enc:d2h"):
-        flat_h, tqh = _down(flat, tq)
-    flat_h = flat_h.view(np.uint32)         # int32 words hold the uint32 bit pattern
+    flat_h, used_h, nbits_h, ks_h, ovf_h, tqh, fq_ovf = _egr_pack_rows(rows, max_words)
     offs = np.cumsum(used_h, dtype=np.int64) - used_h
-    ovf_rows = np.flatnonzero(ovf_h)
-    fq_ovf: dict[int, np.ndarray] = {}
-    if ovf_rows.size:
-        # (rare) frames whose stream overflowed max_words: host EGR
-        with _stage("enc:d2h"):
-            (rows,) = _down(fq[torch.as_tensor(ovf_rows, device=fq.device)])
-        fq_ovf = dict(zip(ovf_rows.tolist(), rows))
 
     with _stage("enc:pack"):
         if native.enabled():
@@ -306,25 +334,27 @@ def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
             # that escalates sends the batch down the general path
             use_i24 = i24_upload and base_bits == 24
             with _stage("enc:h2d"):
-                up_d = _up(bitpack.pcm_to_i24_words_host(arr).reshape(b, -1).view(np.int32)
-                           if use_i24 else arr.astype(np.float32), device)
+                placed = batch.place_rows(
+                    bitpack.pcm_to_i24_words_host(arr).reshape(b, -1).view(np.int32)
+                    if use_i24 else arr.astype(np.float32), device, _up)
             with _stage("enc:core"):
                 if use_i24:
-                    words_d, maxabs_d = batch.p0_encode_pack_core_i24(
-                        up_d, base_bits, little_endian, flen, channels)
+                    rows = batch.run_rows(batch.p0_encode_pack_core_i24, (placed,), device,
+                                          base_bits, little_endian, flen, channels)
                 else:
-                    words_d, maxabs_d = batch.p0_encode_pack_core(up_d, base_bits,
-                                                                  little_endian)
+                    rows = batch.run_rows(batch.p0_encode_pack_core, (placed,), device,
+                                          base_bits, little_endian)
             with _stage("enc:d2h"):
-                (maxabs,) = _down(maxabs_d)
+                (maxabs,) = rows.fetch(_down, (1,))
             if np.all(maxabs <= limit):
                 with _stage("enc:d2h"):
-                    (words,) = _down(words_d)
+                    (words,) = rows.fetch(_down, (0,))
                 return _BlobParts(words.tobytes(), words.shape[1] * words.itemsize,
                                   packing.DEPTHS.index(base_bits), flen, b)
         dt = "float64" if base_bits >= policy.DEEP_BITS else dtype
         with _stage("enc:core"):
-            (coeffs,) = _down(batch.p0_encode_core(_up(arr.astype(dt), device)))
+            (coeffs,) = batch.run_rows(batch.p0_encode_core, (arr.astype(dt),), device,
+                                       upload=_up).fetch(_down)
     else:
         coeffs = arr
     flat = coeffs.reshape(b, -1)
@@ -344,7 +374,8 @@ def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
             profile0._escalates_deep(float(m), base_bits) for m in maxabs):
         # escalation reaches a container deeper than float32 (perhaps
         # through an f32 overflow to inf): the whole batch again at float64
-        (coeffs,) = _down(batch.p0_encode_core(_up(arr, device)))
+        (coeffs,) = batch.run_rows(batch.p0_encode_core, (arr,), device,
+                                   upload=_up).fetch(_down)
         maxabs = np.max(np.abs(coeffs.reshape(b, -1)), axis=1)
     depths = [packing.needed_depth(float(m), base_bits) for m in maxabs]
     if fused_blob is not None and all(d == base_bits for d in depths):
@@ -653,13 +684,14 @@ def _decode_lossless(hs: list[ASFH], ps: list[bytes], dtype: str, i24_transfer: 
         with _stage("dec:unpack"):
             words = np.frombuffer(b"".join(ps), dtype="<i2" if bits == 16 else "<i4")
         with _stage("dec:h2d"):
-            words_d = _up(words.reshape(run, -1), device)
+            placed = batch.place_rows(words.reshape(run, -1), device, _up)
         i24 = i24_transfer and bits == 24
         with _stage("dec:core"):
-            out_d = (batch.p0_unpack_decode_i24_core if i24 else batch.p0_unpack_decode_core)(
-                words_d, bits, h0.endian, n, ch)
+            rows = batch.run_rows(
+                batch.p0_unpack_decode_i24_core if i24 else batch.p0_unpack_decode_core,
+                (placed,), device, bits, h0.endian, n, ch)
         with _stage("dec:d2h"):
-            (out,) = _down(out_d)
+            (out,) = rows.fetch(_down)
             return bitpack.i24_words_to_pcm(out).reshape(run, n, ch) if i24 else out
     with _stage("dec:unpack"):
         if bits != 12 and len(sizes) == 1:
@@ -676,7 +708,8 @@ def _decode_lossless(hs: list[ASFH], ps: list[bytes], dtype: str, i24_transfer: 
         return coeffs
     dt = "float64" if bits >= policy.DEEP_BITS else dtype
     with _stage("dec:core"):
-        (out,) = _down(batch.p0_decode_core(_up(coeffs.astype(dt), device)))
+        (out,) = batch.run_rows(batch.p0_decode_core, (coeffs.astype(dt),), device,
+                                upload=_up).fetch(_down)
     return out
 
 
@@ -727,16 +760,15 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     i16 = i16_transfer and dtype == "float32" and h0.profile == 1
 
     with _stage("dec:core"):
-        fq_d, tq_d = _up(fq, device), _up(tq, device)
         if h0.profile == 2:
-            out_d, frag_d = batch.p2_decode_oa_core(
-                fq_d, tq_d, _up(lq.reshape(run, profile2.ORDER1, ch), device),
-                h0.srate, factor, olap, cut, i16)
+            rows = batch.decode_oa_rows(
+                batch.p2_decode_core, (fq, tq, lq.reshape(run, profile2.ORDER1, ch)), device,
+                (h0.srate, factor), olap, cut, i16, _up)
         else:
-            out_d, frag_d = batch.p1_decode_oa_core(fq_d, tq_d, h0.srate, factor, olap, cut,
-                                                    i16)
+            rows = batch.decode_oa_rows(batch.p1_decode_core, (fq, tq), device,
+                                        (h0.srate, factor), olap, cut, i16, _up)
     with _stage("dec:d2h"):
-        out_h, frag = _down(out_d, frag_d)
+        out_h, frag = rows.fetch(_down)
     with _stage("dec:host-conv"):
         if i16:
             out_h = (native.i16_to_f64(out_h) if native.enabled()
