@@ -12,6 +12,13 @@ bind: a failed build or load raises, there is no silent fallback.
 `FRAD_TORCH_NO_NATIVE=1` selects the numpy paths on purpose: callers
 test `enabled()`. Each wrapper counts its calls in its `calls` attribute,
 as the CUDA kernels count `launches`.
+
+The two payload passes, `p1_pack_batch` and `p1_unpack_batch`, take
+`stats=True` to count inside the pass: each such call appends a `Pass`
+to the wrapper's `passes` log (the newest `PASS_LOG`), with the pass's
+host clock, its workers, frames, their CPU time and their lifetimes by
+phase, the CPUs the process may use, and zlib bytes. Without it the C pass
+gets a null buffer and reads no clock.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import ctypes
 import functools
 import os
 import threading
+import time
+from collections import deque
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -42,9 +52,9 @@ SIGNATURES = {
     "frad_maxabs_rows": (None, [_P, _SZ, _SZ, _P, _I]),
     "frad_pack_floats_maxabs": (None, [_P, _SZ, _SZ, _I, _I, _P, _P, _I]),
     "frad_p1_unpack_batch": (None, [_C.c_char_p, _I64P, _I64, _I64, _I64, _I64,
-                                    _P, _P, _P, _P, _I]),
+                                    _P, _P, _P, _P, _I, _I64P]),
     "frad_p1_pack_batch": (None, [_P, _I64P, _I64P, _P, _I64, _I64, _I64P, _I64,
-                                  _P, _I64, _I64P, _I]),
+                                  _P, _I64, _I64P, _I, _I64P]),
     "frad_frame_pack_batch": (None, [_C.c_char_p, _I64P, _I64, _P, _P, _P,
                                      _I, _I, _I, _C.c_uint32, _I, _I, _I,
                                      _I, _I, _I, _P, _I64P, _I]),
@@ -90,9 +100,11 @@ def library() -> ctypes.CDLL:
 
 
 def reset_calls() -> None:
-    """Set every wrapper's call count to 0."""
+    """Set every wrapper's call count to 0 and empty the pass logs."""
     for w in WRAPPERS:
         w.calls = 0
+        if hasattr(w, "passes"):
+            w.passes.clear()
 
 
 def _counted(fn):
@@ -106,6 +118,98 @@ def _counted(fn):
     wrapper.calls = 0
     WRAPPERS.append(wrapper)
     return wrapper
+
+
+#: passes a wrapper's `passes` log keeps, the newest
+PASS_LOG = 4096
+#: frad_native.cpp's PASS_* counters, in order
+_PASS_FIELDS = ("threads", "frames", "busy", "phase0", "phase1", "phase2", "bytes_in",
+                "bytes_out", "live", "first", "last")
+
+
+@dataclass(frozen=True)
+class Pass:
+    """One counted call of a payload pass. `t0` / `t1`: `time.perf_counter()`
+    around the C call; `first` / `last`: its workers' earliest start and
+    latest end on the same clock; `threads`: workers started; `cpus`: CPUs
+    the process may run on (its affinity); `cpu_quota`: CPUs' worth of time
+    its cgroup allows, None without a limit; `busy_s`: the workers' summed
+    CPU time (each thread's CPU clock at its start and end; where that
+    clock moves in scheduler ticks, a worker reads to a tick); `live_s`:
+    their summed lifetimes on the wall clock, which `phase_s` splits by the
+    pass's phases, so `busy_s / live_s` below 1 is time a worker waited for
+    a CPU."""
+    t0: float
+    t1: float
+    frames: int
+    threads: int
+    cpus: int
+    cpu_quota: float | None
+    busy_s: float
+    live_s: float
+    phase_s: dict[str, float]
+    bytes_in: int
+    bytes_out: int
+    first: float
+    last: float
+
+
+@functools.cache
+def cpu_quota() -> float | None:
+    """CPUs' worth of time the process's cgroup and its parents allow
+    (cgroup v2 `cpu.max`, v1 `cpu.cfs_quota_us`), the smallest on the
+    path; None where none is set or readable. Read once a process."""
+    try:
+        with open("/proc/self/cgroup") as f:
+            return _cgroup_quota(f.read(), "/sys/fs/cgroup")
+    except OSError:
+        return None
+
+
+def _cgroup_quota(cgroups: str, fs: str) -> float | None:
+    """`cpu_quota` of a `/proc/<pid>/cgroup` text over the cgroup tree at `fs`."""
+    def words(path: str) -> list[str]:
+        with open(path) as f:
+            return f.read().split()
+
+    found = []
+    for line in cgroups.splitlines():
+        _, controllers, path = line.split(":", 2)
+        if controllers == "":
+            roots, names = (fs, f"{fs}/unified"), ("cpu.max",)
+        elif "cpu" in controllers.split(","):
+            roots, names = (f"{fs}/{controllers}",), ("cpu.cfs_quota_us", "cpu.cfs_period_us")
+        else:
+            continue
+        parts = [p for p in path.split("/") if p]
+        for root in roots:
+            for depth in range(len(parts) + 1):
+                try:
+                    quota, period = [w for n in names
+                                     for w in words(os.path.join(root, *parts[:depth], n))]
+                except (OSError, ValueError):
+                    continue
+                if quota not in ("max", "-1") and int(period) > 0:
+                    found.append(int(quota) / int(period))
+    return min(found) if found else None
+
+
+def _stats_buffer(stats: bool):
+    """(int64 counters, pointer) for a pass, or (None, None) without `stats`."""
+    if not stats:
+        return None, None
+    buf = np.zeros(len(_PASS_FIELDS), dtype=np.int64)
+    return buf, _i64p(buf)
+
+
+def _log_pass(wrapper, phases: tuple[str, ...], buf: np.ndarray, t0: float,
+              t1: float) -> None:
+    v = dict(zip(_PASS_FIELDS, buf.tolist()))
+    wrapper.passes.append(Pass(
+        t0, t1, v["frames"], v["threads"], len(os.sched_getaffinity(0)), cpu_quota(),
+        v["busy"] * 1e-9, v["live"] * 1e-9,
+        {name: v[f"phase{j}"] * 1e-9 for j, name in enumerate(phases)},
+        v["bytes_in"], v["bytes_out"], v["first"] * 1e-9, v["last"] * 1e-9))
 
 
 def _offsets(parts: list[bytes]) -> np.ndarray:
@@ -269,13 +373,15 @@ def maxabs_rows(mat: np.ndarray, nthreads: int = 2) -> np.ndarray:
 
 @_counted
 def p1_unpack_batch(payloads: list[bytes], fq_len: int, tq_len: int, lq_len: int = 0,
-                    nthreads: int = 3
+                    nthreads: int = 3, stats: bool = False
                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None, np.ndarray]:
     """Inflate + EGR-decode + untrim a batch of Profile 1 payloads, or with
     `lq_len` of Profile 2 payloads, into f32.
 
     Returns (fq [B, fq_len], tq [B, tq_len], lq [B, lq_len] or None,
-    ok [B] bool). A corrupt payload comes back as zero rows with ok False."""
+    ok [B] bool). A corrupt payload comes back as zero rows with ok False.
+    `stats` logs the pass in `p1_unpack_batch.passes` (phases `inflate`,
+    `egr_untrim`; zlib's bytes in are the payloads', out the inflated)."""
     b = len(payloads)
     blob = b"".join(payloads)
     offsets = _offsets(payloads)
@@ -283,16 +389,22 @@ def p1_unpack_batch(payloads: list[bytes], fq_len: int, tq_len: int, lq_len: int
     tq = np.empty((b, tq_len), dtype=np.float32)
     lq = np.empty((b, lq_len), dtype=np.float32) if lq_len else None
     ok = np.empty(b, dtype=np.uint8)
-    library().frad_p1_unpack_batch(blob, _i64p(offsets), b, fq_len, tq_len, lq_len,
-                                   fq.ctypes.data, tq.ctypes.data,
-                                   lq.ctypes.data if lq is not None else None,
-                                   ok.ctypes.data, nthreads)
+    fn = library().frad_p1_unpack_batch
+    buf, buf_p = _stats_buffer(stats)
+    t0 = time.perf_counter()
+    fn(blob, _i64p(offsets), b, fq_len, tq_len, lq_len, fq.ctypes.data, tq.ctypes.data,
+       lq.ctypes.data if lq is not None else None, ok.ctypes.data, nthreads, buf_p)
+    if stats:
+        _log_pass(p1_unpack_batch, ("inflate", "egr_untrim"), buf, t0, time.perf_counter())
     return fq, tq, lq, ok.astype(bool)
+
+
+p1_unpack_batch.passes = deque(maxlen=PASS_LOG)
 
 
 @_counted
 def p1_pack_batch(words: np.ndarray, nbits: np.ndarray, ks: np.ndarray,
-                  skip: np.ndarray, tq: np.ndarray, nthreads: int = 3
+                  skip: np.ndarray, tq: np.ndarray, nthreads: int = 3, stats: bool = False
                   ) -> list[bytes | None]:
     """Assemble and deflate a batch of Profile 1 payloads from EGR words.
 
@@ -300,6 +412,9 @@ def p1_pack_batch(words: np.ndarray, nbits: np.ndarray, ks: np.ndarray,
     bool (overflow frames the caller packs on the host), tq [B, T]
     threshold ints. Returns each frame's payload, None where skipped;
     the bytes equal `zlib.compress(frad, wbits=-15)` with the same zlib.
+    `stats` logs the pass in `p1_pack_batch.passes` (phases `thres_egr`,
+    `words`, `deflate`; zlib's bytes in are the unpacked payloads', out
+    the payloads').
     """
     b, w = words.shape
     words = np.ascontiguousarray(words, dtype=np.uint32)
@@ -312,11 +427,19 @@ def p1_pack_batch(words: np.ndarray, nbits: np.ndarray, ks: np.ndarray,
     cap = frad_max + frad_max // 1000 + 128   # > deflateBound for raw deflate
     out = np.empty(b * cap, dtype=np.uint8)
     out_len = np.zeros(b, dtype=np.int64)
-    library().frad_p1_pack_batch(words.ctypes.data, _i64p(nbits), _i64p(ks),
-                                 skip_u8.ctypes.data, b, w, _i64p(tq), t,
-                                 out.ctypes.data, cap, _i64p(out_len), nthreads)
+    fn = library().frad_p1_pack_batch
+    buf, buf_p = _stats_buffer(stats)
+    t0 = time.perf_counter()
+    fn(words.ctypes.data, _i64p(nbits), _i64p(ks), skip_u8.ctypes.data, b, w, _i64p(tq), t,
+       out.ctypes.data, cap, _i64p(out_len), nthreads, buf_p)
+    if stats:
+        _log_pass(p1_pack_batch, ("thres_egr", "words", "deflate"), buf, t0,
+                  time.perf_counter())
     return [out[i * cap: i * cap + out_len[i]].tobytes() if out_len[i] > 0 else None
             for i in range(b)]
+
+
+p1_pack_batch.passes = deque(maxlen=PASS_LOG)
 
 
 @_counted

@@ -12,8 +12,11 @@
 #include <cstddef>
 #include <cstdlib>
 #include <cstring>
+#include <ctime>
 
 #include <atomic>
+#include <chrono>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -585,6 +588,88 @@ void frad_f64_to_i16(const double* in, size_t n, double scale, int16_t* out,
 }
 
 // ---------------------------------------------------------------------------
+// Pass counters of the batched payload passes. A caller that hands a
+// buffer of PASS_LEN int64 gets the pass's workers and frames, the CPU
+// nanoseconds its workers spent (each thread's CPU clock, read at the
+// worker's start and end: a worker that waits for a CPU counts nothing),
+// their summed lifetimes on steady_clock (CLOCK_MONOTONIC, the clock of
+// Python's perf_counter) split into the pass's phases, the bytes into and
+// out of zlib, and the workers' earliest start and latest end. The phases
+// are timed on steady_clock because it is cheap to read where the thread
+// CPU clock is not: that is a system call, tens of microseconds on some
+// hosts, whose clock moves in scheduler ticks. With a null buffer no
+// worker reads a clock.
+// ---------------------------------------------------------------------------
+
+enum {
+    PASS_THREADS, PASS_FRAMES, PASS_BUSY_NS, PASS_PHASE0_NS, PASS_PHASE1_NS,
+    PASS_PHASE2_NS, PASS_BYTES_IN, PASS_BYTES_OUT, PASS_LIVE_NS, PASS_FIRST_NS,
+    PASS_LAST_NS, PASS_LEN
+};
+
+static inline int64_t mono_ns() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+        std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+
+static inline int64_t thread_cpu_ns() {
+    timespec ts;
+    clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+    return (int64_t)ts.tv_sec * 1000000000 + ts.tv_nsec;
+}
+
+// One worker's totals, kept on its own stack and folded into the
+// caller's buffer once, at the worker's end. Phases tile the worker's
+// lifetime: each `lap` charges the time since the last stamp to one phase.
+struct PassTally {
+    int64_t v[PASS_LEN] = {};
+    int64_t last = 0, cpu0 = 0;
+    void start() {
+        cpu0 = thread_cpu_ns();
+        v[PASS_FIRST_NS] = last = mono_ns();
+    }
+    void lap(int phase) {
+        int64_t now = mono_ns();
+        v[PASS_PHASE0_NS + phase] += now - last;
+        last = now;
+    }
+    void fold(int64_t* stats, std::mutex* mu) {
+        v[PASS_BUSY_NS] = thread_cpu_ns() - cpu0;
+        v[PASS_LAST_NS] = last;
+        v[PASS_LIVE_NS] = last - v[PASS_FIRST_NS];
+        std::lock_guard<std::mutex> hold(*mu);
+        for (int j = PASS_FRAMES; j <= PASS_LIVE_NS; j++) stats[j] += v[j];
+        if (v[PASS_FIRST_NS] < stats[PASS_FIRST_NS]) stats[PASS_FIRST_NS] = v[PASS_FIRST_NS];
+        if (v[PASS_LAST_NS] > stats[PASS_LAST_NS]) stats[PASS_LAST_NS] = v[PASS_LAST_NS];
+    }
+};
+
+} // extern "C"
+
+// Run `worker(ctx)` on `nthreads` threads (one below 8 frames), recording
+// the count in `stats` when given.
+template <typename Ctx>
+static void run_pass(void (*worker)(Ctx*), Ctx* ctx, int64_t nframes, int nthreads,
+                     int64_t* stats = nullptr) {
+    if (nthreads < 1 || nframes < 8) nthreads = 1;
+    if (stats) {
+        memset(stats, 0, sizeof(int64_t) * PASS_LEN);
+        stats[PASS_THREADS] = nthreads;
+        stats[PASS_FIRST_NS] = INT64_MAX;
+        stats[PASS_LAST_NS] = INT64_MIN;
+    }
+    if (nthreads == 1) {
+        worker(ctx);
+        return;
+    }
+    std::vector<std::thread> ts;
+    for (int t = 0; t < nthreads; t++) ts.emplace_back(worker, ctx);
+    for (auto& th : ts) th.join();
+}
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
 // Batched lossy-profile payload unpack: raw-inflate + EGR decode + untrim,
 // one pass per frame, C++ threads. Replaces the per-frame Python chain
 // (zlib.decompress -> egr_decode -> astype -> np.pad -> np.stack) that
@@ -698,13 +783,19 @@ struct P1Ctx {
     float *fq, *tq, *lq;
     uint8_t* ok;
     std::atomic<int64_t>* next;
+    int64_t* stats;               // PASS_LEN counters, or null
+    std::mutex* mu;
 };
 
+// Phases: 0 inflate, 1 EGR decode and untrim (the rows' zeroing included).
 static void p1_unpack_worker(P1Ctx* c) {
     std::vector<uint8_t> buf;
+    PassTally tally;
+    const bool timed = c->stats != nullptr;
+    if (timed) tally.start();
     for (;;) {
         int64_t i = c->next->fetch_add(1);
-        if (i >= c->nframes) return;
+        if (i >= c->nframes) break;
         float* fqr = c->fq + i * c->fq_len;
         float* tqr = c->tq + i * c->tq_len;
         float* lqr = c->lq_len ? c->lq + i * c->lq_len : nullptr;
@@ -715,7 +806,15 @@ static void p1_unpack_worker(P1Ctx* c) {
 
         const uint8_t* src = c->payloads + c->offsets[i];
         size_t len = (size_t)(c->offsets[i + 1] - c->offsets[i]);
-        if (!raw_inflate(src, len, buf)) continue;
+        if (timed) tally.lap(1);
+        const bool inflated = raw_inflate(src, len, buf);
+        if (timed) {
+            tally.lap(0);
+            tally.v[PASS_FRAMES]++;
+            tally.v[PASS_BYTES_IN] += (int64_t)len;
+            if (inflated) tally.v[PASS_BYTES_OUT] += (int64_t)buf.size();
+        }
+        if (!inflated) continue;
         const uint8_t* q = buf.data();
         size_t m = buf.size(), off = 0;
 
@@ -742,28 +841,26 @@ static void p1_unpack_worker(P1Ctx* c) {
         egr_decode_f32(q + off, m - off, fqr, (size_t)c->fq_len);
         c->ok[i] = 1;
     }
+    if (timed) {
+        tally.lap(1);
+        tally.fold(c->stats, c->mu);
+    }
 }
 
 // Unpack `nframes` DEFLATEd lossy payloads into zero-padded f32 rows:
 // fq [nframes, fq_len], tq [nframes, tq_len], lq [nframes, lq_len]
 // (lq_len == 0 -> profile-1 layout, lq may be null). ok[i] = 1 when the
 // frame inflated cleanly, else the rows stay zero (decoder's zero-frame
-// path, reference profile1.py:59-64).
+// path, reference profile1.py:59-64). `stats`: PASS_LEN counters, or null.
 void frad_p1_unpack_batch(const uint8_t* payloads, const int64_t* offsets,
                           int64_t nframes, int64_t fq_len, int64_t tq_len,
                           int64_t lq_len, float* fq, float* tq, float* lq,
-                          uint8_t* ok, int nthreads) {
+                          uint8_t* ok, int nthreads, int64_t* stats) {
     std::atomic<int64_t> next(0);
+    std::mutex mu;
     P1Ctx ctx = {payloads, offsets, nframes, fq_len, tq_len, lq_len,
-                 fq, tq, lq, ok, &next};
-    if (nthreads < 1) nthreads = 1;
-    if (nthreads == 1 || nframes < 8) {
-        p1_unpack_worker(&ctx);
-        return;
-    }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nthreads; t++) ts.emplace_back(p1_unpack_worker, &ctx);
-    for (auto& th : ts) th.join();
+                 fq, tq, lq, ok, &next, stats, &mu};
+    run_pass(p1_unpack_worker, &ctx, nframes, nthreads, stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -788,18 +885,27 @@ struct P1PackCtx {
     int64_t cap;
     int64_t* out_len;             // [B] payload bytes (0 when skipped/error)
     std::atomic<int64_t>* next;
+    int64_t* stats;               // PASS_LEN counters, or null
+    std::mutex* mu;
 };
 
+// Phases: 0 threshold EGR, 1 word serialisation, 2 DEFLATE (its stream's
+// set-up and teardown included).
 static void p1_pack_worker(P1PackCtx* c) {
+    PassTally tally;
+    const bool timed = c->stats != nullptr;
+    if (timed) tally.start();
     std::vector<uint8_t> frad;
     frad.reserve((size_t)(4 + 17 * c->tlen + 16 + 1 + 4 * c->wlen));
     z_stream zs;
     memset(&zs, 0, sizeof zs);
     bool zinit = deflateInit2(&zs, Z_DEFAULT_COMPRESSION, Z_DEFLATED, -15, 8,
                               Z_DEFAULT_STRATEGY) == Z_OK;
+    if (timed) tally.lap(2);
     for (;;) {
         int64_t i = c->next->fetch_add(1);
         if (i >= c->nframes) break;
+        if (timed) tally.v[PASS_FRAMES]++;
         c->out_len[i] = 0;
         if (c->skip[i] || !zinit) continue;
 
@@ -809,6 +915,7 @@ static void p1_pack_worker(P1PackCtx* c) {
         frad[0] = (uint8_t)(tl >> 24); frad[1] = (uint8_t)(tl >> 16);
         frad[2] = (uint8_t)(tl >> 8);  frad[3] = (uint8_t)tl;
         frad.resize(4 + tl);
+        if (timed) tally.lap(0);
 
         // freq stream: k header byte + first ceil(nbits/8) BE word bytes
         frad.push_back((uint8_t)c->ks[i]);
@@ -822,6 +929,7 @@ static void p1_pack_worker(P1PackCtx* c) {
         }
         for (size_t b = full * 4; b < nb; b++)
             frad.push_back((uint8_t)(w[b / 4] >> (24 - 8 * (b % 4))));
+        if (timed) tally.lap(1);
 
         deflateReset(&zs);
         zs.next_in = frad.data();
@@ -831,8 +939,17 @@ static void p1_pack_worker(P1PackCtx* c) {
         if (deflate(&zs, Z_FINISH) == Z_STREAM_END)
             c->out_len[i] = (int64_t)zs.total_out;
         // else: out_len stays 0 -> caller re-packs on the host path
+        if (timed) {
+            tally.lap(2);
+            tally.v[PASS_BYTES_IN] += (int64_t)frad.size();
+            tally.v[PASS_BYTES_OUT] += c->out_len[i];
+        }
     }
     if (zinit) deflateEnd(&zs);
+    if (timed) {
+        tally.lap(2);
+        tally.fold(c->stats, c->mu);
+    }
 }
 
 void frad_p1_pack_batch(const uint32_t* words, const int64_t* nbits,
@@ -840,18 +957,12 @@ void frad_p1_pack_batch(const uint32_t* words, const int64_t* nbits,
                         int64_t nframes, int64_t wlen,
                         const int64_t* tq, int64_t tlen,
                         uint8_t* out, int64_t cap, int64_t* out_len,
-                        int nthreads) {
+                        int nthreads, int64_t* stats) {
     std::atomic<int64_t> next(0);
+    std::mutex mu;
     P1PackCtx ctx = {words, nbits, ks, skip, nframes, wlen, tlen,
-                     tq, out, cap, out_len, &next};
-    if (nthreads < 1) nthreads = 1;
-    if (nthreads == 1 || nframes < 8) {
-        p1_pack_worker(&ctx);
-        return;
-    }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nthreads; t++) ts.emplace_back(p1_pack_worker, &ctx);
-    for (auto& th : ts) th.join();
+                     tq, out, cap, out_len, &next, stats, &mu};
+    run_pass(p1_pack_worker, &ctx, nframes, nthreads, stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -982,14 +1093,7 @@ void frad_frame_pack_batch(
                         profile, is_compact, channels, srate, srate_idx,
                         overlap_ratio, little_endian, ecc, ecc_dsize,
                         ecc_codesize, gen, out, out_offsets, &next};
-    if (nthreads < 1) nthreads = 1;
-    if (nthreads == 1 || nframes < 8) {
-        frame_pack_worker(&ctx);
-        return;
-    }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nthreads; t++) ts.emplace_back(frame_pack_worker, &ctx);
-    for (auto& th : ts) th.join();
+    run_pass(frame_pack_worker, &ctx, nframes, nthreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -1074,14 +1178,7 @@ void frad_unarmor_batch(
     std::atomic<int64_t> next(0);
     UnarmorCtx ctx = {payloads, offsets, nframes, dsize, csize, crcs,
                       crc_is16, fix_error, out, out_offsets, ok, &next};
-    if (nthreads < 1) nthreads = 1;
-    if (nthreads == 1 || nframes < 8) {
-        unarmor_worker(&ctx);
-        return;
-    }
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nthreads; t++) ts.emplace_back(unarmor_worker, &ctx);
-    for (auto& th : ts) th.join();
+    run_pass(unarmor_worker, &ctx, nframes, nthreads);
 }
 
 // ---------------------------------------------------------------------------

@@ -46,7 +46,16 @@ engines, which call them) add each stage's host wall and the bytes copied
 each way under the JAX package's stage names. A stage's wall is host time:
 CUDA launches are asynchronous and the timer adds no synchronisation, so
 the device time of `enc:core` / `dec:core` shows in the copy-back stage
-that waits for it (`enc:d2h`, `dec:d2h`), as with XLA's dispatch.
+that waits for it (`enc:d2h`, `dec:d2h`), as with XLA's dispatch. Some
+stages open inside others: in Profiles 1 and 2 `enc:host-conv` (the
+host's cast of the frames to the upload's type), `enc:h2d` / `dec:h2d`
+(the upload) inside `enc:core` / `dec:core`, whose rest is the launches;
+`enc:pack-native` / `dec:unpack-native` (the C++ pass's wrapper, which
+then logs the pass's counters in `native.p1_pack_batch.passes` /
+`native.p1_unpack_batch.passes`) inside `enc:pack` / `dec:unpack`, whose
+rest is the glue around it. The port adds those two, `enc:host-conv` and
+`dec:emit` (`batch_decode`'s fragment heads and join of the PCM) to the
+JAX package's names.
 """
 
 from __future__ import annotations
@@ -250,21 +259,25 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
     if profile == 2:
         # one core call a card, then the host EGR coder and DEFLATE per frame
         with _stage("enc:core"):
-            rows = batch.run_rows(batch.p2_encode_core, (arr.astype(dtype),), device, srate_v,
-                                  ll, factor, upload=_up)
+            with _stage("enc:host-conv"):
+                arr = arr.astype(dtype)
+            with _stage("enc:h2d"):
+                placed = batch.place_rows(arr, device, _up)
+            rows = batch.run_rows(batch.p2_encode_core, (placed,), device, srate_v, ll, factor)
         with _stage("enc:d2h"):
             fqh, tqh, lqh = rows.fetch(_down)
         with _stage("enc:pack"):
             return [(profile2.pack_streams(fqh[i].ravel(), tqh[i].ravel(), lqh[i].ravel()),
                      bdi, frs[i][1]) for i in range(b)]
 
+    i16 = i16_upload and dtype == "float32"
     with _stage("enc:core"):
-        if i16_upload and dtype == "float32":
-            rows = batch.run_rows(batch.p1_encode_core_i16, (_to_i16(arr),), device, srate_v,
-                                  ll, factor, upload=_up)
-        else:
-            rows = batch.run_rows(batch.p1_encode_core, (arr.astype(dtype),), device, srate_v,
-                                  ll, factor, upload=_up)
+        with _stage("enc:host-conv"):
+            arr = _to_i16(arr) if i16 else arr.astype(dtype)
+        with _stage("enc:h2d"):
+            placed = batch.place_rows(arr, device, _up)
+        rows = batch.run_rows(batch.p1_encode_core_i16 if i16 else batch.p1_encode_core,
+                              (placed,), device, srate_v, ll, factor)
     m = dlen * channels
     # [B, N, C] -> interleaved rows, on each block's card
     rows = batch.Rows([(fq.reshape(-1, m), tq.reshape(-1, psycho.SUBBANDS * channels))
@@ -292,8 +305,10 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
             # rows padded to the widest frame
             w = max(int(used_h.max()), 1)
             flat_pad = np.concatenate([flat_h, np.zeros(w, dtype=np.uint32)])
-            payloads = native.p1_pack_batch(flat_pad[offs[:, None] + np.arange(w)],
-                                            nbits_h, ks_h, ovf_h, tqh)
+            padded = flat_pad[offs[:, None] + np.arange(w)]
+            with _stage("enc:pack-native"):
+                payloads = native.p1_pack_batch(padded, nbits_h, ks_h, ovf_h, tqh,
+                                                stats=STAGES is not None)
             return [(p if p is not None else profile1.pack_streams(fq_ovf[i], tqh[i]),
                      bdi, frs[i][1]) for i, p in enumerate(payloads)]
 
@@ -635,7 +650,9 @@ def _unpack_run(ps: list[bytes], n: int, ch: int, profile: int, dtype: str
     lq_len = profile2.ORDER1 * ch if profile == 2 else 0
     if native.enabled() and dtype == "float32":
         # one threaded C++ pass: inflate + EGR decode + untrim
-        fq, tq, lq, _ok = native.p1_unpack_batch(ps, n * ch, tq_len, lq_len)
+        with _stage("dec:unpack-native"):
+            fq, tq, lq, _ok = native.p1_unpack_batch(ps, n * ch, tq_len, lq_len,
+                                                     stats=STAGES is not None)
         return fq, tq, lq
     fq = np.zeros((len(ps), n * ch), dtype=dtype)
     tq = np.zeros((len(ps), tq_len), dtype=dtype)
@@ -759,14 +776,12 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     # Profile 2's frames as floats
     i16 = i16_transfer and dtype == "float32" and h0.profile == 1
 
+    core, arrays = ((batch.p2_decode_core, (fq, tq, lq.reshape(run, profile2.ORDER1, ch)))
+                    if h0.profile == 2 else (batch.p1_decode_core, (fq, tq)))
     with _stage("dec:core"):
-        if h0.profile == 2:
-            rows = batch.decode_oa_rows(
-                batch.p2_decode_core, (fq, tq, lq.reshape(run, profile2.ORDER1, ch)), device,
-                (h0.srate, factor), olap, cut, i16, _up)
-        else:
-            rows = batch.decode_oa_rows(batch.p1_decode_core, (fq, tq), device,
-                                        (h0.srate, factor), olap, cut, i16, _up)
+        with _stage("dec:h2d"):
+            placed = [batch.place_rows(a, device, _up) for a in arrays]
+        rows = batch.decode_oa_rows(core, placed, device, (h0.srate, factor), olap, cut, i16)
     with _stage("dec:d2h"):
         out_h, frag = rows.fetch(_down)
     with _stage("dec:host-conv"):
@@ -888,11 +903,12 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
             stream_rest = True
             break
         out, new_frag = res
-        if frag.size and len(out):
-            out_parts.append(_frag_head(out, frag))
-            out_parts.append(out[len(frag):])
-        else:
-            out_parts.append(out)
+        with _stage("dec:emit"):
+            if frag.size and len(out):
+                out_parts.append(_frag_head(out, frag))
+                out_parts.append(out[len(frag):])
+            else:
+                out_parts.append(out)
         frag = new_frag
         srate = h0.srate
         idx += run
@@ -919,13 +935,14 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
         elif frag.size:
             out_parts.append(frag)
 
-    parts = [np.atleast_2d(p) for p in out_parts if p.size]
-    if not parts:
-        pcm_out = np.empty((0, first.channels))
-    elif len(parts) == 1:
-        pcm_out = parts[0]
-    else:
-        pcm_out = np.concatenate(parts, axis=0)
+    with _stage("dec:emit"):
+        parts = [np.atleast_2d(p) for p in out_parts if p.size]
+        if not parts:
+            pcm_out = np.empty((0, first.channels))
+        elif len(parts) == 1:
+            pcm_out = parts[0]
+        else:
+            pcm_out = np.concatenate(parts, axis=0)
     if return_remainder:
         return pcm_out, srate, remainder
     return pcm_out, srate

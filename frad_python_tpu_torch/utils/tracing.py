@@ -1,50 +1,23 @@
-"""Tracing and profiling utilities (the port of
-`frad_python_tpu.utils.tracing`).
-
-* `trace(log_dir)` — context manager around `torch.profiler.profile`
-  (CPU activity, and CUDA activity when a CUDA device is present) that
-  writes a Chrome trace into `log_dir`.
-* `StageTimer` — lightweight named wall-clock stage accumulator used to
-  attribute pipeline time (gather / core / d2h / host-pack / framing).
-* `annotate(name)` — `torch.profiler.record_function`, so host stages
-  show up inside device traces.
-
-`torch.profiler` is imported inside the functions that use it.
+"""Tracing utilities (the port of `frad_python_tpu.utils.tracing`):
+`StageTimer`, a lightweight named wall-clock stage accumulator used to
+attribute pipeline time (gather / core / d2h / host-pack / framing).
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import threading
 import time
 from collections import defaultdict
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Capture a `torch.profiler` trace of the block into
-    `log_dir/trace.json` (Chrome trace format); yields the profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def annotate(name: str):
-    """Named region that appears on the host track of device traces."""
-    from torch.profiler import record_function
-
-    return record_function(name)
-
-
 class StageTimer:
     """Accumulates wall-clock per named stage; pretty summary on demand.
+
+    A stage may open inside another (the pipeline's `enc:h2d` inside
+    `enc:core`, say): its wall is then also in its parent's, so the
+    summary's shares are of the wall under the outermost stages, and a
+    stage timed inside another is marked `(nested)`.
 
     Also meters device-link traffic: transfer sites call
     `add_bytes('h2d'|'d2h', n)` so a run can compute the effective link
@@ -54,15 +27,24 @@ class StageTimer:
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self.bytes: dict[str, int] = defaultdict(int)
+        #: the part of each stage's wall spent inside another stage
+        self.nested: dict[str, float] = defaultdict(float)
+        self._depth = threading.local()
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        depth = getattr(self._depth, "n", 0)
+        self._depth.n = depth + 1
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self._depth.n = depth
+            self.totals[name] += dt
             self.counts[name] += 1
+            if depth:
+                self.nested[name] += dt
 
     def add_bytes(self, direction: str, n: int) -> None:
         self.bytes[direction] += int(n)
@@ -74,8 +56,9 @@ class StageTimer:
                    if name.endswith(":" + direction))
 
     def summary(self) -> str:
-        total = sum(self.totals.values()) or 1.0
+        total = sum(self.totals.values()) - sum(self.nested.values()) or 1.0
         lines = [f"{name:>16}: {t:8.3f}s ({t / total * 100:5.1f}%) x{self.counts[name]}"
+                 + (" (nested)" if self.nested.get(name) else "")
                  for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1])]
         for d in ("h2d", "d2h"):
             if self.bytes.get(d):

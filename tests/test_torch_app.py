@@ -531,9 +531,7 @@ def test_hostmem_and_warm_heap_variable(monkeypatch):
     assert called == [True]
 
 
-def test_tracing(tmp_path):
-    import torch
-
+def test_tracing():
     mine, theirs = tracing.StageTimer(), JStageTimer()
     for t in (mine, theirs):
         with t.stage("enc:h2d"):
@@ -545,9 +543,18 @@ def test_tracing(tmp_path):
     assert mine.transfer_wait("h2d") == mine.totals["enc:h2d"]
     assert [ln.split(":")[0] for ln in mine.summary().splitlines()] == \
         [ln.split(":")[0] for ln in theirs.summary().splitlines()]
-    with tracing.trace(str(tmp_path / "tr")) as prof:
-        with tracing.annotate("region-of-the-test"):
-            torch.ones(8).sum()
-    assert prof is not None
-    text = (tmp_path / "tr" / "trace.json").read_text()
-    assert "region-of-the-test" in text and "traceEvents" in text
+    # a stage inside another counts once in the shares, and is marked
+    with mine.stage("enc:core"):
+        time.sleep(0.002)
+        with mine.stage("enc:h2d"):
+            time.sleep(0.002)
+    assert mine.counts["enc:h2d"] == 2 and 0 < mine.nested["enc:h2d"] < mine.totals["enc:h2d"]
+    assert set(mine.nested) == {"enc:h2d"}
+    shares = {ln.split(": ")[0].strip(): float(ln.split("(")[1].split("%")[0])
+              for ln in mine.summary().splitlines() if "%" in ln}
+    assert shares["core"] + shares["enc:core"] + shares["enc:h2d"] > 100.0
+    top = mine.totals["core"] + mine.totals["enc:core"] + mine.totals["enc:h2d"] - \
+        mine.nested["enc:h2d"]
+    assert shares["enc:core"] == pytest.approx(100 * mine.totals["enc:core"] / top, abs=0.06)
+    assert [ln for ln in mine.summary().splitlines() if "(nested)" in ln][0].split(": ")[0] \
+        .strip() == "enc:h2d"

@@ -8,6 +8,7 @@ The tests need g++ and skip only where there is none.
 """
 
 import ctypes
+import os
 import shutil
 import struct
 import zlib
@@ -205,6 +206,191 @@ def test_p1_unpack_batch_with_corrupt_payloads(numpy_path):
     np.testing.assert_array_equal(nfq, got_fq)
     np.testing.assert_array_equal(ntq, got_tq)
     np.testing.assert_array_equal(got_fq[0, :2048], fq[0])
+
+
+def _corrupt_batch():
+    """(pack arguments of 20 frames, one overflowing; their payloads with
+    corrupt ones appended)."""
+    _, tq, words, nbits, ks, ovf = _packed_batch(20)
+    args = (words, nbits, ks, ovf, tq)
+    payloads = [p for p in tnative.p1_pack_batch(*args) if p]
+    payloads += [b"", b"\x00garbage", payloads[0][: len(payloads[0]) // 2],
+                 zlib.compress(b"\x00\x00", wbits=-15)]
+    return args, payloads
+
+
+def _inflated(payloads):
+    """Bytes zlib gives back for the payloads it inflates whole."""
+    total = 0
+    for p in payloads:
+        try:
+            total += len(zlib.decompress(p, wbits=-15))
+        except zlib.error:
+            pass
+    return total
+
+
+def _check_pass(p, frames, phases, cpus=None):
+    """A pass record's own arithmetic: phases tile the workers' lifetimes,
+    the CPU time fits inside those (to a scheduler tick a worker, where the
+    thread CPU clock moves in ticks) and the lifetimes inside the pass's
+    wall, the workers' wall clock lies inside the wrapper's (one clock,
+    CLOCK_MONOTONIC, on both sides)."""
+    assert p.frames == frames and p.threads == (1 if frames < 8 else 3)
+    assert p.cpus == (cpus or len(os.sched_getaffinity(0))) >= 1
+    assert p.cpu_quota is None or p.cpu_quota > 0
+    assert tuple(p.phase_s) == phases and all(v >= 0 for v in p.phase_s.values())
+    assert sum(p.phase_s.values()) == pytest.approx(p.live_s, rel=0.01)
+    assert 0 <= p.busy_s <= p.live_s * 1.01 + p.threads * 0.01
+    assert 0 < p.live_s <= p.threads * (p.t1 - p.t0)
+    assert p.t0 <= p.first <= p.last <= p.t1
+
+
+def test_cpu_quota_reads_the_smallest_limit_on_the_path(tmp_path):
+    """cgroup v2 `cpu.max` and v1 `cpu.cfs_quota_us` / `cpu.cfs_period_us`,
+    the smallest limit of the cgroup and its parents; no limit is None."""
+    def put(rel, text):
+        f = tmp_path / rel
+        f.parent.mkdir(parents=True, exist_ok=True)
+        f.write_text(text)
+
+    put("cpu.max", "max 100000\n")
+    put("a/cpu.max", "600000 100000\n")
+    put("a/b/cpu.max", "800000 100000\n")
+    assert tnative._cgroup_quota("0::/a/b\n", str(tmp_path)) == 6.0
+    assert tnative._cgroup_quota("0::/\n", str(tmp_path)) is None
+    put("cpu,cpuacct/j/cpu.cfs_quota_us", "250000\n")
+    put("cpu,cpuacct/j/cpu.cfs_period_us", "100000\n")
+    put("cpu,cpuacct/cpu.cfs_quota_us", "-1\n")
+    put("cpu,cpuacct/cpu.cfs_period_us", "100000\n")
+    assert tnative._cgroup_quota("4:memory:/j\n2:cpu,cpuacct:/j\n", str(tmp_path)) == 2.5
+    assert tnative._cgroup_quota("2:cpu,cpuacct:/\n1:pids:/\n", str(tmp_path)) is None
+    q = tnative.cpu_quota()
+    assert q is None or q > 0
+
+
+def test_pass_busy_time_is_cpu_time():
+    """`busy_s` is the workers' CPU time, not their lifetimes: a pass whose
+    worker is kept off the CPU for part of its life (here: the pass runs
+    while a second Python thread holds a spin on the only CPU the process
+    may use) reads less busy time than lifetime."""
+    import threading
+    import time
+
+    args, _ = _corrupt_batch()
+    args = tuple(np.concatenate([a] * 40) for a in args)
+    cpus = sorted(os.sched_getaffinity(0))
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            sum(range(1000))
+
+    os.sched_setaffinity(0, cpus[:1])
+    try:
+        tnative.reset_calls()
+        t = threading.Thread(target=spin)
+        t.start()
+        time.sleep(0.01)
+        tnative.p1_pack_batch(*args, nthreads=3, stats=True)
+    finally:
+        stop.set()
+        t.join()
+        os.sched_setaffinity(0, cpus)
+    (p,) = tnative.p1_pack_batch.passes
+    _check_pass(p, len(args[0]), ("thres_egr", "words", "deflate"), cpus=1)
+    assert p.busy_s < 0.9 * p.live_s, (p.busy_s, p.live_s)
+
+
+def test_pass_counters_leave_the_results_alone():
+    args, payloads = _corrupt_batch()
+    assert tnative.p1_pack_batch(*args, stats=True) == tnative.p1_pack_batch(*args)
+    plain = tnative.p1_unpack_batch(payloads, 2048, 54)
+    counted = tnative.p1_unpack_batch(payloads, 2048, 54, stats=True)
+    for a, b in zip(plain, counted):
+        if a is None:
+            assert b is None
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("frames", [1, 7, 8, 20])
+def test_pack_pass_counters(frames):
+    (words, nbits, ks, ovf, tq), _ = _corrupt_batch()
+    args = (words[:frames], nbits[:frames], ks[:frames], ovf[:frames], tq[:frames])
+    tnative.reset_calls()
+    got = tnative.p1_pack_batch(*args, stats=True)
+    (p,) = tnative.p1_pack_batch.passes
+    _check_pass(p, frames, ("thres_egr", "words", "deflate"))
+    assert p.bytes_out == sum(len(x) for x in got if x)
+    assert p.bytes_in == _inflated(x for x in got if x)
+
+
+@pytest.mark.parametrize("frames", [1, 7, 8, 23])
+def test_unpack_pass_counters(frames):
+    _, payloads = _corrupt_batch()
+    payloads = payloads[-frames:]
+    tnative.reset_calls()
+    tnative.p1_unpack_batch(payloads, 2048, 54, stats=True)
+    (p,) = tnative.p1_unpack_batch.passes
+    _check_pass(p, frames, ("inflate", "egr_untrim"))
+    assert p.bytes_in == sum(len(x) for x in payloads)
+    assert p.bytes_out == _inflated(payloads)
+
+
+def test_pass_logs_only_with_stats_and_reset():
+    args, payloads = _corrupt_batch()
+    tnative.reset_calls()
+    tnative.p1_pack_batch(*args)
+    tnative.p1_unpack_batch(payloads, 2048, 54)
+    assert not tnative.p1_pack_batch.passes and not tnative.p1_unpack_batch.passes
+    for _ in range(2):
+        tnative.p1_pack_batch(*args, stats=True)
+        tnative.p1_unpack_batch(payloads, 2048, 54, stats=True)
+    assert len(tnative.p1_pack_batch.passes) == len(tnative.p1_unpack_batch.passes) == 2
+    assert tnative.p1_pack_batch.passes.maxlen == tnative.PASS_LOG
+    tnative.reset_calls()
+    assert not tnative.p1_pack_batch.passes and not tnative.p1_unpack_batch.passes
+    assert tnative.p1_pack_batch.calls == tnative.p1_unpack_batch.calls == 0
+
+
+def test_pipeline_counts_passes_only_under_a_stage_timer(monkeypatch):
+    """With `pipeline.STAGES` unset the C passes get a null counter buffer
+    and no pass is logged; with a timer set, each pass is logged."""
+    from frad_python_tpu_torch import batch_decode, batch_encode
+    from frad_python_tpu_torch.utils.tracing import StageTimer
+
+    lib, buffers = tnative.library(), []
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name not in ("frad_p1_pack_batch", "frad_p1_unpack_batch"):
+                return fn
+
+            def call(*args):
+                buffers.append((name, args[-1]))
+                return fn(*args)
+            return call
+
+    monkeypatch.setattr(tnative, "library", _Lib)
+    pcm = np.random.default_rng(3).uniform(-0.5, 0.5, (44100, 2))
+    kw = dict(compute_dtype="float32", device="cpu")
+    tnative.reset_calls()
+    stream = batch_encode(pcm, 1, 44100, 16, 2048, **kw)
+    batch_decode(stream, **kw)
+    assert [n for n, _ in buffers] == ["frad_p1_pack_batch", "frad_p1_unpack_batch"]
+    assert all(b is None for _, b in buffers)
+    assert not tnative.p1_pack_batch.passes and not tnative.p1_unpack_batch.passes
+    buffers.clear()
+    try:
+        tpipeline.STAGES = StageTimer()
+        assert batch_encode(pcm, 1, 44100, 16, 2048, **kw) == stream
+        batch_decode(stream, **kw)
+    finally:
+        tpipeline.STAGES = None
+    assert all(b is not None for _, b in buffers) and len(buffers) == 2
+    assert len(tnative.p1_pack_batch.passes) == len(tnative.p1_unpack_batch.passes) == 1
 
 
 @pytest.mark.parametrize("profile,ecc_ratio", [

@@ -4,12 +4,15 @@ with a `StageTimer` set in each.
 
 What is held, and why it is not more:
 
-* every stage name the port records is one the JAX pipeline's source uses;
-  for the same call the port's names are those of the JAX package plus
-  the ones in `EXTRA`: the JAX package leaves Profile 2's encode core, its
-  copy back and its per-frame pack untimed, and records `enc:pack` only
-  when a copy-back slice completes a frame, where the port times its one
-  pack pass; Profile 2's decode ends in the port's device overlap-add
+* every stage name the port records is one the JAX pipeline's source uses
+  or one of `PORT_ONLY`; for the same call the port's names are those of
+  the JAX package plus the ones in `EXTRA` and `PORT_ONLY`: the JAX package
+  leaves Profile 2's encode core, its copy back and its per-frame pack
+  untimed, times the lossy profiles' uploads as part of `enc:core` /
+  `dec:core` where the port opens `enc:h2d` / `dec:h2d` inside them, and
+  records `enc:pack` only when a
+  copy-back slice completes a frame, where the port times its one pack
+  pass; Profile 2's decode ends in the port's device overlap-add
   (`dec:d2h`, `dec:host-conv`) where the JAX package fetches frames and
   overlaps on the host (`dec:overlap`);
 * counts are equal where both record a stage, but for `enc:pack` (above)
@@ -19,11 +22,18 @@ What is held, and why it is not more:
   `policy.to_host` moved, and the upload meters equal the JAX package's
   where it meters the same arrays;
 * streams and PCM are identical with and without a timer, and the module
-  adds no synchronisation.
+  adds no synchronisation;
+* each stage that opens inside another (`CHILDREN`) lies within it, no
+  stage opens inside one of its own name (a `StageTimer` sums walls by
+  name), and a Profile 1 decode leaves no more than its run loop's
+  bookkeeping outside every stage.
 """
 
+import contextlib
 import inspect
 import re
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -57,11 +67,26 @@ CASES = {
     "p0_12": (STEREO, (0, 44100, 12, 2048), F32, F32),
     "p4": (MONO, (4, 44100, 16, 2048), F32, F32),
 }
+#: the port's own stage names, outside the JAX package's vocabulary: the
+#: C++ payload passes' wrappers inside `enc:pack` / `dec:unpack`, the lossy
+#: encode's cast of the frames before their upload (inside `enc:core`, where
+#: the JAX package times it as part of its upload), and `batch_decode`'s emit
+#: of the PCM (fragment heads, the join of the runs), which the JAX package
+#: leaves untimed
+PORT_ONLY = {"enc:pack-native", "dec:unpack-native", "enc:host-conv", "dec:emit"}
 #: stages the port records where the JAX package, for this call, records none
 EXTRA = {
-    "p1_i16": {"enc:pack"}, "p1_ecc": {"enc:pack"}, "p1_f64": {"enc:pack"},
-    "p2": {"enc:core", "enc:d2h", "enc:pack", "dec:d2h", "dec:host-conv"},
+    "p1_i16": {"enc:pack", "enc:h2d", "dec:h2d"}, "p1_ecc": {"enc:pack", "enc:h2d", "dec:h2d"},
+    "p1_f64": {"enc:pack", "enc:h2d", "dec:h2d"},
+    "p2": {"enc:core", "enc:h2d", "enc:d2h", "enc:pack", "dec:h2d", "dec:d2h",
+           "dec:host-conv"},
 }
+#: child stage: the stage it opens inside, in every call that records it
+CHILDREN = {"enc:pack-native": "enc:pack", "dec:unpack-native": "dec:unpack"}
+#: the same in the lossy profiles, whose cores upload inside themselves (the
+#: lossless fast paths time their uploads beside the core, as the JAX
+#: package does)
+LOSSY_CHILDREN = {"enc:host-conv": "enc:core", "enc:h2d": "enc:core", "dec:h2d": "dec:core"}
 #: stages whose counts differ by design (see the module docstring)
 COUNTS_DIFFER = {"enc:pack", "enc:core"}
 #: calls whose upload the JAX package meters from the same arrays
@@ -77,13 +102,32 @@ def jax_stage_names() -> set:
     return names
 
 
-def run_port(case: str):
+class Intervals:
+    """A stage timer that keeps each stage's (name, start, end), as the
+    benchmark's recorder does."""
+
+    def __init__(self) -> None:
+        self.items: list[tuple[str, float, float]] = []
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.items.append((name, t0, time.perf_counter()))
+
+    def add_bytes(self, direction: str, n: int) -> None:
+        pass
+
+
+def run_port(case: str, timer=StageTimer):
     """(stream, encode timer, pcm, decode timer) of the port with a timer set."""
     x, args, ekw, dkw = CASES[case]
     try:
-        tpipeline.STAGES = enc = StageTimer()
+        tpipeline.STAGES = enc = timer()
         stream = ft.batch_encode(x, *args, device="cpu", **ekw)
-        tpipeline.STAGES = dec = StageTimer()
+        tpipeline.STAGES = dec = timer()
         pcm, _ = ft.batch_decode(stream, device="cpu", **dkw)
     finally:
         tpipeline.STAGES = None
@@ -115,8 +159,8 @@ def test_stage_names_and_counts_against_jax(case):
     jenc, jdec = run_jax(case)
     vocabulary = jax_stage_names()
     for got, want in ((enc, jenc), (dec, jdec)):
-        assert got.counts and set(got.counts) <= vocabulary
-        assert set(got.counts) <= set(want.counts) | EXTRA.get(case, set()), \
+        assert got.counts and set(got.counts) <= vocabulary | PORT_ONLY
+        assert set(got.counts) <= set(want.counts) | EXTRA.get(case, set()) | PORT_ONLY, \
             (dict(got.counts), dict(want.counts))
         for name in set(got.counts) & set(want.counts) - COUNTS_DIFFER:
             assert got.counts[name] == want.counts[name], name
@@ -181,3 +225,67 @@ def test_engines_add_to_the_timer(profile):
     assert timer.counts["dec:core"] >= 1 and timer.counts["dec:unpack"] == timer.counts["dec:core"]
     assert timer.bytes["h2d"] > 0 and timer.bytes["d2h"] > 0
     assert sum(len(p) for p in pcm) >= len(STEREO)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_child_stages_lie_inside_their_parents(case):
+    _, enc, _, dec = run_port(case, Intervals)
+    lossy = CASES[case][1][0] in (1, 2)
+    children = {**CHILDREN, **(LOSSY_CHILDREN if lossy else {})}
+    for timer in (enc, dec):
+        for name in {n for n, _, _ in timer.items}:
+            spans = sorted((a, b) for n, a, b in timer.items if n == name)
+            assert all(a1 >= b0 for (_, b0), (a1, _) in zip(spans, spans[1:])), name
+        for child, a, b in timer.items:
+            if child in children:
+                assert any(n == children[child] and p0 <= a and b <= p1
+                           for n, p0, p1 in timer.items), (child, a, b)
+    if case in ("p1_i16", "p1_ecc"):
+        names = {n for t in (enc, dec) for n, _, _ in t.items}
+        assert set(children) | {"dec:emit"} <= names
+
+
+def test_decode_host_time_lies_in_stages(monkeypatch):
+    """Outside every stage a Profile 1 decode keeps only its run loop's
+    bookkeeping (run keys, slices of the header lists): under 3% of the
+    call's wall in the best of five calls (the best, so that a worker of a
+    loaded test machine descheduled between two stages does not count), on
+    a 10 s clip, whose walls the fixed cost of a call does not set. And
+    every join of the PCM and every fragment head lies inside `dec:emit`:
+    on the CPU the join is too small a share for the 3% alone to see it."""
+    _, args, ekw, dkw = CASES["p1_i16"]
+    x = chip_smoke.make_audio(10, 44100, 2)
+    stream = ft.batch_encode(x, *args, device="cpu", **ekw)
+    emits = []
+    concatenate, frag_head = np.concatenate, tpipeline._frag_head
+
+    def timed(fn, caller=None):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if caller is None or sys._getframe(1).f_code.co_name == caller:
+                emits.append((t0, time.perf_counter()))
+            return out
+        return call
+
+    monkeypatch.setattr(np, "concatenate", timed(concatenate, "batch_decode"))
+    monkeypatch.setattr(tpipeline, "_frag_head", timed(frag_head))
+    shares = []
+    for _ in range(5):
+        emits.clear()
+        try:
+            tpipeline.STAGES = timer = Intervals()
+            t0 = time.perf_counter()
+            ft.batch_decode(stream, device="cpu", **dkw)
+            t1 = time.perf_counter()
+        finally:
+            tpipeline.STAGES = None
+        assert emits and all(any(n == "dec:emit" and a <= e0 and e1 <= b
+                                 for n, a, b in timer.items) for e0, e1 in emits), emits
+        edges = sorted((a, b) for _, a, b in timer.items)
+        covered, end = 0.0, t0
+        for a, b in edges:
+            covered += max(0.0, b - max(a, end))
+            end = max(end, b)
+        shares.append(1.0 - covered / (t1 - t0))
+    assert min(shares) < 0.03, shares
