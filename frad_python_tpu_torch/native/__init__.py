@@ -19,6 +19,9 @@ to the wrapper's `passes` log (the newest `PASS_LOG`), with the pass's
 host clock, its workers, frames, their CPU time and their lifetimes by
 phase, the CPUs the process may use, and zlib bytes. Without it the C pass
 gets a null buffer and reads no clock.
+
+The threaded passes (those two, `frame_pack_batch`, `unarmor_batch`) start
+`pass_workers(frames)` workers unless the caller names a count.
 """
 
 from __future__ import annotations
@@ -192,6 +195,31 @@ def _cgroup_quota(cgroups: str, fs: str) -> float | None:
                 if quota not in ("max", "-1") and int(period) > 0:
                     found.append(int(quota) / int(period))
     return min(found) if found else None
+
+
+#: frames below which `run_pass` (frad_native.cpp) keeps a pass on one worker;
+#: above, a worker for each 8 frames at most
+PASS_MIN_FRAMES = 8
+#: workers a pass of PASS_MIN_FRAMES frames or more starts where the CPUs allow
+PASS_MIN_WORKERS = 3
+
+
+def pass_workers(nframes: int) -> int:
+    """Workers a threaded pass over `nframes` frames starts: 1 below
+    PASS_MIN_FRAMES; else a worker for each CPU the process may use (its
+    affinity, cut to the whole CPUs of its cgroup quota and shared among the
+    LOCAL_WORLD_SIZE processes torchrun starts on the host), and no more than
+    one for each PASS_MIN_FRAMES frames but PASS_MIN_WORKERS where those CPUs
+    allow. Frames are independent: the count changes no byte."""
+    if nframes < PASS_MIN_FRAMES:
+        return 1
+    cpus = len(os.sched_getaffinity(0))
+    quota = cpu_quota()
+    if quota is not None:
+        cpus = min(cpus, int(quota))
+    cpus //= int(os.environ.get("LOCAL_WORLD_SIZE") or 1)
+    by_frames = max(-(-nframes // PASS_MIN_FRAMES), PASS_MIN_WORKERS)
+    return max(min(cpus, by_frames), 1)
 
 
 def _stats_buffer(stats: bool):
@@ -373,7 +401,7 @@ def maxabs_rows(mat: np.ndarray, nthreads: int = 2) -> np.ndarray:
 
 @_counted
 def p1_unpack_batch(payloads: list[bytes], fq_len: int, tq_len: int, lq_len: int = 0,
-                    nthreads: int = 3, stats: bool = False
+                    nthreads: int | None = None, stats: bool = False
                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray | None, np.ndarray]:
     """Inflate + EGR-decode + untrim a batch of Profile 1 payloads, or with
     `lq_len` of Profile 2 payloads, into f32.
@@ -381,8 +409,11 @@ def p1_unpack_batch(payloads: list[bytes], fq_len: int, tq_len: int, lq_len: int
     Returns (fq [B, fq_len], tq [B, tq_len], lq [B, lq_len] or None,
     ok [B] bool). A corrupt payload comes back as zero rows with ok False.
     `stats` logs the pass in `p1_unpack_batch.passes` (phases `inflate`,
-    `egr_untrim`; zlib's bytes in are the payloads', out the inflated)."""
+    `egr_untrim`; zlib's bytes in are the payloads', out the inflated).
+    `nthreads` None: `pass_workers(B)`."""
     b = len(payloads)
+    if nthreads is None:
+        nthreads = pass_workers(b)
     blob = b"".join(payloads)
     offsets = _offsets(payloads)
     fq = np.empty((b, fq_len), dtype=np.float32)
@@ -404,7 +435,8 @@ p1_unpack_batch.passes = deque(maxlen=PASS_LOG)
 
 @_counted
 def p1_pack_batch(words: np.ndarray, nbits: np.ndarray, ks: np.ndarray,
-                  skip: np.ndarray, tq: np.ndarray, nthreads: int = 3, stats: bool = False
+                  skip: np.ndarray, tq: np.ndarray, nthreads: int | None = None,
+                  stats: bool = False
                   ) -> list[bytes | None]:
     """Assemble and deflate a batch of Profile 1 payloads from EGR words.
 
@@ -414,9 +446,11 @@ def p1_pack_batch(words: np.ndarray, nbits: np.ndarray, ks: np.ndarray,
     the bytes equal `zlib.compress(frad, wbits=-15)` with the same zlib.
     `stats` logs the pass in `p1_pack_batch.passes` (phases `thres_egr`,
     `words`, `deflate`; zlib's bytes in are the unpacked payloads', out
-    the payloads').
+    the payloads'). `nthreads` None: `pass_workers(B)`.
     """
     b, w = words.shape
+    if nthreads is None:
+        nthreads = pass_workers(b)
     words = np.ascontiguousarray(words, dtype=np.uint32)
     nbits = np.ascontiguousarray(nbits, dtype=np.int64)
     ks = np.ascontiguousarray(ks, dtype=np.int64)
@@ -448,11 +482,12 @@ def frame_pack_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.
                      is_compact: bool, channels: int, srate: int, srate_idx: int = 0,
                      overlap_ratio: int = 0, little_endian: bool = False,
                      ecc: bool = False, ecc_dsize: int = 0, ecc_codesize: int = 0,
-                     nthreads: int = 3) -> bytes:
+                     nthreads: int | None = None) -> bytes:
     """RS armor + ASFH header + CRC for every frame of a batch, threaded,
     into one buffer: the bytes of the per-frame `ecc.encode` +
     `ASFH.write` chain. `payloads` is a list of per-frame payloads or an
-    already joined (blob, offsets [B + 1]) pair."""
+    already joined (blob, offsets [B + 1]) pair. `nthreads` None:
+    `pass_workers(B)`."""
     if ecc and ecc_codesize > 0:
         from ..ops.rs import check_code_params
 
@@ -467,6 +502,8 @@ def frame_pack_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.
         b = len(payloads)
         blob = b"".join(payloads)
         offsets = _offsets(payloads)
+    if nthreads is None:
+        nthreads = pass_workers(b)
     lens = np.diff(offsets)
     if ecc and ecc_codesize > 0:
         nfull = lens // ecc_dsize
@@ -493,15 +530,17 @@ def frame_pack_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.
 
 @_counted
 def unarmor_batch(payloads: list[bytes], dsize: int, csize: int, crcs: np.ndarray,
-                  crc_is16: bool, fix_error: bool, nthreads: int = 3
+                  crc_is16: bool, fix_error: bool, nthreads: int | None = None
                   ) -> tuple[list[bytes], np.ndarray]:
     """Strip the parity of a batch of armored payloads, RS-repairing each
     frame whose CRC mismatches when `fix_error`. Returns (raw payloads,
-    ok [B] bool)."""
+    ok [B] bool). `nthreads` None: `pass_workers(B)`."""
     from ..ops.rs import check_code_params
 
     check_code_params(dsize, csize)
     b = len(payloads)
+    if nthreads is None:
+        nthreads = pass_workers(b)
     blob = b"".join(payloads)
     offsets = _offsets(payloads)
     lens = np.diff(offsets)

@@ -230,13 +230,15 @@ def _inflated(payloads):
     return total
 
 
-def _check_pass(p, frames, phases, cpus=None):
+def _check_pass(p, frames, phases, cpus=None, threads=None):
     """A pass record's own arithmetic: phases tile the workers' lifetimes,
     the CPU time fits inside those (to a scheduler tick a worker, where the
     thread CPU clock moves in ticks) and the lifetimes inside the pass's
     wall, the workers' wall clock lies inside the wrapper's (one clock,
-    CLOCK_MONOTONIC, on both sides)."""
-    assert p.frames == frames and p.threads == (1 if frames < 8 else 3)
+    CLOCK_MONOTONIC, on both sides). Without a count named (`threads`) the
+    pass started `pass_workers(frames)` workers."""
+    assert p.frames == frames
+    assert p.threads == (threads or tnative.pass_workers(frames))
     assert p.cpus == (cpus or len(os.sched_getaffinity(0))) >= 1
     assert p.cpu_quota is None or p.cpu_quota > 0
     assert tuple(p.phase_s) == phases and all(v >= 0 for v in p.phase_s.values())
@@ -244,6 +246,107 @@ def _check_pass(p, frames, phases, cpus=None):
     assert 0 <= p.busy_s <= p.live_s * 1.01 + p.threads * 0.01
     assert 0 < p.live_s <= p.threads * (p.t1 - p.t0)
     assert p.t0 <= p.first <= p.last <= p.t1
+
+
+def _usable(monkeypatch, affinity, quota, local):
+    """Make the process see `affinity` CPUs, a cgroup quota and torchrun's
+    LOCAL_WORLD_SIZE (None: unset)."""
+    monkeypatch.setattr(tnative.os, "sched_getaffinity", lambda pid: set(range(affinity)))
+    monkeypatch.setattr(tnative, "cpu_quota", lambda: quota)
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local)
+
+
+@pytest.mark.parametrize("affinity,quota,local,frames,want", [
+    (8, None, None, 1, 1),
+    (8, None, None, 7, 1),          # run_pass's one-worker floor
+    (8, None, None, 8, 3),          # never below 3 where 3 CPUs are usable
+    (8, None, None, 40, 5),         # at most a worker for each 8 frames
+    (8, None, None, 6890, 8),       # never above the affinity
+    (64, None, None, 6890, 64),
+    (8, 2.5, None, 6890, 2),        # the whole CPUs of a fractional quota
+    (8, 0.5, None, 6890, 1),
+    (8, 16.0, None, 6890, 8),
+    (8, None, "4", 6890, 2),        # shared among the host's torchrun processes
+    (8, None, "4", 8, 2),
+    (16, 12.0, "2", 6890, 6),
+    (2, None, None, 100, 2),
+    (1, None, None, 100, 1),
+])
+def test_pass_workers(monkeypatch, affinity, quota, local, frames, want):
+    _usable(monkeypatch, affinity, quota, local)
+    assert tnative.pass_workers(frames) == want
+
+
+def test_pass_workers_bounds(monkeypatch):
+    """One worker below 8 frames; else never above the usable CPUs nor a
+    worker for each 8 frames beyond 3, and never below 3 where 3 CPUs are
+    usable."""
+    for affinity in range(1, 17):
+        _usable(monkeypatch, affinity, None, None)
+        for frames in range(1, 300):
+            w = tnative.pass_workers(frames)
+            if frames < 8:
+                assert w == 1
+            else:
+                assert min(3, affinity) <= w <= min(affinity, max(3, -(-frames // 8)))
+
+
+@pytest.mark.parametrize("nthreads", [1, 3, None])
+def test_pack_pass_bytes_at_every_worker_count(numpy_path, nthreads):
+    """Frames are independent: at 1, 3 and `pass_workers` workers the pack
+    gives the JAX package's bytes, each payload `zlib.compress` of its frame."""
+    _, tq, words, nbits, ks, ovf = _packed_batch(96)
+    tnative.reset_calls()
+    got = tnative.p1_pack_batch(words, nbits, ks, ovf, tq, nthreads=nthreads, stats=True)
+    assert tnative.p1_pack_batch.passes[0].threads == (nthreads or tnative.pass_workers(96))
+    assert got == jnative.p1_pack_batch(words, nbits, ks, ovf, tq)
+    for i, p in enumerate(got):
+        if ovf[i]:
+            assert p is None
+            continue
+        with numpy_path:
+            thres = tgolomb.encode(tq[i])
+        frad = (struct.pack(">I", len(thres)) + thres
+                + tbitpack.words_to_stream(words[i], nbits[i], ks[i]))
+        assert p == zlib.compress(frad, wbits=-15)
+
+
+@pytest.mark.parametrize("nthreads", [1, 3, None])
+def test_unpack_pass_at_every_worker_count(nthreads):
+    _, payloads = _corrupt_batch()
+    payloads = payloads * 4
+    tnative.reset_calls()
+    got = tnative.p1_unpack_batch(payloads, 2048, 54, nthreads=nthreads, stats=True)
+    assert tnative.p1_unpack_batch.passes[0].threads == \
+        (nthreads or tnative.pass_workers(len(payloads)))
+    want = jnative.p1_unpack_batch(payloads, 2048, 54)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("nthreads", [1, 3, None])
+def test_frame_pack_and_unarmor_bytes_at_every_worker_count(nthreads):
+    lens = [0, 1, 95, 96, 97, 500, 960, 1234, 3000, 17] * 6
+    payloads = [_bytes(n, i) for i, n in enumerate(lens)]
+    bdis = np.random.default_rng(12).integers(0, 7, len(lens)).astype(np.uint8)
+    flens = np.full(len(lens), 2048, dtype=np.uint32)
+    fidx = np.array([tpipeline.compact.get_samples_index(2048)] * len(lens))
+    kw = dict(profile=1, is_compact=True, channels=2, srate=44100,
+              srate_idx=tpipeline.compact.get_srate_index(44100), overlap_ratio=16,
+              ecc=True, ecc_dsize=96, ecc_codesize=24)
+    got = tnative.frame_pack_batch(payloads, bdis, flens, fidx, nthreads=nthreads, **kw)
+    assert got == jnative.frame_pack_batch(payloads, bdis, flens, fidx, **kw)
+    armored = [tecc.encode(p, 96, 24) for p in payloads]
+    crcs = np.array([tcommon.crc16_ansi(p) for p in armored])
+    raws, ok = tnative.unarmor_batch(armored, 96, 24, crcs, True, True, nthreads=nthreads)
+    want, jok = jnative.unarmor_batch(armored, 96, 24, crcs, True, True)
+    assert raws == want == payloads
+    np.testing.assert_array_equal(ok, jok)
 
 
 def test_cpu_quota_reads_the_smallest_limit_on_the_path(tmp_path):
@@ -298,7 +401,7 @@ def test_pass_busy_time_is_cpu_time():
         t.join()
         os.sched_setaffinity(0, cpus)
     (p,) = tnative.p1_pack_batch.passes
-    _check_pass(p, len(args[0]), ("thres_egr", "words", "deflate"), cpus=1)
+    _check_pass(p, len(args[0]), ("thres_egr", "words", "deflate"), cpus=1, threads=3)
     assert p.busy_s < 0.9 * p.live_s, (p.busy_s, p.live_s)
 
 
@@ -314,10 +417,10 @@ def test_pass_counters_leave_the_results_alone():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("frames", [1, 7, 8, 20])
+@pytest.mark.parametrize("frames", [1, 7, 8, 20, 160])
 def test_pack_pass_counters(frames):
-    (words, nbits, ks, ovf, tq), _ = _corrupt_batch()
-    args = (words[:frames], nbits[:frames], ks[:frames], ovf[:frames], tq[:frames])
+    args, _ = _corrupt_batch()
+    args = tuple(np.concatenate([a] * 8)[:frames] for a in args)
     tnative.reset_calls()
     got = tnative.p1_pack_batch(*args, stats=True)
     (p,) = tnative.p1_pack_batch.passes
@@ -326,10 +429,10 @@ def test_pack_pass_counters(frames):
     assert p.bytes_in == _inflated(x for x in got if x)
 
 
-@pytest.mark.parametrize("frames", [1, 7, 8, 23])
+@pytest.mark.parametrize("frames", [1, 7, 8, 23, 184])
 def test_unpack_pass_counters(frames):
     _, payloads = _corrupt_batch()
-    payloads = payloads[-frames:]
+    payloads = (payloads * 8)[-frames:]
     tnative.reset_calls()
     tnative.p1_unpack_batch(payloads, 2048, 54, stats=True)
     (p,) = tnative.p1_unpack_batch.passes
@@ -391,6 +494,8 @@ def test_pipeline_counts_passes_only_under_a_stage_timer(monkeypatch):
         tpipeline.STAGES = None
     assert all(b is not None for _, b in buffers) and len(buffers) == 2
     assert len(tnative.p1_pack_batch.passes) == len(tnative.p1_unpack_batch.passes) == 1
+    for p in (*tnative.p1_pack_batch.passes, *tnative.p1_unpack_batch.passes):
+        assert p.threads == tnative.pass_workers(p.frames)
 
 
 @pytest.mark.parametrize("profile,ecc_ratio", [
