@@ -13,15 +13,16 @@ bind: a failed build or load raises, there is no silent fallback.
 test `enabled()`. Each wrapper counts its calls in its `calls` attribute,
 as the CUDA kernels count `launches`.
 
-The two payload passes, `p1_pack_batch` and `p1_unpack_batch`, take
-`stats=True` to count inside the pass: each such call appends a `Pass`
-to the wrapper's `passes` log (the newest `PASS_LOG`), with the pass's
-host clock, its workers, frames, their CPU time and their lifetimes by
-phase, the CPUs the process may use, and zlib bytes. Without it the C pass
+The four threaded passes, `p1_pack_batch`, `p1_unpack_batch`,
+`frame_pack_batch` and `unarmor_batch`, take `stats=True` to count inside
+the pass: each such call appends a `Pass` to the wrapper's `passes` log
+(the newest `PASS_LOG`), with the pass's host clock, its workers, frames,
+their CPU time and their lifetimes by phase, the CPUs the process may use,
+the bytes in and out, and the pass's own counts. Without it the C pass
 gets a null buffer and reads no clock.
 
-The threaded passes (those two, `frame_pack_batch`, `unarmor_batch`) start
-`pass_workers(frames)` workers unless the caller names a count.
+The threaded passes start `pass_workers(frames)` workers unless the
+caller names a count.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import os
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -60,9 +61,9 @@ SIGNATURES = {
                                   _P, _I64, _I64P, _I, _I64P]),
     "frad_frame_pack_batch": (None, [_C.c_char_p, _I64P, _I64, _P, _P, _P,
                                      _I, _I, _I, _C.c_uint32, _I, _I, _I,
-                                     _I, _I, _I, _P, _I64P, _I]),
+                                     _I, _I, _I, _P, _I64P, _I, _I64P]),
     "frad_unarmor_batch": (None, [_C.c_char_p, _I64P, _I64, _I, _I, _P, _I, _I,
-                                  _P, _I64P, _P, _I]),
+                                  _P, _I64P, _P, _I, _I64P]),
     "frad_frame_parse_batch": (_I64, [_C.c_char_p, _I64, _I64] + [_P] * 12 + [_I64P]),
 }
 
@@ -127,12 +128,12 @@ def _counted(fn):
 PASS_LOG = 4096
 #: frad_native.cpp's PASS_* counters, in order
 _PASS_FIELDS = ("threads", "frames", "busy", "phase0", "phase1", "phase2", "bytes_in",
-                "bytes_out", "live", "first", "last")
+                "bytes_out", "count0", "count1", "count2", "count3", "live", "first", "last")
 
 
 @dataclass(frozen=True)
 class Pass:
-    """One counted call of a payload pass. `t0` / `t1`: `time.perf_counter()`
+    """One counted call of a threaded pass. `t0` / `t1`: `time.perf_counter()`
     around the C call; `first` / `last`: its workers' earliest start and
     latest end on the same clock; `threads`: workers started; `cpus`: CPUs
     the process may run on (its affinity); `cpu_quota`: CPUs' worth of time
@@ -141,7 +142,8 @@ class Pass:
     clock moves in scheduler ticks, a worker reads to a tick); `live_s`:
     their summed lifetimes on the wall clock, which `phase_s` splits by the
     pass's phases, so `busy_s / live_s` below 1 is time a worker waited for
-    a CPU."""
+    a CPU; `counts`: the pass's own tallies by name (`unarmor_batch`'s
+    frames and codewords), empty for the others."""
     t0: float
     t1: float
     frames: int
@@ -155,6 +157,7 @@ class Pass:
     bytes_out: int
     first: float
     last: float
+    counts: dict[str, int] = field(default_factory=dict)
 
 
 @functools.cache
@@ -231,13 +234,14 @@ def _stats_buffer(stats: bool):
 
 
 def _log_pass(wrapper, phases: tuple[str, ...], buf: np.ndarray, t0: float,
-              t1: float) -> None:
+              t1: float, counts: tuple[str, ...] = ()) -> None:
     v = dict(zip(_PASS_FIELDS, buf.tolist()))
     wrapper.passes.append(Pass(
         t0, t1, v["frames"], v["threads"], len(os.sched_getaffinity(0)), cpu_quota(),
         v["busy"] * 1e-9, v["live"] * 1e-9,
         {name: v[f"phase{j}"] * 1e-9 for j, name in enumerate(phases)},
-        v["bytes_in"], v["bytes_out"], v["first"] * 1e-9, v["last"] * 1e-9))
+        v["bytes_in"], v["bytes_out"], v["first"] * 1e-9, v["last"] * 1e-9,
+        {name: v[f"count{j}"] for j, name in enumerate(counts)}))
 
 
 def _offsets(parts: list[bytes]) -> np.ndarray:
@@ -482,12 +486,14 @@ def frame_pack_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.
                      is_compact: bool, channels: int, srate: int, srate_idx: int = 0,
                      overlap_ratio: int = 0, little_endian: bool = False,
                      ecc: bool = False, ecc_dsize: int = 0, ecc_codesize: int = 0,
-                     nthreads: int | None = None) -> bytes:
+                     nthreads: int | None = None, stats: bool = False) -> bytes:
     """RS armor + ASFH header + CRC for every frame of a batch, threaded,
     into one buffer: the bytes of the per-frame `ecc.encode` +
     `ASFH.write` chain. `payloads` is a list of per-frame payloads or an
-    already joined (blob, offsets [B + 1]) pair. `nthreads` None:
-    `pass_workers(B)`."""
+    already joined (blob, offsets [B + 1]) pair. `stats` logs the pass in
+    `frame_pack_batch.passes` (phases `rs_encode`: the payload's copy and
+    parity, `crc_header`; bytes in are the raw payloads', out the armored).
+    `nthreads` None: `pass_workers(B)`."""
     if ecc and ecc_codesize > 0:
         from ..ops.rs import check_code_params
 
@@ -520,21 +526,34 @@ def frame_pack_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.
     fsize_idx = np.ascontiguousarray(
         np.zeros(b) if fsize_idx is None else fsize_idx, dtype=np.uint8)
     out = np.empty(int(out_offsets[-1]), dtype=np.uint8)
+    buf, buf_p = _stats_buffer(stats)
+    t0 = time.perf_counter()
     library().frad_frame_pack_batch(
         blob, _i64p(offsets), b, bdis.ctypes.data, fsizes.ctypes.data,
         fsize_idx.ctypes.data, profile, int(is_compact), channels, srate, srate_idx,
         overlap_ratio, int(little_endian), int(ecc), ecc_dsize, ecc_codesize,
-        out.ctypes.data, _i64p(out_offsets), nthreads)
+        out.ctypes.data, _i64p(out_offsets), nthreads, buf_p)
+    if stats:
+        _log_pass(frame_pack_batch, ("rs_encode", "crc_header"), buf, t0,
+                  time.perf_counter())
     return out.tobytes()
+
+
+frame_pack_batch.passes = deque(maxlen=PASS_LOG)
 
 
 @_counted
 def unarmor_batch(payloads: list[bytes], dsize: int, csize: int, crcs: np.ndarray,
-                  crc_is16: bool, fix_error: bool, nthreads: int | None = None
-                  ) -> tuple[list[bytes], np.ndarray]:
+                  crc_is16: bool, fix_error: bool, nthreads: int | None = None,
+                  stats: bool = False) -> tuple[list[bytes], np.ndarray]:
     """Strip the parity of a batch of armored payloads, RS-repairing each
     frame whose CRC mismatches when `fix_error`. Returns (raw payloads,
-    ok [B] bool). `nthreads` None: `pass_workers(B)`."""
+    ok [B] bool). `stats` logs the pass in `unarmor_batch.passes` (phases
+    `crc`: the CRC check and the strip of frames that need no repair,
+    `syndromes`: a repaired frame's codewords and their syndromes,
+    `repair`: the codewords found damaged; counts `crc_failed` frames,
+    codewords `decoded`, `corrected` and `beyond_repair`; bytes in are the
+    armored payloads', out the raw). `nthreads` None: `pass_workers(B)`."""
     from ..ops.rs import check_code_params
 
     check_code_params(dsize, csize)
@@ -553,11 +572,19 @@ def unarmor_batch(payloads: list[bytes], dsize: int, csize: int, crcs: np.ndarra
     crcs = np.ascontiguousarray(crcs, dtype=np.uint32)
     out = np.empty(int(out_offsets[-1]), dtype=np.uint8)
     ok = np.empty(b, dtype=np.uint8)
+    buf, buf_p = _stats_buffer(stats)
+    t0 = time.perf_counter()
     library().frad_unarmor_batch(blob, _i64p(offsets), b, dsize, csize, crcs.ctypes.data,
                                  int(crc_is16), int(fix_error), out.ctypes.data,
-                                 _i64p(out_offsets), ok.ctypes.data, nthreads)
+                                 _i64p(out_offsets), ok.ctypes.data, nthreads, buf_p)
+    if stats:
+        _log_pass(unarmor_batch, ("crc", "syndromes", "repair"), buf, t0, time.perf_counter(),
+                  ("crc_failed", "decoded", "corrected", "beyond_repair"))
     raw = out.tobytes()
     return [raw[out_offsets[i]: out_offsets[i + 1]] for i in range(b)], ok.astype(bool)
+
+
+unarmor_batch.passes = deque(maxlen=PASS_LOG)
 
 
 @_counted

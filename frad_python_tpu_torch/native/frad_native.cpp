@@ -417,12 +417,10 @@ static bool rs_synd(const uint8_t* c, size_t blen, size_t nsym, uint8_t* synd) {
     return clean;
 }
 
-// Repair one codeword in place; true if clean/corrected (else caller
-// zero-fills, reference ecc.py:22).
-static bool rs_decode_one(uint8_t* c, size_t blen, size_t nsym) {
-        uint8_t synd[256];
-        if (rs_synd(c, blen, nsym, synd)) return true;
-
+// Repair one codeword in place from its syndromes, which are not all
+// zero: Berlekamp-Massey, Chien, Forney, and the syndromes again; true
+// if corrected, else the codeword is zero-filled (reference ecc.py:22).
+static bool rs_repair(uint8_t* c, size_t blen, size_t nsym, const uint8_t* synd) {
         bool fixed = false;
         uint8_t loc[260];
         int deg = bm_locator(synd, (int)nsym, loc);
@@ -469,6 +467,14 @@ static bool rs_decode_one(uint8_t* c, size_t blen, size_t nsym) {
         }
         if (!fixed) memset(c, 0, blen);
         return fixed;
+}
+
+// Repair one codeword in place; true if clean/corrected (else caller
+// zero-fills, reference ecc.py:22).
+static bool rs_decode_one(uint8_t* c, size_t blen, size_t nsym) {
+        uint8_t synd[256];
+        if (rs_synd(c, blen, nsym, synd)) return true;
+        return rs_repair(c, blen, nsym, synd);
 }
 
 // Repairs codewords in place; ok[b]=1 if clean/corrected, 0 if zero-filled.
@@ -588,13 +594,14 @@ void frad_f64_to_i16(const double* in, size_t n, double scale, int16_t* out,
 }
 
 // ---------------------------------------------------------------------------
-// Pass counters of the batched payload passes. A caller that hands a
-// buffer of PASS_LEN int64 gets the pass's workers and frames, the CPU
-// nanoseconds its workers spent (each thread's CPU clock, read at the
-// worker's start and end: a worker that waits for a CPU counts nothing),
-// their summed lifetimes on steady_clock (CLOCK_MONOTONIC, the clock of
-// Python's perf_counter) split into the pass's phases, the bytes into and
-// out of zlib, and the workers' earliest start and latest end. The phases
+// Pass counters of the batched passes. A caller that hands a buffer of
+// PASS_LEN int64 gets the pass's workers and frames, the CPU nanoseconds
+// its workers spent (each thread's CPU clock, read at the worker's start
+// and end: a worker that waits for a CPU counts nothing), their summed
+// lifetimes on steady_clock (CLOCK_MONOTONIC, the clock of Python's
+// perf_counter) split into the pass's phases, the bytes into and out of
+// the pass (zlib's in the payload passes), up to four counts of the
+// pass's own, and the workers' earliest start and latest end. The phases
 // are timed on steady_clock because it is cheap to read where the thread
 // CPU clock is not: that is a system call, tens of microseconds on some
 // hosts, whose clock moves in scheduler ticks. With a null buffer no
@@ -603,8 +610,8 @@ void frad_f64_to_i16(const double* in, size_t n, double scale, int16_t* out,
 
 enum {
     PASS_THREADS, PASS_FRAMES, PASS_BUSY_NS, PASS_PHASE0_NS, PASS_PHASE1_NS,
-    PASS_PHASE2_NS, PASS_BYTES_IN, PASS_BYTES_OUT, PASS_LIVE_NS, PASS_FIRST_NS,
-    PASS_LAST_NS, PASS_LEN
+    PASS_PHASE2_NS, PASS_BYTES_IN, PASS_BYTES_OUT, PASS_COUNT0, PASS_COUNT1,
+    PASS_COUNT2, PASS_COUNT3, PASS_LIVE_NS, PASS_FIRST_NS, PASS_LAST_NS, PASS_LEN
 };
 
 static inline int64_t mono_ns() {
@@ -989,6 +996,8 @@ struct FramePackCtx {
     uint8_t* out;
     const int64_t* out_offsets;   // [B+1]
     std::atomic<int64_t>* next;
+    int64_t* stats;               // PASS_LEN counters, or null
+    std::mutex* mu;
 };
 
 // Armored size of a raw payload (mirrors container/ecc.py::encode).
@@ -999,10 +1008,15 @@ static inline int64_t armored_len(int64_t rawlen, int dsize, int csize) {
     return rawlen + (nfull + (rem ? 1 : 0)) * csize;
 }
 
+// Phases: 0 the payload's copy and Reed-Solomon parity, 1 the header and
+// its CRC. Bytes: the raw payloads in, the armored payloads out.
 static void frame_pack_worker(FramePackCtx* c) {
+    PassTally tally;
+    const bool timed = c->stats != nullptr;
+    if (timed) tally.start();
     for (;;) {
         int64_t i = c->next->fetch_add(1);
-        if (i >= c->nframes) return;
+        if (i >= c->nframes) break;
         const uint8_t* raw = c->payloads + c->offsets[i];
         int64_t rawlen = c->offsets[i + 1] - c->offsets[i];
         uint8_t* dst = c->out + c->out_offsets[i];
@@ -1033,6 +1047,7 @@ static void frame_pack_worker(FramePackCtx* c) {
         } else if (rawlen > 0) {
             memcpy(body, raw, rawlen);
         }
+        if (timed) tally.lap(0);
 
         // header (reference asfh.py:51-73 wire layout)
         dst[0] = 0xFF; dst[1] = 0xD0; dst[2] = 0xD2; dst[3] = 0x98;
@@ -1074,6 +1089,16 @@ static void frame_pack_worker(FramePackCtx* c) {
             for (int b = 0; b < 8; b++)
                 dst[hlen + b] = (uint8_t)(a >> (56 - 8 * b));
         }
+        if (timed) {
+            tally.lap(1);
+            tally.v[PASS_FRAMES]++;
+            tally.v[PASS_BYTES_IN] += rawlen;
+            tally.v[PASS_BYTES_OUT] += alen;
+        }
+    }
+    if (timed) {
+        tally.lap(1);
+        tally.fold(c->stats, c->mu);
     }
 }
 
@@ -1083,17 +1108,19 @@ void frad_frame_pack_batch(
         int profile, int is_compact, int channels, uint32_t srate,
         int srate_idx, int overlap_ratio, int little_endian,
         int ecc, int ecc_dsize, int ecc_codesize,
-        uint8_t* out, const int64_t* out_offsets, int nthreads) {
+        uint8_t* out, const int64_t* out_offsets, int nthreads,
+        int64_t* stats) {
     if (!gf_init_done) gf_init();
     const uint8_t* gen = (ecc && ecc_codesize > 0) ? gen_poly(ecc_codesize)
                                                    : nullptr;
     if (gen) fb_table(ecc_codesize);  // warm before threads
     std::atomic<int64_t> next(0);
+    std::mutex mu;
     FramePackCtx ctx = {payloads, offsets, nframes, bdis, fsizes, fsize_idx,
                         profile, is_compact, channels, srate, srate_idx,
                         overlap_ratio, little_endian, ecc, ecc_dsize,
-                        ecc_codesize, gen, out, out_offsets, &next};
-    run_pass(frame_pack_worker, &ctx, nframes, nthreads);
+                        ecc_codesize, gen, out, out_offsets, &next, stats, &mu};
+    run_pass(frame_pack_worker, &ctx, nframes, nthreads, stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -1115,14 +1142,40 @@ struct UnarmorCtx {
     const int64_t* out_offsets;   // [B+1] raw payload offsets
     uint8_t* ok;                  // [B] 1 = clean or fully repaired
     std::atomic<int64_t>* next;
+    int64_t* stats;               // PASS_LEN counters, or null
+    std::mutex* mu;
 };
 
+// rs_decode_one, counted: the syndromes' time charged to phase 1, the
+// repair of a codeword they find damaged to phase 2.
+static bool unarmor_codeword(uint8_t* c, size_t blen, size_t nsym, PassTally* t) {
+    if (!t) return rs_decode_one(c, blen, nsym);
+    uint8_t synd[256];
+    bool clean = rs_synd(c, blen, nsym, synd);
+    t->v[PASS_COUNT1]++;
+    t->lap(1);
+    if (clean) return true;
+    bool fixed = rs_repair(c, blen, nsym, synd);
+    t->v[fixed ? PASS_COUNT2 : PASS_COUNT3]++;
+    t->lap(2);
+    return fixed;
+}
+
+// Phases: 0 the CRC check, and the parity strip of a frame that needs no
+// repair; 1 a repaired frame's codewords copied and their syndromes; 2
+// Berlekamp-Massey, Chien and Forney on the codewords whose syndromes are
+// not all zero, and their syndromes again. Counts: 0 frames whose CRC
+// mismatched, 1 codewords decoded, 2 codewords corrected, 3 codewords
+// beyond repair (zero-filled). Bytes: the armored payloads in, the raw out.
 static void unarmor_worker(UnarmorCtx* c) {
     const int bs = c->dsize + c->csize;
     std::vector<uint8_t> cw(bs);
+    PassTally tally;
+    PassTally* t = c->stats ? &tally : nullptr;
+    if (t) tally.start();
     for (;;) {
         int64_t i = c->next->fetch_add(1);
-        if (i >= c->nframes) return;
+        if (i >= c->nframes) break;
         const uint8_t* src = c->payloads + c->offsets[i];
         int64_t plen = c->offsets[i + 1] - c->offsets[i];
         uint8_t* dst = c->out + c->out_offsets[i];
@@ -1131,6 +1184,13 @@ static void unarmor_worker(UnarmorCtx* c) {
             ? frad_crc16_ansi(src, (size_t)plen) == (uint16_t)c->crcs[i]
             : (uint32_t)crc32(0L, src, (uInt)plen) == c->crcs[i];
         bool repair = c->fix_error && !clean;
+        if (t) {
+            tally.lap(0);
+            tally.v[PASS_FRAMES]++;
+            tally.v[PASS_BYTES_IN] += plen;
+            tally.v[PASS_BYTES_OUT] += c->out_offsets[i + 1] - c->out_offsets[i];
+            if (!clean) tally.v[PASS_COUNT0]++;
+        }
 
         int64_t nfull = plen / bs;
         int64_t rem = plen - nfull * bs;
@@ -1140,7 +1200,7 @@ static void unarmor_worker(UnarmorCtx* c) {
             uint8_t* o = dst + b * c->dsize;
             if (repair) {
                 memcpy(cw.data(), blk, bs);
-                if (!rs_decode_one(cw.data(), bs, c->csize)) all_ok = false;
+                if (!unarmor_codeword(cw.data(), bs, c->csize, t)) all_ok = false;
                 memcpy(o, cw.data(), c->dsize);
             } else {
                 memcpy(o, blk, c->dsize);
@@ -1153,7 +1213,7 @@ static void unarmor_worker(UnarmorCtx* c) {
                 uint8_t* o = dst + nfull * c->dsize;
                 if (repair) {
                     memcpy(cw.data(), blk, rem);
-                    if (!rs_decode_one(cw.data(), rem, c->csize)) all_ok = false;
+                    if (!unarmor_codeword(cw.data(), rem, c->csize, t)) all_ok = false;
                     memcpy(o, cw.data(), keep);
                 } else {
                     memcpy(o, blk, keep);
@@ -1161,6 +1221,11 @@ static void unarmor_worker(UnarmorCtx* c) {
             }
         }
         c->ok[i] = (clean || (repair && all_ok)) ? 1 : 0;
+        if (t) tally.lap(repair ? 1 : 0);
+    }
+    if (t) {
+        tally.lap(0);
+        tally.fold(c->stats, c->mu);
     }
 }
 
@@ -1168,7 +1233,7 @@ void frad_unarmor_batch(
         const uint8_t* payloads, const int64_t* offsets, int64_t nframes,
         int dsize, int csize, const uint32_t* crcs, int crc_is16,
         int fix_error, uint8_t* out, const int64_t* out_offsets,
-        uint8_t* ok, int nthreads) {
+        uint8_t* ok, int nthreads, int64_t* stats) {
     if (!gf_init_done) gf_init();
     if (csize > 0) {                  // warm caches before threads
         gen_poly(csize);
@@ -1176,9 +1241,10 @@ void frad_unarmor_batch(
         synd_table(csize);
     }
     std::atomic<int64_t> next(0);
+    std::mutex mu;
     UnarmorCtx ctx = {payloads, offsets, nframes, dsize, csize, crcs,
-                      crc_is16, fix_error, out, out_offsets, ok, &next};
-    run_pass(unarmor_worker, &ctx, nframes, nthreads);
+                      crc_is16, fix_error, out, out_offsets, ok, &next, stats, &mu};
+    run_pass(unarmor_worker, &ctx, nframes, nthreads, stats);
 }
 
 // ---------------------------------------------------------------------------

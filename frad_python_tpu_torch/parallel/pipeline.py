@@ -53,9 +53,12 @@ host's cast of the frames to the upload's type), `enc:h2d` / `dec:h2d`
 `enc:pack-native` / `dec:unpack-native` (the C++ pass's wrapper, which
 then logs the pass's counters in `native.p1_pack_batch.passes` /
 `native.p1_unpack_batch.passes`) inside `enc:pack` / `dec:unpack`, whose
-rest is the glue around it. The port adds those two, `enc:host-conv` and
-`dec:emit` (`batch_decode`'s fragment heads and join of the PCM) to the
-JAX package's names.
+rest is the glue around it; likewise `enc:frame-native` (armor, headers,
+CRCs: `native.frame_pack_batch.passes`) inside `enc:frame` and
+`dec:unarmor-native` (CRC check, parity strip, repair:
+`native.unarmor_batch.passes`) inside `dec:ecc`. The port adds those
+four, `enc:host-conv` and `dec:emit` (`batch_decode`'s fragment heads and
+join of the PCM) to the JAX package's names.
 """
 
 from __future__ import annotations
@@ -431,11 +434,12 @@ def _frame_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.ndar
     else:
         fidx, sidx = None, 0
     dsize, codesize = ecc_ratio or (0, 0)
-    return native.frame_pack_batch(
-        payloads, bdis, flens, fidx, profile=profile, is_compact=profile in COMPACT,
-        channels=channels, srate=srate, srate_idx=sidx, overlap_ratio=overlap_ratio,
-        little_endian=little_endian, ecc=ecc_ratio is not None, ecc_dsize=dsize,
-        ecc_codesize=codesize)
+    with _stage("enc:frame-native"):
+        return native.frame_pack_batch(
+            payloads, bdis, flens, fidx, profile=profile, is_compact=profile in COMPACT,
+            channels=channels, srate=srate, srate_idx=sidx, overlap_ratio=overlap_ratio,
+            little_endian=little_endian, ecc=ecc_ratio is not None, ecc_dsize=dsize,
+            ecc_codesize=codesize, stats=STAGES is not None)
 
 
 def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
@@ -620,8 +624,10 @@ def _unarmor(hs: list[ASFH], ps: list[bytes], fix_error: bool) -> list[bytes]:
             and h0.ecc_dsize + h0.ecc_codesize <= 255:
         # one threaded C++ pass: CRC verify + parity strip or RS repair
         crcs = np.fromiter((h.crc for h in hs), np.uint32, len(hs))
-        return native.unarmor_batch(ps, h0.ecc_dsize, h0.ecc_codesize, crcs,
-                                    h0.profile in COMPACT, fix_error)[0]
+        with _stage("dec:unarmor-native"):
+            return native.unarmor_batch(ps, h0.ecc_dsize, h0.ecc_codesize, crcs,
+                                        h0.profile in COMPACT, fix_error,
+                                        stats=STAGES is not None)[0]
     # ratios GF(256) cannot honor come only from hand-made headers: the
     # per-frame path strips their parity best-effort (container/ecc.py)
     return [ecc_mod.decode(p, h.ecc_dsize, h.ecc_codesize,

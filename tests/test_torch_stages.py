@@ -68,12 +68,14 @@ CASES = {
     "p4": (MONO, (4, 44100, 16, 2048), F32, F32),
 }
 #: the port's own stage names, outside the JAX package's vocabulary: the
-#: C++ payload passes' wrappers inside `enc:pack` / `dec:unpack`, the lossy
+#: C++ payload passes' wrappers inside `enc:pack` / `dec:unpack`, the framing
+#: and unarmor passes' inside `enc:frame` / `dec:ecc`, the lossy
 #: encode's cast of the frames before their upload (inside `enc:core`, where
 #: the JAX package times it as part of its upload), and `batch_decode`'s emit
 #: of the PCM (fragment heads, the join of the runs), which the JAX package
 #: leaves untimed
-PORT_ONLY = {"enc:pack-native", "dec:unpack-native", "enc:host-conv", "dec:emit"}
+PORT_ONLY = {"enc:pack-native", "dec:unpack-native", "enc:frame-native", "dec:unarmor-native",
+             "enc:host-conv", "dec:emit"}
 #: stages the port records where the JAX package, for this call, records none
 EXTRA = {
     "p1_i16": {"enc:pack", "enc:h2d", "dec:h2d"}, "p1_ecc": {"enc:pack", "enc:h2d", "dec:h2d"},
@@ -82,7 +84,8 @@ EXTRA = {
            "dec:host-conv"},
 }
 #: child stage: the stage it opens inside, in every call that records it
-CHILDREN = {"enc:pack-native": "enc:pack", "dec:unpack-native": "dec:unpack"}
+CHILDREN = {"enc:pack-native": "enc:pack", "dec:unpack-native": "dec:unpack",
+            "enc:frame-native": "enc:frame", "dec:unarmor-native": "dec:ecc"}
 #: the same in the lossy profiles, whose cores upload inside themselves (the
 #: lossless fast paths time their uploads beside the core, as the JAX
 #: package does)
@@ -242,7 +245,9 @@ def test_child_stages_lie_inside_their_parents(case):
                            for n, p0, p1 in timer.items), (child, a, b)
     if case in ("p1_i16", "p1_ecc"):
         names = {n for t in (enc, dec) for n, _, _ in t.items}
-        assert set(children) | {"dec:emit"} <= names
+        armored = {"dec:unarmor-native"} if case == "p1_ecc" else set()
+        assert set(children) - {"dec:unarmor-native"} | armored | {"dec:emit"} <= names
+        assert not armored ^ (names & {"dec:unarmor-native"})
 
 
 def test_decode_host_time_lies_in_stages(monkeypatch):
