@@ -122,21 +122,32 @@ class Placed(NamedTuple):
     pad: int
 
 
-def place_rows(arr: np.ndarray, device: str | torch.device | None = None,
-               upload=None) -> Placed:
+def padded_rows(nbatch: int, device: str | torch.device | None = None) -> int:
+    """Rows `place_rows` uploads for a [nbatch, ...] batch: nbatch and the
+    split's zero rows."""
+    devs = data_sharding(nbatch, policy.resolve_device(device))
+    return nbatch if devs is None else nbatch + (-nbatch) % len(devs)
+
+
+def place_rows(arr: np.ndarray | torch.Tensor, device: str | torch.device | None = None,
+               upload=None, nreal: int | None = None) -> Placed:
     """Upload a [B, ...] host array row-split over `data_sharding`'s cards,
     each block through `upload` (default `policy.to_device`: a pinned,
     non-blocking copy), with zero rows appended so that B divides the card
     count; with no split, one upload to `device` and pad 0. float64 splits
     too: the JAX package keeps float64 off an accelerator mesh only because
-    it routes float64 to the host CPU, and the H100 runs float64 itself."""
+    it routes float64 to the host CPU, and the H100 runs float64 itself.
+    With `nreal`, `arr` is a staging buffer (a numpy array or a pinned
+    tensor) of `padded_rows(nreal)` rows whose rows past `nreal` are
+    zero: each block is a slice of it."""
     dev = policy.resolve_device(device)
     upload = upload or policy.to_device
-    devs = data_sharding(arr.shape[0], dev)
+    nb = arr.shape[0] if nreal is None else nreal
+    devs = data_sharding(nb, dev)
     if devs is None:
-        return Placed([upload(arr, dev)], 0)
-    pad = (-arr.shape[0]) % len(devs)
-    rows = (arr.shape[0] + pad) // len(devs)
+        return Placed([upload(arr[:nb], dev)], 0)
+    pad = (-nb) % len(devs)
+    rows = (nb + pad) // len(devs)
     blocks = []
     for i, d in enumerate(devs):
         blk = arr[i * rows:(i + 1) * rows]

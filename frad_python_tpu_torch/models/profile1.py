@@ -55,13 +55,20 @@ def unpack_streams(frad: bytes) -> tuple[np.ndarray, np.ndarray] | None:
     return golomb.decode(freqs_gol), golomb.decode(thres_gol)
 
 
+def frame_params(n: int, srate: int, loss_level: float) -> tuple[int, int, float]:
+    """(length on the compact frame grid, srate, loss level) of an
+    n-sample frame, as `prepare_frame` pads and coerces them."""
+    return (compact.get_samples_min_ge(max(n, 1)), compact.get_valid_srate(srate),
+            max(abs(loss_level), 0.125))
+
+
 def prepare_frame(pcm: np.ndarray, srate: int, loss_level: float):
     """Pad to the compact frame grid, coerce srate and loss level."""
     pcm = np.asarray(pcm, dtype=np.float64)
-    dlen = compact.get_samples_min_ge(max(len(pcm), 1))
+    dlen, srate, loss_level = frame_params(len(pcm), srate, loss_level)
     if dlen > len(pcm):
         pcm = np.pad(pcm, ((0, dlen - len(pcm)), (0, 0)))
-    return pcm, compact.get_valid_srate(srate), max(abs(loss_level), 0.125)
+    return pcm, srate, loss_level
 
 
 def analogue(pcm: np.ndarray, bits: int, srate: int, loss_level: float,

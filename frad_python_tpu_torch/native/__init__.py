@@ -2,10 +2,10 @@
 
 The port's host byte work runs through this library, as the JAX
 package's main path runs through its own copy: CRC-16, Exp-Golomb-Rice,
-Reed-Solomon blocks, PCM casts (int16 and int24), the truncated-float
-packings of the lossless profiles, and the batched passes of the
-pipeline (Profile 1 payload pack and unpack, frame pack, frame parse, ECC
-unarmor), threaded in C++.
+Reed-Solomon blocks, PCM casts (int16 and int24), the lossy encode's
+frame staging, the truncated-float packings of the lossless profiles,
+and the batched passes of the pipeline (Profile 1 payload pack and
+unpack, frame pack, frame parse, ECC unarmor), threaded in C++.
 
 The library is built at first use (`build.py`) and every symbol must
 bind: a failed build or load raises, there is no silent fallback.
@@ -48,9 +48,9 @@ SIGNATURES = {
     "frad_rs_encode_blocks": (None, [_C.c_char_p, _SZ, _SZ, _SZ, _C.c_char_p]),
     "frad_rs_decode_blocks": (None, [_C.c_char_p, _SZ, _SZ, _SZ, _C.c_char_p]),
     "frad_i16_to_f64": (None, [_P, _SZ, _C.c_double, _P, _I]),
-    "frad_f64_to_i16": (None, [_P, _SZ, _C.c_double, _P, _I]),
     "frad_i24_to_f64": (None, [_C.c_char_p, _SZ, _P, _I]),
     "frad_f64_to_i24": (None, [_P, _SZ, _P, _I]),
+    "frad_stage_frames": (None, [_P, _I64, _I64, _I64P, _I64, _I64, _I64, _I, _P, _I]),
     "frad_pack_floats": (None, [_P, _SZ, _I, _I, _P, _I]),
     "frad_unpack_floats": (None, [_C.c_char_p, _SZ, _I, _I, _P, _I]),
     "frad_maxabs_rows": (None, [_P, _SZ, _SZ, _P, _I]),
@@ -312,12 +312,34 @@ def rs_decode_blocks(codewords: np.ndarray, nsym: int) -> tuple[np.ndarray, np.n
     return cw[:, : blen - nsym], ok.astype(bool)
 
 
+#: `stage_frames`' output dtypes, by frad_native.cpp's STAGE_* code
+_STAGE_KINDS = {np.dtype(np.float32): 0, np.dtype(np.float64): 1, np.dtype(np.int16): 2}
+
+
 @_counted
-def f64_to_i16(pcm: np.ndarray, scale: float = 32768.0, nthreads: int = 2) -> np.ndarray:
-    """f64 PCM -> rint(x * scale) clamped to int16, shape preserved."""
-    pcm = np.ascontiguousarray(pcm, dtype=np.float64)
-    out = np.empty(pcm.shape, dtype=np.int16)
-    library().frad_f64_to_i16(pcm.ctypes.data, pcm.size, scale, out.ctypes.data, nthreads)
+def stage_frames(track: np.ndarray, starts, flen: int, out: np.ndarray,
+                 nthreads: int | None = None) -> np.ndarray:
+    """Frames of a [T, C] f64 track cast straight into `out` [B, dlen, C]
+    (float32, float64, or int16: rint(x * 32768) clamped, as the numpy
+    route's `pipeline._to_i16`; dlen >= flen, C-contiguous, perhaps a pinned tensor's view):
+    row i holds samples [starts[i], starts[i] + flen), zero where they
+    leave the track and from flen on. The cast of `_gather`'s frames
+    without the float64 copy. Returns `out`. `nthreads` None:
+    `pass_workers(B)`, each worker a contiguous run of frames."""
+    track = np.ascontiguousarray(track, dtype=np.float64)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    b, dlen, c = out.shape
+    kind = _STAGE_KINDS.get(out.dtype)
+    if kind is None or not out.flags.c_contiguous or not out.flags.writeable:
+        raise ValueError(f"stage_frames writes a writeable C-contiguous float32, float64 or "
+                         f"int16 array, not {out.dtype} {out.flags}")
+    if track.ndim != 2 or track.shape[1] != c or starts.shape != (b,) or not 0 <= flen <= dlen:
+        raise ValueError(f"stage_frames: track {track.shape}, {starts.shape} starts, "
+                         f"flen {flen} do not fit out {out.shape}")
+    if nthreads is None:
+        nthreads = pass_workers(b)
+    library().frad_stage_frames(track.ctypes.data, track.shape[0], c, _i64p(starts), b, flen,
+                                dlen, kind, out.ctypes.data, nthreads)
     return out
 
 

@@ -498,10 +498,12 @@ void frad_rs_decode_blocks(uint8_t* cw, size_t nblocks, size_t blen,
 // config where this loop takes < 0.5 s).
 // ---------------------------------------------------------------------------
 
+// `fn` over [0, n) in `nthreads` contiguous spans, on one thread below
+// `min_split` items.
 static void run_striped(size_t n, int nthreads, void (*fn)(size_t, size_t, void*),
-                        void* ctx) {
+                        void* ctx, size_t min_split = 1u << 16) {
     if (nthreads < 1) nthreads = 1;
-    if ((size_t)nthreads > 1 && n >= 1u << 16) {
+    if ((size_t)nthreads > 1 && n >= min_split) {
         std::vector<std::thread> ts;
         size_t per = (n + nthreads - 1) / nthreads;
         for (int t = 0; t < nthreads; t++) {
@@ -586,11 +588,57 @@ static void f64_i16_span(size_t lo, size_t hi, void* vctx) {
     }
 }
 
-// f64 PCM -> int16 * scale (P1's i16 upload format, scale = 32768).
-void frad_f64_to_i16(const double* in, size_t n, double scale, int16_t* out,
-                     int nthreads) {
-    F64I16Ctx ctx = {in, out, scale};
-    run_striped(n, nthreads, f64_i16_span, &ctx);
+enum { STAGE_F32 = 0, STAGE_F64 = 1, STAGE_I16 = 2 };
+
+struct StageCtx {
+    const double* track; int64_t total, channels;
+    const int64_t* starts; int64_t flen, dlen;
+    int kind; void* out;
+};
+
+static void stage_span(size_t lo, size_t hi, void* vctx) {
+    StageCtx* c = (StageCtx*)vctx;
+    const int64_t ch = c->channels;
+    for (size_t f = lo; f < hi; f++) {
+        // the frame's samples inside the track: [a, b) of the row
+        const int64_t s = c->starts[f];
+        int64_t a = s < 0 ? -s : 0, b = c->total - s;
+        if (a > c->flen) a = c->flen;
+        if (b > c->flen) b = c->flen;
+        if (b < a) b = a;
+        const size_t head = (size_t)(a * ch), n = (size_t)((b - a) * ch),
+                     row = (size_t)(c->dlen * ch), tail = row - head - n;
+        const double* in = n ? c->track + (s + a) * ch : c->track;
+        if (c->kind == STAGE_F32) {
+            float* o = (float*)c->out + f * row;
+            memset(o, 0, head * sizeof(float));
+            for (size_t i = 0; i < n; i++) o[head + i] = (float)in[i];
+            memset(o + head + n, 0, tail * sizeof(float));
+        } else if (c->kind == STAGE_F64) {
+            double* o = (double*)c->out + f * row;
+            memset(o, 0, head * sizeof(double));
+            memcpy(o + head, in, n * sizeof(double));
+            memset(o + head + n, 0, tail * sizeof(double));
+        } else {
+            int16_t* o = (int16_t*)c->out + f * row;
+            memset(o, 0, head * sizeof(int16_t));
+            F64I16Ctx cast = {in, o + head, 32768.0};
+            f64_i16_span(0, n, &cast);
+            memset(o + head + n, 0, tail * sizeof(int16_t));
+        }
+    }
+}
+
+// The lossy encode's upload frames in one pass: row f of `out` [nframes,
+// dlen, channels] holds the track's samples [starts[f], starts[f] + flen)
+// cast to float32, float64 or int16 (f64_i16_span's rint(x * 32768) and
+// clamp), zero where that window leaves the track and from flen to dlen.
+// Each worker takes a contiguous run of frames.
+void frad_stage_frames(const double* track, int64_t total, int64_t channels,
+                       const int64_t* starts, int64_t nframes, int64_t flen,
+                       int64_t dlen, int kind, void* out, int nthreads) {
+    StageCtx ctx = {track, total, channels, starts, flen, dlen, kind, out};
+    run_striped((size_t)nframes, nthreads, stage_span, &ctx, 2);
 }
 
 // ---------------------------------------------------------------------------

@@ -73,10 +73,13 @@ def check_compute_dtype(dtype: str | None) -> str:
     return dt
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(arr: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on `device`. CUDA uploads go through a pinned
     staging buffer with a non-blocking copy; a read-only array (a payload
-    viewed with np.frombuffer) is copied, never aliased."""
+    viewed with np.frombuffer) is copied, never aliased. A host tensor (a
+    pinned staging buffer the caller filled) is uploaded as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device, non_blocking=True)
     arr = np.ascontiguousarray(arr)
     if device.type != "cuda":
         return torch.from_numpy(arr if arr.flags.writeable else arr.copy())

@@ -47,9 +47,10 @@ each way under the JAX package's stage names. A stage's wall is host time:
 CUDA launches are asynchronous and the timer adds no synchronisation, so
 the device time of `enc:core` / `dec:core` shows in the copy-back stage
 that waits for it (`enc:d2h`, `dec:d2h`), as with XLA's dispatch. Some
-stages open inside others: in Profiles 1 and 2 `enc:host-conv` (the
-host's cast of the frames to the upload's type), `enc:h2d` / `dec:h2d`
-(the upload) inside `enc:core` / `dec:core`, whose rest is the launches;
+stages open inside others: in Profiles 1 and 2 `enc:stage` (the native
+pass that casts the frames from the track into the upload's buffer; the
+numpy route's `enc:gather` and `enc:host-conv` instead), `enc:h2d` /
+`dec:h2d` (the upload) inside `enc:core` / `dec:core`, whose rest is the launches;
 `enc:pack-native` / `dec:unpack-native` (the C++ pass's wrapper, which
 then logs the pass's counters in `native.p1_pack_batch.passes` /
 `native.p1_unpack_batch.passes`) inside `enc:pack` / `dec:unpack`, whose
@@ -57,8 +58,8 @@ rest is the glue around it; likewise `enc:frame-native` (armor, headers,
 CRCs: `native.frame_pack_batch.passes`) inside `enc:frame` and
 `dec:unarmor-native` (CRC check, parity strip, repair:
 `native.unarmor_batch.passes`) inside `dec:ecc`. The port adds those
-four, `enc:host-conv` and `dec:emit` (`batch_decode`'s fragment heads and
-join of the PCM) to the JAX package's names.
+four, `enc:stage`, `enc:host-conv` and `dec:emit` (`batch_decode`'s
+fragment heads and join of the PCM) to the JAX package's names.
 """
 
 from __future__ import annotations
@@ -179,9 +180,8 @@ def _asfh_for(profile: int, bit_depth_index: int, channels: int, srate: int, fsi
 
 def _to_i16(a: np.ndarray) -> np.ndarray:
     """PCM -> int16 at x32768 (2 bytes/sample upload, -96 dB floor, far
-    below the lossy profile's masking noise)."""
-    if native.enabled():
-        return native.f64_to_i16(a)
+    below the lossy profile's masking noise): the numpy route's cast, whose
+    rounding and clamp `native.stage_frames` repeats."""
     return np.clip(np.rint(a * 32768.0), -32768, 32767).astype(np.int16)
 
 
@@ -237,6 +237,38 @@ def _egr_pack_rows(rows: batch.Rows, max_words: int):
     return flat_h, used_h, nbits_h, ks_h, ovf_h, join(hs[len(packs):]), fq_ovf
 
 
+def _place_frames(pcm: np.ndarray, frs: list[tuple[int, int]], dlen: int, dtype: str,
+                  device: torch.device) -> batch.Placed:
+    """The lossy encode's frames [B, dlen, C] (`_gather`'s, zero from flen
+    on) as `dtype` (float32, float64, or int16 at x32768), uploaded row-split
+    by `place_rows`. Natively one threaded pass (`enc:stage`) casts each
+    frame from the track straight into the buffer that is uploaded: pinned
+    on CUDA, with the split's padding rows zero. Without the native module,
+    the float64 frames are gathered (`enc:gather`), then cast
+    (`enc:host-conv`)."""
+    b, flen, channels = len(frs), frs[0][1], pcm.shape[1]
+    if not native.enabled():
+        with _stage("enc:gather"):
+            arr = _gather(pcm, frs, flen)
+            if dlen != flen:
+                arr = np.pad(arr, ((0, 0), (0, dlen - flen), (0, 0)))
+        with _stage("enc:host-conv"):
+            arr = _to_i16(arr) if dtype == "int16" else arr.astype(dtype)
+        with _stage("enc:h2d"):
+            return batch.place_rows(arr, device, _up)
+    with _stage("enc:stage"):
+        shape = (batch.padded_rows(b, device), dlen, channels)
+        if device.type == "cuda":
+            buf = torch.empty(shape, dtype=getattr(torch, dtype), pin_memory=True)
+            host = buf.numpy()
+        else:
+            buf = host = np.empty(shape, dtype)
+        native.stage_frames(pcm, [s for s, _ in frs], flen, host[:b])
+        host[b:] = 0
+    with _stage("enc:h2d"):
+        return batch.place_rows(buf, device, _up, nreal=b)
+
+
 def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, srate: int,
                    bit_depth: int, loss_level: float, dtype: str, i16_upload: bool,
                    device: torch.device) -> list[tuple[bytes, int, int]]:
@@ -244,15 +276,7 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
     if not frs:
         return []
     channels = pcm.shape[1]
-    flen = frs[0][1]
-    with _stage("enc:gather"):
-        arr = _gather(pcm, frs, flen)
-    arr_p, srate_v, ll = profile1.prepare_frame(arr[0], srate, loss_level)
-    dlen = arr_p.shape[0]
-    if dlen != flen:
-        pad = np.zeros((len(frs), dlen, channels))
-        pad[:, :flen] = arr
-        arr = pad
+    dlen, srate_v, ll = profile1.frame_params(frs[0][1], srate, loss_level)
     depths = models.BIT_DEPTHS[profile]
     bits = bit_depth if bit_depth in depths else 16
     factor = profile1._scale_factor(bits)
@@ -262,10 +286,7 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
     if profile == 2:
         # one core call a card, then the host EGR coder and DEFLATE per frame
         with _stage("enc:core"):
-            with _stage("enc:host-conv"):
-                arr = arr.astype(dtype)
-            with _stage("enc:h2d"):
-                placed = batch.place_rows(arr, device, _up)
+            placed = _place_frames(pcm, frs, dlen, dtype, device)
             rows = batch.run_rows(batch.p2_encode_core, (placed,), device, srate_v, ll, factor)
         with _stage("enc:d2h"):
             fqh, tqh, lqh = rows.fetch(_down)
@@ -275,10 +296,7 @@ def _encode_frames(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int, sr
 
     i16 = i16_upload and dtype == "float32"
     with _stage("enc:core"):
-        with _stage("enc:host-conv"):
-            arr = _to_i16(arr) if i16 else arr.astype(dtype)
-        with _stage("enc:h2d"):
-            placed = batch.place_rows(arr, device, _up)
+        placed = _place_frames(pcm, frs, dlen, "int16" if i16 else dtype, device)
         rows = batch.run_rows(batch.p1_encode_core_i16 if i16 else batch.p1_encode_core,
                               (placed,), device, srate_v, ll, factor)
     m = dlen * channels

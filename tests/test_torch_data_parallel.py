@@ -89,13 +89,13 @@ def _snr(ref: np.ndarray, out: np.ndarray) -> float:
 
 
 def _blocks_seen(monkeypatch) -> list:
-    """Block counts of every `place_rows` call from here on."""
+    """(real rows, blocks, padding) of every `place_rows` call from here on."""
     seen = []
     real = tbatch.place_rows
 
-    def spy(arr, device=None, upload=None):
-        placed = real(arr, device, upload)
-        seen.append((arr.shape[0], len(placed.blocks), placed.pad))
+    def spy(arr, device=None, upload=None, nreal=None):
+        placed = real(arr, device, upload, nreal)
+        seen.append((arr.shape[0] if nreal is None else nreal, len(placed.blocks), placed.pad))
         return placed
 
     monkeypatch.setattr(tbatch, "place_rows", spy)
@@ -357,6 +357,41 @@ def test_place_rows_blocks_and_padding(monkeypatch):
     monkeypatch.setattr(tbatch, "_data_devices", lambda d: [d])
     placed = tbatch.place_rows(arr, "cpu")
     assert placed.pad == 0 and len(placed.blocks) == 1
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+@pytest.mark.parametrize("ndev,nreal", [(4, 11), (4, 12), (4, 5), (1, 11), (4, 7)])
+def test_place_rows_of_a_staging_buffer_uploads_slices(monkeypatch, kind, ndev, nreal):
+    """A staging buffer of `padded_rows(nreal)` rows (the lossy encode's:
+    a numpy array, or on CUDA a pinned tensor) is placed as `place_rows`
+    places its first `nreal` rows, each block a slice of the buffer, its
+    padding rows the buffer's zero rows; no block is copied on the host."""
+    monkeypatch.setattr(tbatch, "_data_devices", lambda d: [CPU] * ndev)
+    rows = tbatch.padded_rows(nreal, CPU)
+    split = ndev > 1 and nreal >= 2 * ndev
+    assert rows == (nreal + (-nreal) % ndev if split else nreal)
+    arr = np.arange(1.0, 1.0 + nreal * 6).reshape(nreal, 3, 2)
+    buf = np.zeros((rows, 3, 2))
+    buf[:nreal] = arr
+    if kind == "tensor":
+        buf = torch.from_numpy(buf)
+    ups = []
+
+    def upload(a, d):
+        ups.append(a)
+        return tpolicy.to_device(a, d)
+
+    placed = tbatch.place_rows(buf, CPU, upload, nreal=nreal)
+    want = tbatch.place_rows(arr, CPU)
+    assert placed.pad == want.pad and len(placed.blocks) == len(want.blocks) == len(ups)
+    for got, exp, up in zip(placed.blocks, want.blocks, ups):
+        assert torch.equal(got, exp)
+        assert np.shares_memory(np.asarray(up), np.asarray(buf))
+
+
+def test_to_device_uploads_a_host_tensor_as_it_is():
+    t = torch.arange(6.0).reshape(2, 3)
+    assert tpolicy.to_device(t, CPU) is t
 
 
 def test_explicit_tensors_and_sharded_cores_never_split(split8, monkeypatch):

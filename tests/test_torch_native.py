@@ -144,8 +144,9 @@ def test_i16_casts(numpy_path):
     pcm = np.concatenate([rng.standard_normal(5000) * 0.5,
                           [1.0, -1.0, 2.0, -2.0, 0.5 / 32768, 1.5 / 32768, -2.5 / 32768, 0.0]])
     pcm = pcm.reshape(-1, 2)
-    got = tnative.f64_to_i16(pcm)
-    assert got.shape == pcm.shape and got.dtype == np.int16
+    # the port's int16 upload cast runs inside the staging pass: one frame
+    # of the whole clip
+    got = tnative.stage_frames(pcm, [0], len(pcm), np.empty((1,) + pcm.shape, np.int16))[0]
     np.testing.assert_array_equal(got, jnative.f64_to_i16(pcm))
     np.testing.assert_array_equal(got, tpipeline._to_i16(pcm))
     with numpy_path:
@@ -153,6 +154,96 @@ def test_i16_casts(numpy_path):
     back = tnative.i16_to_f64(got)
     np.testing.assert_array_equal(back, jnative.i16_to_f64(got).reshape(got.shape))
     np.testing.assert_array_equal(back, got.astype(np.float64) / 32768.0)
+
+
+def _stage_case(name):
+    """(track, starts, flen, dlen, frames from `plan_frames`) of a staging case."""
+    rng = np.random.default_rng(len(name))
+
+    def planned(total, channels, uniform=True, fsize=2048):
+        track = rng.standard_normal((total, channels)) * 0.4
+        track[::97] *= 4.0                                  # some values past the int16 clamp
+        frs, _ = tpipeline.plan_frames(total, fsize, 16, True)
+        frs = [f for f in frs if (f[1] == frs[0][1]) == uniform]
+        flen = frs[0][1]
+        dlen = tprofile1.frame_params(flen, 44100, 0.5)[0]
+        return track, [s for s, _ in frs], flen, dlen, frs
+
+    if name == "hop_c1_b1":
+        return planned(2048 + 1000, 1)
+    if name == "hop_c2_b2":
+        return planned(2048 + 1920 + 500, 2)
+    if name == "hop_c2_b300":
+        return planned(2048 + 299 * 1920 + 700, 2)
+    if name == "hop_c8_b40":
+        return planned(2048 + 39 * 1920 + 30, 8)
+    if name == "tail":                                      # the overlap and the rest: dlen > flen
+        return planned(2048 + 9 * 1920 + 700, 2, uniform=False)
+    if name == "short_track":                               # one frame shorter than the frame size
+        return planned(1000, 2)
+    if name == "flen_1900_dlen_2048":                       # a frame off the compact grid
+        track, starts, _, _, _ = planned(2048 + 20 * 1920, 2)
+        return track, starts, 1900, 2048, None
+    # irregular starts: before the track, past its end, repeated, descending
+    track = rng.standard_normal((9000, 2)) * 0.4
+    starts = [0, -700, 8500, 9000, 12000, -5000, 4321, 4321, 17, 3000, 1, 6999]
+    return track, starts, 2048, 2304, None
+
+
+STAGE_CASES = ["hop_c1_b1", "hop_c2_b2", "hop_c2_b300", "hop_c8_b40", "tail", "short_track",
+               "flen_1900_dlen_2048", "irregular"]
+
+
+def _cast(arr, dtype):
+    """The pipeline's numpy cast of float64 frames to an upload dtype."""
+    if dtype == np.int16:
+        return np.clip(np.rint(arr * 32768.0), -32768, 32767).astype(np.int16)
+    return arr.astype(dtype)
+
+
+@pytest.mark.parametrize("nthreads", [1, 3, None])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int16])
+@pytest.mark.parametrize("case", STAGE_CASES)
+def test_stage_frames_equal_gather_and_cast(case, dtype, nthreads):
+    """The native staging pass equals, element for element, the frames
+    zero-filled outside the track and from flen on, then cast; for frames
+    of the pipeline's plan that is `_gather`, its zero pad and today's
+    cast (`_to_i16` for int16)."""
+    track, starts, flen, dlen, frs = _stage_case(case)
+    want = np.zeros((len(starts), dlen, track.shape[1]))
+    for i, s in enumerate(starts):
+        a, b = max(s, 0), min(s + flen, len(track))
+        if b > a:
+            want[i, a - s:b - s] = track[a:b]
+    if frs is not None:
+        gathered = tpipeline._gather(track, frs, flen)
+        np.testing.assert_array_equal(want[:, :flen], gathered)
+        assert not want[:, flen:].any()
+        if dtype == np.int16:
+            np.testing.assert_array_equal(_cast(want, dtype), tpipeline._to_i16(want))
+    out = np.full((len(starts), dlen, track.shape[1]), 7, dtype=dtype)
+    calls = tnative.stage_frames.calls
+    got = tnative.stage_frames(track, starts, flen, out, nthreads=nthreads)
+    assert got is out and tnative.stage_frames.calls == calls + 1
+    np.testing.assert_array_equal(out, _cast(want, dtype))
+
+
+def test_stage_frames_writes_into_a_slice_and_checks_its_output():
+    track, starts, flen, dlen, _ = _stage_case("hop_c2_b2")
+    buf = np.full((3, dlen, 2), 5.0, dtype=np.float32)
+    tnative.stage_frames(track, starts, flen, buf[:2])
+    assert (buf[2] == 5.0).all()
+    np.testing.assert_array_equal(buf[:2, :flen], tpipeline._gather(
+        track, [(s, flen) for s in starts], flen).astype(np.float32))
+    with pytest.raises(ValueError, match="float32, float64 or int16"):
+        tnative.stage_frames(track, starts, flen, np.empty((2, dlen, 2), np.int32))
+    with pytest.raises(ValueError, match="float32, float64 or int16"):
+        tnative.stage_frames(track, starts, flen, np.empty((2, 2, dlen), np.float32)
+                             .transpose(0, 2, 1))
+    with pytest.raises(ValueError, match="do not fit"):
+        tnative.stage_frames(track, starts, flen, np.empty((3, dlen, 2), np.float32))
+    with pytest.raises(ValueError, match="do not fit"):
+        tnative.stage_frames(track, starts, dlen + 1, np.empty((2, dlen, 2), np.float32))
 
 
 def _packed_batch(b=10, m=2048):

@@ -82,6 +82,41 @@ def test_packer_and_framer_give_jax_stream_on_jax_symbols(monkeypatch, srate, ch
     assert got == want
 
 
+#: name: (profile, samples of the 44.1 kHz stereo track, encode options)
+STAGED = {
+    "p1_f32": (1, 30000, {"compute_dtype": "float32"}),
+    "p1_i16": (1, 30000, {"compute_dtype": "float32", "i16_upload": True}),
+    "p1_f64": (1, 30000, {"compute_dtype": "float64"}),
+    "p2_f32": (2, 30000, {"compute_dtype": "float32"}),
+    "p2_f64": (2, 12000, {"compute_dtype": "float64"}),
+    # an `Encoder` micro-batch: three frames, no tail, no terminators
+    "p1_micro_f32": (1, 2048 + 2 * 1920 + 300, {"compute_dtype": "float32", "final": False}),
+    "p1_micro_i16": (1, 2048 + 1920 + 10, {"compute_dtype": "float32", "i16_upload": True,
+                                           "final": False}),
+    "p1_short_i16": (1, 1000, {"compute_dtype": "float32", "i16_upload": True}),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGED))
+def test_staged_frames_give_jax_stream_on_jax_symbols(monkeypatch, audio, case):
+    """The port's staged upload frames (every upload dtype, the uniform run
+    and the tail frame, a micro-batch, a track shorter than a frame) fed
+    to the JAX package's encode cores give the JAX package's stream byte
+    for byte: the frames the cores see are the JAX pipeline's."""
+    profile, samples, opts = STAGED[case]
+    pcm = audio[:samples]
+    want = jpipeline.batch_encode(pcm, profile, 44100, 16, 2048, **opts)
+    _jax_symbols(monkeypatch)
+
+    def p2_core(frames, srate, ll, factor):
+        return tuple(torch.from_numpy(np.array(a))
+                     for a in jbatch.p2_encode_core(frames.numpy(), srate, ll, factor))
+
+    monkeypatch.setattr(tbatch, "p2_encode_core", p2_core)
+    got = ft.batch_encode(pcm, profile, 44100, 16, 2048, device=CPU, **opts)
+    assert got and got == want
+
+
 def test_stream_frames_follow_plan(audio, port_stream):
     frames, terms = tpipeline.plan_frames(len(audio), 2048, 16, True)
     headers, payloads, tail = tpipeline._parse_frames(port_stream)

@@ -70,12 +70,13 @@ CASES = {
 #: the port's own stage names, outside the JAX package's vocabulary: the
 #: C++ payload passes' wrappers inside `enc:pack` / `dec:unpack`, the framing
 #: and unarmor passes' inside `enc:frame` / `dec:ecc`, the lossy
-#: encode's cast of the frames before their upload (inside `enc:core`, where
-#: the JAX package times it as part of its upload), and `batch_decode`'s emit
-#: of the PCM (fragment heads, the join of the runs), which the JAX package
-#: leaves untimed
+#: encode's native pass that casts the frames from the track into the
+#: upload's buffer (inside `enc:core`, where the JAX package gathers them in
+#: `enc:gather` and times the cast as part of its upload) and the numpy
+#: route's cast, and `batch_decode`'s emit of the PCM (fragment heads, the
+#: join of the runs), which the JAX package leaves untimed
 PORT_ONLY = {"enc:pack-native", "dec:unpack-native", "enc:frame-native", "dec:unarmor-native",
-             "enc:host-conv", "dec:emit"}
+             "enc:stage", "enc:host-conv", "dec:emit"}
 #: stages the port records where the JAX package, for this call, records none
 EXTRA = {
     "p1_i16": {"enc:pack", "enc:h2d", "dec:h2d"}, "p1_ecc": {"enc:pack", "enc:h2d", "dec:h2d"},
@@ -89,7 +90,7 @@ CHILDREN = {"enc:pack-native": "enc:pack", "dec:unpack-native": "dec:unpack",
 #: the same in the lossy profiles, whose cores upload inside themselves (the
 #: lossless fast paths time their uploads beside the core, as the JAX
 #: package does)
-LOSSY_CHILDREN = {"enc:host-conv": "enc:core", "enc:h2d": "enc:core", "dec:h2d": "dec:core"}
+LOSSY_CHILDREN = {"enc:stage": "enc:core", "enc:h2d": "enc:core", "dec:h2d": "dec:core"}
 #: stages whose counts differ by design (see the module docstring)
 COUNTS_DIFFER = {"enc:pack", "enc:core"}
 #: calls whose upload the JAX package meters from the same arrays
@@ -204,6 +205,31 @@ def test_output_is_the_same_with_and_without_a_timer(case):
     assert tpipeline.STAGES is None
     assert ft.batch_encode(x, *args, device="cpu", **ekw) == stream
     np.testing.assert_array_equal(ft.batch_decode(stream, device="cpu", **dkw)[0], pcm)
+
+
+@pytest.mark.parametrize("case", ["p1_i16", "p1_f64", "p1_ecc", "p2"])
+def test_lossy_encode_stages_its_frames_once(case, monkeypatch):
+    """With the native module every lossy encode call (the uniform run and
+    the tail frame) stages its frames in one `enc:stage` pass and records
+    no `enc:gather` or `enc:host-conv`; the numpy route keeps those two and
+    records no `enc:stage`. The streams are the same either way."""
+    x, args, ekw, _ = CASES[case]
+    streams = []
+    for numpy_route in (False, True):
+        if numpy_route:
+            monkeypatch.setenv("FRAD_TORCH_NO_NATIVE", "1")
+        try:
+            tpipeline.STAGES = timer = StageTimer()
+            streams.append(ft.batch_encode(x, *args, device="cpu", **ekw))
+        finally:
+            tpipeline.STAGES = None
+        staged = {n: timer.counts.get(n, 0) for n in ("enc:stage", "enc:gather", "enc:host-conv")}
+        calls = timer.counts["enc:core"]
+        assert calls == 2, dict(timer.counts)                      # the uniform run, the tail
+        want = ({"enc:stage": 0, "enc:gather": calls, "enc:host-conv": calls} if numpy_route
+                else {"enc:stage": calls, "enc:gather": 0, "enc:host-conv": 0})
+        assert staged == want, dict(timer.counts)
+    assert streams[0] == streams[1]
 
 
 @pytest.mark.parametrize("profile", [1, 2])
