@@ -2663,9 +2663,9 @@ def local_split_case(ft, torch, kernels, batch, devices, case: tuple, dtype: str
     real_devices, real_place = batch._data_devices, batch.place_rows
     placed = []
 
-    def place(arr, device=None, upload=None):
-        got = real_place(arr, device, upload)
-        placed.append((arr.shape[0], len(got.blocks), got.pad,
+    def place(arr, device=None, upload=None, nreal=None):
+        got = real_place(arr, device, upload, nreal)
+        placed.append((arr.shape[0] if nreal is None else nreal, len(got.blocks), got.pad,
                        sorted({str(b.device) for b in got.blocks})))
         return got
 

@@ -7,13 +7,14 @@ with `crit`, force-flush handling, and suspend / resume through
 `state_dict`.
 
 `process` defers each whole frame and decodes the deferred frames at
-drain points. Runs of >= 2 frames with one header configuration go to
-`pipeline._decode_run` in power-of-two groups (the batch cores and
-kernels on `device`, at `compute_dtype`, by default
-`policy.compute_dtype()`);
-a single frame, a fragment that needs a crossfade over several frames, a
-frame of a reserved profile and a lossless run the batch cannot split
-take the per-frame path (`profile0/1/2/4.digital`, crossfade on the host).
+drain points, with `pipeline`'s run walk (`run_length`, `batchable`,
+`decode_blended`), as `pipeline.batch_decode` does. Runs of >= 2 frames
+with one header configuration go to the batch cores and kernels in
+power-of-two groups (on `device`, at `compute_dtype`, by default
+`policy.compute_dtype()`); a single frame, a fragment that needs a
+crossfade over several frames, a frame of a reserved profile and a
+lossless run the batch cannot split take the per-frame path
+(`profile0/1/2/4.digital`, crossfade on the host).
 A reserved profile decodes as profile 0, as in the JAX package.
 `exact=True` takes the per-frame path for every frame, so the output is
 bit-identical across push sizes; FRAD_TORCH_EXACT_DECODE=1 makes that
@@ -134,36 +135,23 @@ class Decoder:
                        ret_pcm: list[np.ndarray]) -> None:
         """Decode the deferred frames collected by `process`.
 
-        Runs of >= 2 frames with one header configuration go to the batch
-        cores in power-of-two groups (`pipeline._decode_run`); the byte
-        domain (ECC verify and repair, payload unpack) is the same on both
-        paths, and the PCM agrees with the per-frame path to the float32
-        IDCT's summation order. A fragment mid-crossfade, or one longer
-        than the run's emit window, takes the per-frame path. The run
-        split mirrors `pipeline.batch_decode`: change them together.
+        Runs of >= 2 frames (`pipeline.run_length`) that `pipeline.batchable`
+        admits go to the batch cores in power-of-two groups of at most
+        MICRO_BATCH_MAX (`pipeline.decode_blended`); the byte domain (ECC
+        verify and repair, payload unpack) is the same on both paths, and
+        the PCM agrees with the per-frame path to the float32 IDCT's
+        summation order. In `exact` mode every frame takes the per-frame
+        path; otherwise a frame whose run does not batch, or whose fragment
+        is mid-crossfade, takes it alone, and the walk resumes at the next
+        frame; a group the batch refuses takes it whole.
         """
-        if not hs:
-            return
-        if self.exact:
-            for h, p in zip(hs, ps):
-                ret_pcm.append(self._decode_one(h, p))
-            return
-
         idx = 0
-        total = len(hs)
-        while idx < total:
-            key0 = pipeline._run_key(hs[idx])
-            run = 1
-            while idx + run < total and pipeline._run_key(hs[idx + run]) == key0:
-                run += 1
-
-            h0 = hs[idx]
-            frag = self.overlap_fragment
-            if (run < 2 or self.overlap_prog != 0 or h0.profile not in pipeline._BATCHABLE
-                    or (frag.size and (len(frag) > pipeline._emit_cut(h0)
-                                       or frag.shape[1] != h0.channels))):
-                # a single frame, a crossfade over several frames, or a
-                # reserved profile (decoded as profile 0)
+        while idx < len(hs):
+            run = 0 if self.exact else pipeline.run_length(hs, ps, idx)
+            if (run < 2 or self.overlap_prog != 0
+                    or not pipeline.batchable(hs[idx], self.overlap_fragment)):
+                # exact mode, a single frame, a crossfade over several
+                # frames, or a reserved profile (decoded as profile 0)
                 ret_pcm.append(self._decode_one(hs[idx], ps[idx]))
                 idx += 1
                 continue
@@ -173,29 +161,20 @@ class Decoder:
                 k = 1
                 while k * 2 <= min(end - idx, MICRO_BATCH_MAX):
                     k *= 2
-                if k < 2:
-                    ret_pcm.append(self._decode_one(hs[idx], ps[idx]))
-                    idx += 1
-                    continue
-                res = pipeline._decode_run(
-                    hs[idx: idx + k], ps[idx: idx + k], i16_transfer=False,
-                    device=self.device, fix_error=self.fix_error,
+                res = None if k < 2 else pipeline.decode_blended(
+                    hs[idx: idx + k], ps[idx: idx + k], self.overlap_fragment,
+                    i16_transfer=False, device=self.device, fix_error=self.fix_error,
                     compute_dtype=self.compute_dtype)
                 if res is None:
-                    # a lossless payload the batch cannot split: frame by
-                    # frame, as the JAX Decoder falls back when its batch
-                    # raises
+                    # the run's last frame, or a lossless payload the batch
+                    # cannot split: frame by frame, as the JAX Decoder falls
+                    # back when its batch raises
                     for j in range(idx, idx + k):
                         ret_pcm.append(self._decode_one(hs[j], ps[j]))
                     idx += k
                     continue
-                out, new_frag = res
-                frag = self.overlap_fragment
-                if frag.size and len(out):
-                    ret_pcm.append(np.asarray(pipeline._frag_head(out, frag), dtype=np.float64))
-                    ret_pcm.append(np.asarray(out[len(frag):], dtype=np.float64))
-                else:
-                    ret_pcm.append(np.asarray(out, dtype=np.float64))
+                parts, new_frag = res
+                ret_pcm += [np.asarray(p, dtype=np.float64) for p in parts]
                 self.overlap_fragment = np.asarray(new_frag, dtype=np.float64)
                 self.overlap_prog = 0
                 idx += k

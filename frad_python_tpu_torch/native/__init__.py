@@ -9,8 +9,9 @@ unpack, frame pack, frame parse, ECC unarmor), threaded in C++.
 
 The library is built at first use (`build.py`) and every symbol must
 bind: a failed build or load raises, there is no silent fallback.
-`FRAD_TORCH_NO_NATIVE=1` selects the numpy paths on purpose: callers
-test `enabled()`. Each wrapper counts its calls in its `calls` attribute,
+`FRAD_TORCH_NO_NATIVE=1` selects the numpy twins on purpose, the
+reference the tests hold the C++ passes to: callers test `enabled()`, and
+then call no wrapper. Each wrapper counts its calls in its `calls` attribute,
 as the CUDA kernels count `launches`.
 
 The four threaded passes, `p1_pack_batch`, `p1_unpack_batch`,

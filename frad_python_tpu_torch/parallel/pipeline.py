@@ -21,7 +21,15 @@ re-armors a stream on the host alone.
 
 The host byte domain runs in the C++ host module (`native`), threaded,
 in a few batched calls per run; FRAD_TORCH_NO_NATIVE=1 selects the numpy
-paths instead.
+paths instead. Each step of the walk over a stream's frames is written
+once: `_scan_frames` finds the frames (one C++ scan or its numpy twin) for
+`batch_decode` and `batch_repair`; `_frame_batch` frames a group (one C++
+pass, or frame by frame) for `batch_encode` and `batch_repair`; and the
+run walk, `run_length` (how far a run of one header configuration
+reaches), `batchable` (whether it decodes batched after the carried
+overlap fragment) and `decode_blended` (`_decode_run`, then the crossfade
+of the fragment into the run's head), serves `batch_decode` and the
+streaming `Decoder`.
 
 Streams are format-identical to the JAX package's `parallel.pipeline`:
 fed the same quantised symbols, the packer and framer give the same
@@ -58,8 +66,9 @@ rest is the glue around it; likewise `enc:frame-native` (armor, headers,
 CRCs: `native.frame_pack_batch.passes`) inside `enc:frame` and
 `dec:unarmor-native` (CRC check, parity strip, repair:
 `native.unarmor_batch.passes`) inside `dec:ecc`. The port adds those
-four, `enc:stage`, `enc:host-conv` and `dec:emit` (`batch_decode`'s
-fragment heads and join of the PCM) to the JAX package's names.
+four, `enc:stage`, `enc:host-conv` and `dec:emit` (the fragment heads of
+`decode_blended` and `batch_decode`'s join of the PCM) to the JAX
+package's names.
 """
 
 from __future__ import annotations
@@ -439,12 +448,31 @@ def _encode_lossless(pcm: np.ndarray, frs: list[tuple[int, int]], profile: int,
     return results
 
 
-def _frame_batch(payloads: list[bytes] | tuple[bytes, np.ndarray], bdis: np.ndarray,
-                 flens: np.ndarray, *,
-                 profile: int, channels: int, srate: int, overlap_ratio: int,
-                 little_endian: bool, ecc_ratio: tuple[int, int] | None) -> bytes:
-    """Frames of one header configuration in one threaded C++ pass: RS
-    armor at `ecc_ratio` (None: no ECC), ASFH header and CRC per frame."""
+def _frame_batch(parts: _BlobParts | list[tuple[bytes, int, int]], *, profile: int,
+                 channels: int, srate: int, overlap_ratio: int, little_endian: bool,
+                 ecc_ratio: tuple[int, int] | None) -> bytes:
+    """Frames of one header configuration, from a `_BlobParts` or [(payload,
+    bdi, flen)]: RS armor at `ecc_ratio` (None: no ECC), ASFH header and CRC
+    per frame. One threaded C++ pass (`enc:frame-native`); frame by frame,
+    as the JAX package frames, without the native module and for an ECC
+    data size of 0 or less, which cannot be cut into blocks."""
+    if not native.enabled() or (ecc_ratio is not None and ecc_ratio[0] <= 0):
+        header = dict(ecc=ecc_ratio is not None, ecc_ratio=ecc_ratio or (0, 0),
+                      little_endian=little_endian, overlap_ratio=overlap_ratio)
+        if isinstance(parts, _BlobParts):
+            parts = parts.as_parts()
+        return b"".join(
+            _asfh_for(profile, bdi, channels, srate, flen, **header).write(
+                p if ecc_ratio is None else ecc_mod.encode(p, *ecc_ratio))
+            for p, bdi, flen in parts)
+    if isinstance(parts, _BlobParts):
+        payloads = (parts.blob, np.arange(parts.n + 1, dtype=np.int64) * parts.per)
+        bdis = np.full(parts.n, parts.bdi, np.uint8)
+        flens = np.full(parts.n, parts.flen, np.uint32)
+    else:
+        payloads = [p for p, _, _ in parts]
+        bdis = np.array([b for _, b, _ in parts], dtype=np.uint8)
+        flens = np.array([f for _, _, f in parts], dtype=np.uint32)
     if profile in COMPACT:
         fidx_of = {fl: compact.get_samples_index(fl) for fl in set(flens.tolist())}
         fidx = np.fromiter((fidx_of[f] for f in flens.tolist()), np.uint8, len(flens))
@@ -532,33 +560,10 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
             _encode_lossless(pcm, tail, profile, bit_depth, little_endian, dtype,
                              i24_upload, dev)) if g]
 
-    # a data size of 0 cannot be cut into blocks: the per-frame path
-    # carries it as the JAX package does
-    use_native = native.enabled() and not (enable_ecc and ecc_ratio[0] <= 0)
-    framed: list[bytes] = []
     with _stage("enc:frame"):
-        for g in groups:
-            if isinstance(g, _BlobParts) and not use_native:
-                g = g.as_parts()
-            if isinstance(g, _BlobParts):
-                framed.append(_frame_batch(
-                    (g.blob, np.arange(g.n + 1, dtype=np.int64) * g.per),
-                    np.full(g.n, g.bdi, np.uint8), np.full(g.n, g.flen, np.uint32),
-                    profile=profile, channels=channels, srate=srate,
-                    overlap_ratio=overlap_ratio, little_endian=little_endian,
-                    ecc_ratio=ecc_ratio if enable_ecc else None))
-            elif use_native:
-                framed.append(_frame_batch(
-                    [p for p, _, _ in g], np.array([b for _, b, _ in g], dtype=np.uint8),
-                    np.array([f for _, _, f in g], dtype=np.uint32), profile=profile,
-                    channels=channels, srate=srate, overlap_ratio=overlap_ratio,
-                    little_endian=little_endian, ecc_ratio=ecc_ratio if enable_ecc else None))
-            else:
-                for payload, bdi, flen in g:
-                    if enable_ecc:
-                        payload = ecc_mod.encode(payload, *ecc_ratio)
-                    framed.append(_asfh_for(profile, bdi, channels, srate, flen,
-                                            **header).write(payload))
+        framed = [_frame_batch(g, profile=profile, channels=channels, srate=srate,
+                               overlap_ratio=overlap_ratio, little_endian=little_endian,
+                               ecc_ratio=ecc_ratio if enable_ecc else None) for g in groups]
     if terms:
         _, last_bdi, last_flen = groups[-1][-1]
         framed.append(_asfh_for(profile, last_bdi, channels, srate, last_flen,
@@ -566,11 +571,31 @@ def batch_encode(pcm: np.ndarray, profile: int, srate: int, bit_depth: int,
     return b"".join(framed)
 
 
-def _scan_native(stream: bytes) -> tuple[list[ASFH], list[bytes | None], int, list[int]]:
-    """Whole-stream ASFH scan in C++ -> (headers, payloads, tail_pos,
-    starts): each header carries its raw bytes in `.buffer`, starts[i] is
-    the offset of frame i's FRM_SIGN, tail_pos the offset of the
-    unparsed tail (-1 when there is none)."""
+def _scan_frames(stream: bytes) -> tuple[list[ASFH], list[bytes | None], int, list[int]]:
+    """The whole-stream frame scan -> (headers, payloads, tail_pos, starts):
+    each header carries its raw bytes in `.buffer`, a force-flush
+    terminator's payload is None, starts[i] is the offset of frame i's
+    FRM_SIGN, tail_pos the offset of the unparsable tail (-1 when there is
+    none). A sign whose header is Invalid is skipped: the scan resyncs
+    behind it. One C++ pass (`native.frame_parse_batch`), or its numpy twin,
+    the `ASFH.read` loop."""
+    if not native.enabled():
+        headers, payloads, starts = [], [], []
+        pos, n = 0, len(stream)
+        while (idx := stream.find(FRM_SIGN, pos)) >= 0:
+            a = ASFH()
+            status, _ = a.read(stream[idx: idx + 48])
+            if status == INVALID:
+                pos = idx + len(FRM_SIGN)         # not a header: resync behind its sign
+                continue
+            end = idx + a.header_bytes + (a.frmbytes if status == COMPLETE else 0)
+            if status not in (COMPLETE, FORCE_FLUSH) or end > n:
+                return headers, payloads, idx, starts
+            headers.append(a)
+            payloads.append(stream[idx + a.header_bytes: end] if status == COMPLETE else None)
+            starts.append(idx)
+            pos = end
+        return headers, payloads, -1, starts
     (cnt, pay_off, pay_len, is_ff, pfb, chans, srates, fsizes, olaps,
      eccds, ecccs, crcs, hdrlens, tail_pos) = native.frame_parse_batch(stream)
     pfb = pfb[:cnt]
@@ -597,34 +622,9 @@ def _scan_native(stream: bytes) -> tuple[list[ASFH], list[bytes | None], int, li
 
 
 def _parse_frames(stream: bytes) -> tuple[list[ASFH], list[bytes | None], bytes]:
-    """O(n) frame scan. Force-flush terminators are recorded as
-    (header, None) pairs. Returns (headers, payloads, unparsed tail)."""
-    if native.enabled():
-        headers, payloads, tail_pos, _ = _scan_native(stream)
-        return headers, payloads, (b"" if tail_pos < 0 else stream[tail_pos:])
-    headers = []
-    payloads = []
-    pos = 0
-    n = len(stream)
-    while True:
-        idx = stream.find(FRM_SIGN, pos)
-        if idx < 0:
-            return headers, payloads, b""
-        a = ASFH()
-        status, _ = a.read(stream[idx: idx + 48])
-        if status == INVALID:
-            pos = idx + len(FRM_SIGN)             # not a header: resync behind its sign
-            continue
-        if status == FORCE_FLUSH:
-            headers.append(a)
-            payloads.append(None)
-            pos = idx + a.header_bytes
-            continue
-        if status != COMPLETE or idx + a.header_bytes + a.frmbytes > n:
-            return headers, payloads, stream[idx:]
-        headers.append(a)
-        payloads.append(stream[idx + a.header_bytes: idx + a.header_bytes + a.frmbytes])
-        pos = idx + a.header_bytes + a.frmbytes
+    """`_scan_frames` -> (headers, payloads, unparsed tail bytes)."""
+    headers, payloads, tail_pos, _ = _scan_frames(stream)
+    return headers, payloads, (b"" if tail_pos < 0 else stream[tail_pos:])
 
 
 def _run_key(h: ASFH):
@@ -656,7 +656,7 @@ def _unarmor(hs: list[ASFH], ps: list[bytes], fix_error: bool) -> list[bytes]:
 def _frag_head(out: np.ndarray, frag: np.ndarray) -> np.ndarray:
     """Crossfade an incoming overlap fragment into the head of a decoded
     run (the batched overlap-add leaves frame 0's head fade-free). Returns
-    the blended head; the caller emits it followed by out[len(frag):]."""
+    the blended head, which `decode_blended` emits before out[len(frag):]."""
     take = len(frag)
     w = hanning_in_overlap(take, str(out.dtype)) if out.dtype.kind == "f" \
         else hanning_in_overlap(take)
@@ -815,18 +815,45 @@ def _decode_run(hs: list[ASFH], ps: list[bytes], *, i16_transfer: bool,
     return out_h.reshape(-1, ch), frag.astype(np.float64)
 
 
-def _emit_cut(h: ASFH) -> int:
-    """Samples a frame of `h` emits before its overlap tail: the frame size
-    less the overlap of a compact profile (a lossless header carries no
-    overlap byte, so its `overlap_ratio` may be a stale value)."""
-    if h.profile in COMPACT and h.overlap_ratio > 1:
-        return h.fsize * (h.overlap_ratio - 1) // h.overlap_ratio
-    return h.fsize
+# the run walk of `batch_decode` and of the `Decoder`'s drains
+def run_length(headers: list[ASFH], payloads: list[bytes | None], idx: int) -> int:
+    """How many frames from `idx` on form one run: payload frames that
+    share headers[idx]'s configuration (`_run_key`)."""
+    key0 = _run_key(headers[idx])
+    end = idx + 1
+    while end < len(headers) and payloads[end] is not None and _run_key(headers[end]) == key0:
+        end += 1
+    return end - idx
 
 
-#: profiles `_decode_run` takes; a reserved profile streams through the
-#: Decoder, which decodes it as profile 0
-_BATCHABLE = (0, 1, 2, 4)
+def batchable(h: ASFH, frag: np.ndarray) -> bool:
+    """Whether a run headed by `h` decodes batched after the overlap
+    fragment `frag` carried into it: its profile is one `_decode_run` takes
+    (a reserved profile streams through the Decoder, which decodes it as
+    profile 0), and the fragment has the run's channels and fits the
+    samples its first frame emits before its overlap tail (a longer one
+    needs the Decoder's crossfade over several frames). A lossless header
+    carries no overlap byte, so its `overlap_ratio` may be a stale value."""
+    if h.profile not in (0, 1, 2, 4):
+        return False
+    emit = (h.fsize * (h.overlap_ratio - 1) // h.overlap_ratio
+            if h.profile in COMPACT and h.overlap_ratio > 1 else h.fsize)
+    return not frag.size or (len(frag) <= emit and frag.shape[1] == h.channels)
+
+
+def decode_blended(hs: list[ASFH], ps: list[bytes], frag: np.ndarray, **decode_kw
+                   ) -> tuple[list[np.ndarray], np.ndarray] | None:
+    """`_decode_run(hs, ps, **decode_kw)` of a run that `batchable` admits,
+    then the crossfade of the carried fragment `frag` into its head (under
+    `dec:emit`) -> (the run's PCM parts, its trailing overlap fragment), or
+    None where `_decode_run` refuses the run."""
+    res = _decode_run(hs, ps, **decode_kw)
+    if res is None:
+        return None
+    out, new_frag = res
+    with _stage("dec:emit"):
+        parts = [_frag_head(out, frag), out[len(frag):]] if frag.size and len(out) else [out]
+    return parts, new_frag
 
 
 def _reframe(a: ASFH, payload: bytes | None) -> bytes:
@@ -903,37 +930,21 @@ def batch_decode(stream: bytes, *, fix_error: bool = False,
             ) + tail_bytes
             tail_bytes = b""
             break
-        if h0.profile not in _BATCHABLE:
-            # a reserved profile, which the Decoder decodes as profile 0
+        if not batchable(h0, frag):
+            # a reserved profile, or a fragment that spans several frames of
+            # the next run: the streaming Decoder takes the rest
             stream_rest = True
             break
-        key0 = _run_key(h0)
-        run = 1
-        while (idx + run < len(headers) and payloads[idx + run] is not None
-               and _run_key(headers[idx + run]) == key0):
-            run += 1
-
-        if frag.size and (len(frag) > _emit_cut(h0) or frag.shape[1] != h0.channels):
-            # the fragment spans several frames of the next run: the
-            # streaming Decoder's progressive crossfade takes the rest
-            stream_rest = True
-            break
-
-        res = _decode_run(headers[idx: idx + run], payloads[idx: idx + run],
-                          i16_transfer=i16_transfer, device=dev, fix_error=fix_error,
-                          compute_dtype=compute_dtype, i24_transfer=i24_transfer)
+        run = run_length(headers, payloads, idx)
+        res = decode_blended(headers[idx: idx + run], payloads[idx: idx + run], frag,
+                             i16_transfer=i16_transfer, device=dev, fix_error=fix_error,
+                             compute_dtype=compute_dtype, i24_transfer=i24_transfer)
         if res is None:
             # a lossless payload the batch cannot split: frame by frame
             stream_rest = True
             break
-        out, new_frag = res
-        with _stage("dec:emit"):
-            if frag.size and len(out):
-                out_parts.append(_frag_head(out, frag))
-                out_parts.append(out[len(frag):])
-            else:
-                out_parts.append(out)
-        frag = new_frag
+        parts, frag = res
+        out_parts += parts
         srate = h0.srate
         idx += run
 
@@ -1000,18 +1011,10 @@ def batch_repair(stream: bytes, ecc_ratio: tuple[int, int] = DEFAULT_ECC_RATIO,
         h0 = hs[0]
         if h0.ecc:
             ps = _unarmor(hs, ps, fix_error)
-        if native.enabled():
-            out.append(_frame_batch(
-                ps, np.fromiter((h.bit_depth_index for h in hs), np.uint8, len(hs)),
-                np.fromiter((h.fsize for h in hs), np.uint32, len(hs)),
-                profile=h0.profile, channels=h0.channels, srate=h0.srate,
-                overlap_ratio=h0.overlap_ratio, little_endian=h0.endian,
-                ecc_ratio=ecc_ratio))
-            return
-        for h, p in zip(hs, ps):
-            h.ecc = True
-            h.ecc_dsize, h.ecc_codesize = ecc_ratio
-            out.append(h.write(ecc_mod.encode(p, *ecc_ratio)))
+        out.append(_frame_batch(
+            [(p, h.bit_depth_index, h.fsize) for h, p in zip(hs, ps)], profile=h0.profile,
+            channels=h0.channels, srate=h0.srate, overlap_ratio=h0.overlap_ratio,
+            little_endian=h0.endian, ecc_ratio=ecc_ratio))
 
     def add(a: ASFH, payload: bytes) -> None:
         nonlocal run_key
@@ -1023,55 +1026,19 @@ def batch_repair(stream: bytes, ecc_ratio: tuple[int, int] = DEFAULT_ECC_RATIO,
         run_hs.append(a)
         run_ps.append(payload)
 
-    if native.enabled():
-        headers, payloads, _tail_pos, starts = _scan_native(stream)
-        prev = 0
-        for a, p, st in zip(headers, payloads, starts):
-            if st > prev:
-                flush_run()
-                out.append(stream[prev:st])       # passthrough bytes
-            if p is None:                         # force-flush terminator
-                flush_run()
-                out.append(a.buffer)
-                prev = st + a.header_bytes
-                continue
-            add(a, p)
-            prev = st + a.header_bytes + a.frmbytes
-        flush_run()
-        out.append(stream[prev:])                 # trailing junk or truncated frame
-        return b"".join(out)
-
-    pos = 0
-    n = len(stream)
-    while True:
-        idx = stream.find(FRM_SIGN, pos)
-        if idx < 0:
+    headers, payloads, _tail_pos, starts = _scan_frames(stream)
+    prev = 0
+    for a, p, st in zip(headers, payloads, starts):
+        if st > prev:
             flush_run()
-            out.append(stream[pos:])
-            break
-        if idx > pos:
+            out.append(stream[prev:st])           # passthrough bytes
+        if p is None:                             # force-flush terminator
             flush_run()
-            out.append(stream[pos:idx])           # passthrough bytes
-        a = ASFH()
-        status, _ = a.read(stream[idx: idx + 48])
-        if status == INVALID:
-            # not a header: its sign passes through, the scan goes on behind it
-            flush_run()
-            out.append(stream[idx: idx + len(FRM_SIGN)])
-            pos = idx + len(FRM_SIGN)
+            out.append(a.buffer)
+            prev = st + a.header_bytes
             continue
-        if status == FORCE_FLUSH:
-            flush_run()
-            out.append(stream[idx: idx + a.header_bytes])
-            pos = idx + a.header_bytes
-            continue
-        if status != COMPLETE or idx + a.header_bytes + a.frmbytes > n:
-            flush_run()
-            out.append(stream[idx:])              # truncated trailing frame
-            break
-        add(a, stream[idx + a.header_bytes: idx + a.header_bytes + a.frmbytes])
-        pos = idx + a.header_bytes + a.frmbytes
-        if pos >= n:
-            flush_run()
-            break
+        add(a, p)
+        prev = st + a.header_bytes + a.frmbytes
+    flush_run()
+    out.append(stream[prev:])                     # trailing junk or truncated frame
     return b"".join(out)

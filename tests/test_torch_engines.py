@@ -686,15 +686,37 @@ def test_batch_decode_unparsable_tail(jax_stream, i16):
     np.testing.assert_allclose(got, want, rtol=0, atol=2.0 / 32768 if i16 else ATOL)
 
 
-def test_batch_decode_long_fragment(audio):
+def decode_pushes(dec, stream: bytes, chunk: int = 32768) -> np.ndarray:
+    """`app/decode.py`'s loop: pushes of `chunk` bytes until the input is
+    spent and the decoder is empty, then `flush()`."""
+    pcm, pos = [], 0
+    while pos < len(stream) or not dec.is_empty():
+        assert pos < len(stream) + 8 * chunk, "the decoder never empties"
+        pcm.append(dec.process(stream[pos:pos + chunk]).pcm)
+        pos += chunk
+    pcm = [p for p in (*pcm, dec.flush().pcm) if p.size]
+    return np.concatenate(pcm) if pcm else np.empty((0,))
+
+
+@pytest.mark.parametrize("host", ["native", "numpy"])
+@pytest.mark.parametrize("engine", ["batch_decode", "Decoder"])
+def test_batch_decode_long_fragment(monkeypatch, audio, engine, host):
     """A 1024-sample fragment (fsize 2048, overlap 2) runs into frames of
-    256 samples (emit window 240): the streaming crossfade takes it."""
+    256 samples (emit window 240): the streaming crossfade takes it, in
+    `batch_decode`'s hand-off and in the Decoder's own drains."""
+    if host == "numpy":
+        monkeypatch.setenv("FRAD_TORCH_NO_NATIVE", "1")
     a = jpipeline.batch_encode(audio[:20000], 1, 44100, 16, 2048, overlap_ratio=2,
                                compute_dtype="float32")
     assert a[-24:] == a[-12:] * 2
     a = a[:-24]                 # without its terminators, so the fragment carries on
     b = jpipeline.batch_encode(audio[20000:], 1, 44100, 16, 256, overlap_ratio=16,
                                compute_dtype="float32")
+    if engine == "Decoder":
+        got, want = decode_pushes(decoder(ft), a + b), decode_pushes(decoder(jf), a + b)
+        assert got.shape == want.shape and len(got) > 20000
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+        return
     (got, _), (want, _) = _batch_pair(a + b)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

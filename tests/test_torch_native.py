@@ -605,7 +605,7 @@ def test_frame_pack_batch(numpy_path, profile, ecc_ratio):
     dsize, csize = ecc_ratio or (0, 0)
     kw = dict(profile=profile, channels=3, srate=48000, overlap_ratio=16,
               little_endian=True, ecc_ratio=ecc_ratio)
-    got = tpipeline._frame_batch(payloads, bdis, flens, **kw)
+    got = tpipeline._frame_batch(list(zip(payloads, bdis.tolist(), flens.tolist())), **kw)
     fidx = np.array([tpipeline.compact.get_samples_index(int(f)) for f in flens]) \
         if compact else None
     want = jnative.frame_pack_batch(
@@ -656,12 +656,39 @@ def test_frame_parse_batch(numpy_path):
     for g, w in zip(got[1:-1], want[1:-1]):
         np.testing.assert_array_equal(g[: got[0]], w[: want[0]])
     nh, np_, ntail = tpipeline._parse_frames(stream)
+    *_, ntail_pos, nstarts = tpipeline._scan_frames(stream)
     with numpy_path:
         ph, pp, ptail = tpipeline._parse_frames(stream)
+        *_, ptail_pos, pstarts = tpipeline._scan_frames(stream)
     assert np_ == pp and ntail == ptail == stream[got[-1]:]
+    assert ptail_pos == ntail_pos == got[-1] and pstarts == nstarts
+    assert len(nstarts) == 15 and all(stream.startswith(a.buffer, st) for a, st in zip(nh, nstarts))
     for a, b in zip(nh, ph):
         for name in set(tasfh.ASFH.__slots__) - {"all_set"}:   # False on a terminator
             assert getattr(a, name) == getattr(b, name), name
+
+
+@pytest.mark.parametrize("ecc_ratio,framer_passes", [(None, 2), ((96, 24), 2), ((0, 0), 0)])
+def test_pipeline_native_passes_per_call(ecc_ratio, framer_passes):
+    """Natively each `batch_decode` and each `batch_repair` scans the stream
+    in one `frame_parse_batch` call; `batch_encode` frames each group (the
+    uniform frames, the tail frame) in one `frame_pack_batch` call, or frame
+    by frame at an ECC data size of 0, and `batch_repair` each run (here the
+    frames before the junk and those after it)."""
+    from frad_python_tpu_torch import batch_decode, batch_encode, batch_repair
+
+    pcm = np.random.default_rng(4).uniform(-0.5, 0.5, (30000, 2))
+    kw = dict(compute_dtype="float32", device="cpu")
+    ecc = dict(enable_ecc=True, ecc_ratio=ecc_ratio) if ecc_ratio else {}
+    tnative.reset_calls()
+    stream = batch_encode(pcm, 1, 44100, 16, 2048, **kw, **ecc)
+    assert (tnative.frame_pack_batch.calls, tnative.frame_parse_batch.calls) == (framer_passes, 0)
+    tnative.reset_calls()
+    batch_decode(stream, fix_error=True, **kw)
+    assert (tnative.frame_pack_batch.calls, tnative.frame_parse_batch.calls) == (0, 1)
+    tnative.reset_calls()
+    batch_repair(stream + b"junk" + stream, (48, 12))
+    assert (tnative.frame_pack_batch.calls, tnative.frame_parse_batch.calls) == (2, 1)
 
 
 @pytest.mark.parametrize("crc_is16", [True, False])
